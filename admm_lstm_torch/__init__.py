@@ -2,14 +2,15 @@
 
 The port of `admm_lstm_tpu` (JAX on a TPU) to PyTorch on an NVIDIA H100,
 kept beside it with the same module names and layout.  It imports torch
-and numpy, never jax, and nothing of `admm_lstm_tpu`.  Its hot loop, the
-Gauss-Seidel interior sweep, is a hand-written CUDA kernel
-(csrc/gate_sweep.cu); beside it sits a plain PyTorch version that the CPU
-path and the tests use.
+and numpy, never jax, and nothing of `admm_lstm_tpu`.  Every TPU kernel of
+its paths is a hand-written CUDA kernel: the Gauss-Seidel and Jacobi
+interior sweeps (csrc/gate_sweep.cu) and the batched Cholesky solve and
+inverse of the exact weight solve (csrc/cholesky.cu); beside each sits a
+plain PyTorch version that the CPU path and the tests use.
 
 Layout:
   core/      ADMMState + the one-epoch `admm_step`
-  solvers/   closed-form / prox-linear subproblem solvers
+  solvers/   closed-form / prox-linear / exact (normal-equation) solvers
   kernels/   CUDA kernels (ctypes-bound) with their plain versions
   models/    the LSTM-Linear model as plain functions
   data/      dataset loaders (numpy)

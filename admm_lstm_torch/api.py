@@ -9,7 +9,9 @@ Here the chunk is a plain Python loop of eager epochs; the per-epoch
 metrics stay on the device until the end of the chunk, so the only host
 syncs inside an epoch are the line searches (solvers/prox_linear.py).
 Entry points take `device` (default 'cuda') and raise when the card is
-missing unless the caller asked for the CPU.
+missing unless the caller asked for the CPU.  They set the process-wide
+TF32 flags from `ADMMConfig.matmul_precision` for the work they run and
+restore them afterwards.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ from admm_lstm_torch.core.residuals import admm_residuals
 from admm_lstm_torch.core.state import ADMMState
 from admm_lstm_torch.core.step import epoch_step, make_admm_step, rules_for
 from admm_lstm_torch.models.lstm import LSTMParams, init_lstm_params, mse_loss
-from admm_lstm_torch.utils.config import ADMMConfig, LATER, ParameterSet
-from admm_lstm_torch.utils.device import resolve_device, set_matmul_precision
+from admm_lstm_torch.utils.config import (AUTO_FIELDS, LATER, ADMMConfig,
+                                          ParameterSet)
+from admm_lstm_torch.utils.device import matmul_precision, resolve_device
 from admm_lstm_torch.utils.logging import info, log_assert, warning
 from admm_lstm_torch.utils.timer import Timer
 
@@ -63,14 +66,13 @@ class ADMMBasedOptimizer:
                    'Sample feature sizes must match the model')
         if isinstance(parameter_set, dict):
             parameter_set = ParameterSet.from_dict(parameter_set)
-        set_matmul_precision(config.matmul_precision)
         self.config = config
         self.train_x = _as_tensor(train_x, device)
         self.train_y = _as_tensor(train_y, device)
         self._step_fn = make_admm_step(config)
-        self.state: ADMMState = init_admm_state(params.to(device),
-                                                self.train_x, parameter_set,
-                                                config)
+        with matmul_precision(config.matmul_precision):
+            self.state: ADMMState = init_admm_state(
+                params.to(device), self.train_x, parameter_set, config)
         if verbose:
             info(f'ADMMBasedOptimizer[{config.variant}] B={train_x.shape[0]} '
                  f'T={train_x.shape[1]} I={train_x.shape[2]} '
@@ -82,10 +84,12 @@ class ADMMBasedOptimizer:
 
     def step(self) -> None:
         """One ADMM epoch (the reference's optimizer.step(), admm.py:62)."""
-        self.state = self._step_fn(self.state, self.train_x, self.train_y)
+        with matmul_precision(self.config.matmul_precision):
+            self.state = self._step_fn(self.state, self.train_x, self.train_y)
 
     def residuals(self) -> Dict[str, torch.Tensor]:
-        return admm_residuals(self.state, self.train_x)
+        with matmul_precision(self.config.matmul_precision):
+            return admm_residuals(self.state, self.train_x)
 
 
 def _run_chunked(state, run_chunk, epochs: int, log_every: int, timer: Timer,
@@ -222,20 +226,36 @@ def train(train_x, train_y, val_x, val_y,
     admm_demo shape, demo.py:371-376) plus 'residuals', 'params',
     'final_params', 'best_epoch', 'state', 'seconds'.
 
-    Not in this slice of the port (NotImplementedError): preset,
-    checkpoint_dir/checkpoint_every/resume_from, and configs that need the
-    Jacobi sweep, the exact weight solve, a mesh or ADMM-L/-S.
+    preset='best': the probe-and-commit recipe, `train_best`.
+
+    Not in this slice of the port (NotImplementedError):
+    checkpoint_dir/checkpoint_every/resume_from, and configs that need a
+    mesh or ADMM-L/-S.
     """
-    if preset is not None:
-        raise NotImplementedError(
-            f"preset={preset!r} (probe-and-commit) arrives in slice 2 of the "
-            f'port (the turbo/auto leg)')
     if checkpoint_dir or checkpoint_every or resume_from:
         raise NotImplementedError(
             f'checkpoint_dir/checkpoint_every/resume_from arrive in {LATER}')
+    if preset is not None:
+        if preset != 'best':
+            raise ValueError(f"preset must be None or 'best', got {preset!r}")
+        return train_best(
+            train_x, train_y, val_x, val_y, parameter_set, config=config,
+            params=params, log_every=log_every,
+            divergence_guard=(stop_divergence if stop_divergence is not None
+                              else 3.0),
+            record_residuals=record_residuals, stop_tol=stop_tol,
+            device=device)
     rules = rules_for(config)        # raises for configs not ported yet
     device = resolve_device(device)
-    set_matmul_precision(config.matmul_precision)
+    with matmul_precision(config.matmul_precision):
+        return _train(train_x, train_y, val_x, val_y, parameter_set, config,
+                      rules, params, log_every, record_residuals, stop_tol,
+                      stop_divergence, track_best, device)
+
+
+def _train(train_x, train_y, val_x, val_y, parameter_set, config, rules,
+           params, log_every, record_residuals, stop_tol, stop_divergence,
+           track_best, device):
     if isinstance(parameter_set, dict):
         parameter_set = ParameterSet.from_dict(parameter_set)
     train_x, train_y = _as_tensor(train_x, device), _as_tensor(train_y, device)
@@ -309,6 +329,90 @@ def train(train_x, train_y, val_x, val_y,
         'state': state,
         'seconds': timer.get_elapsed_time(),
     }
+
+
+def derive_auto_config(config: ADMMConfig) -> ADMMConfig:
+    """`config` with the auto() composition (utils.config.AUTO_FIELDS)
+    applied on top, keeping every problem-shaping field (hidden size,
+    epochs, seed, dtype, variant)."""
+    return config.replace(**AUTO_FIELDS)
+
+
+def train_best(train_x, train_y, val_x, val_y,
+               parameter_set: ParameterSet | Dict,
+               config: ADMMConfig = ADMMConfig(),
+               params: Optional[LSTMParams] = None,
+               probe_epochs: int = 15,
+               divergence_guard: float = 3.0,
+               search_rounds: int = 0,
+               log_every: int = 1,
+               device='cuda',
+               **train_kw) -> Dict[str, object]:
+    """The per-dataset quality recipe as one entry point
+    (train(preset='best'); JAX api.py:507-613).
+
+    Probe each candidate - the shipped tuning as `config` says, and
+    `derive_auto_config(config)` - for a quarter of the budget (at least
+    `probe_epochs`) from the same initial weights, with the on-device
+    best-iterate carry and the divergence guard; commit to the one with
+    the lower best validation loss and rerun it for the full budget the
+    same way.
+
+    Returns the committed run's `train` result, with 'preset_choice' (the
+    winning candidate's name) and 'probe_val' (each candidate's probe best
+    validation loss).
+
+    search_rounds > 0 (a third, rho-searched candidate) needs the tuning
+    module, which arrives in a later slice of the port; so do the legacy
+    variants' candidate sets.
+    """
+    if config.variant in ('admm_l', 'admm_s'):
+        raise NotImplementedError(
+            f"preset='best' for variant {config.variant!r} arrives in "
+            f'{LATER}')
+    if search_rounds:
+        raise NotImplementedError(
+            f'search_rounds > 0 needs tune.refine_rho, which arrives in '
+            f'{LATER}')
+    if train_kw.get('resume_from'):
+        raise ValueError(
+            "resume_from is incompatible with preset='best': the probe "
+            'phase may commit to a different candidate than the config '
+            'that wrote the checkpoint.  Resume via train(...) with the '
+            "run's recorded preset_choice applied explicitly.")
+    device = resolve_device(device)
+    if isinstance(parameter_set, dict):
+        parameter_set = ParameterSet.from_dict(parameter_set)
+    if params is None:
+        gen = torch.Generator().manual_seed(config.seed)
+        params = init_lstm_params(gen, np.shape(train_x)[2],
+                                  config.hidden_size, np.shape(train_y)[1],
+                                  device=device)
+
+    candidates = {'shipped': config, 'auto': derive_auto_config(config)}
+    n_probe = max(1, min(config.epochs,
+                         max(probe_epochs, config.epochs // 4)))
+    probe_val: Dict[str, float] = {}
+    for name, cand in candidates.items():
+        res = train(train_x, train_y, val_x, val_y, parameter_set,
+                    config=cand.replace(epochs=n_probe), params=params,
+                    log_every=0, track_best=True,
+                    stop_divergence=divergence_guard, device=device)
+        v = float(np.nanmin(np.asarray(res['val_loss'])))
+        probe_val[name] = v if np.isfinite(v) else float('inf')
+    winner = min(probe_val, key=probe_val.get)
+    info(f"preset='best': probe {n_probe} epochs -> "
+         + ', '.join(f'{k} {v:.6g}' for k, v in probe_val.items())
+         + f'; committing to {winner}.')
+
+    result = train(train_x, train_y, val_x, val_y, parameter_set,
+                   config=candidates[winner], params=params,
+                   log_every=log_every, track_best=True,
+                   stop_divergence=divergence_guard, device=device,
+                   **train_kw)
+    result['preset_choice'] = winner
+    result['probe_val'] = probe_val
+    return result
 
 
 def train_sharded(*args, **kwargs):

@@ -18,17 +18,13 @@ import torch
 
 from admm_lstm_torch import __version__
 from admm_lstm_torch.params import default_epoch
-from admm_lstm_torch.utils.config import LATER, SLICE_2, ADMMConfig
+from admm_lstm_torch.utils.config import AUTO_FIELDS, LATER, ADMMConfig
 from admm_lstm_torch.utils.device import NoCudaDeviceError, resolve_device
 from admm_lstm_torch.utils.logging import ADMMError, error, info, log_assert
 
 # Flags of the JAX CLI whose paths arrive in later slices of the port.
-_LATER_FLAGS = {
-    'turbo': SLICE_2, 'auto': SLICE_2, 'exact_weight_solve': SLICE_2,
-    'preset': SLICE_2, 'tune_rho': LATER, 'mesh': LATER, 'layers': LATER,
-    'scenarios': LATER, 'checkpoint_dir': LATER, 'checkpoint_every': LATER,
-    'resume': LATER, 'save': LATER, 'record_matlab_data': LATER,
-}
+_LATER_FLAGS = ('tune_rho', 'mesh', 'layers', 'scenarios', 'checkpoint_dir',
+                'checkpoint_every', 'resume', 'save', 'record_matlab_data')
 
 
 def generate_parser() -> argparse.ArgumentParser:
@@ -79,20 +75,31 @@ def generate_parser() -> argparse.ArgumentParser:
     parser.add_argument('--track_best', action='store_true',
                         help='Return the best-validation iterate instead '
                              'of the final one (tracked on device)')
+    parser.add_argument('--exact_weight_solve', action='store_true',
+                        help='Exact Gauss-Newton weight solve (batched '
+                             'Cholesky) instead of the prox-linear step')
+    parser.add_argument('--turbo', action='store_true',
+                        help='The speed preset (ADMMConfig.turbo): Jacobi '
+                             'sweep + exact weight solve + TF32 matmuls')
+    parser.add_argument('--auto', action='store_true',
+                        help='--turbo plus residual-balancing rho with a '
+                             '10-epoch warmup (ADMMConfig.auto)')
+    parser.add_argument('--preset', default=None, choices=['best'],
+                        help="'best': probe the shipped tuning and the "
+                             'auto() composition, commit to the better '
+                             '(api.train_best)')
     parser.add_argument('--plot', action='store_true', default=True)
     parser.add_argument('--no-plot', dest='plot', action='store_false')
     later = parser.add_argument_group('not ported yet (exit non-zero)')
-    for flag in ('turbo', 'auto', 'exact_weight_solve', 'resume', 'save',
-                 'record_matlab_data'):
+    for flag in ('resume', 'save', 'record_matlab_data'):
         later.add_argument(f'--{flag}', action='store_true',
                            help=argparse.SUPPRESS)
     for flag in ('tune_rho', 'mesh', 'layers', 'scenarios',
                  'checkpoint_every'):
         later.add_argument(f'--{flag}', default=None, type=int,
                            help=argparse.SUPPRESS)
-    for flag in ('preset', 'checkpoint_dir'):
-        later.add_argument(f'--{flag}', default=None, type=str,
-                           help=argparse.SUPPRESS)
+    later.add_argument('--checkpoint_dir', default=None, type=str,
+                       help=argparse.SUPPRESS)
     return parser
 
 
@@ -111,11 +118,10 @@ def main(argv=None) -> int:
     from admm_lstm_torch.data import load_dataset, supported_datasets
     args = generate_parser().parse_args(argv)
     try:
-        for flag, where in _LATER_FLAGS.items():
-            value = getattr(args, flag)
-            if value not in (None, False):
+        for flag in _LATER_FLAGS:
+            if getattr(args, flag) not in (None, False):
                 error(f'--{flag} is not ported to admm_lstm_torch yet; it '
-                      f'arrives in {where}.')
+                      f'arrives in {LATER}.')
         if args.variant in ('admm_l', 'admm_s'):
             error(f'--variant {args.variant} is not ported to admm_lstm_torch '
                   f'yet; it arrives in {LATER}.')
@@ -160,12 +166,24 @@ def main(argv=None) -> int:
                          epochs=args.epoch, hidden_size=args.hidden,
                          seed=seed, adaptive_rho=args.adaptive_rho,
                          adapt_stop_epoch=args.adapt_stop_epoch,
+                         exact_weight_solve=args.exact_weight_solve,
                          dtype=args.dtype)
+        # The JAX CLI's compositions: --auto is ADMMConfig.auto() (an
+        # explicit --adapt_stop_epoch wins), --turbo ADMMConfig.turbo().
+        if args.auto:
+            cfg = cfg.replace(**dict(
+                AUTO_FIELDS, adapt_stop_epoch=(
+                    args.adapt_stop_epoch
+                    or AUTO_FIELDS['adapt_stop_epoch'])))
+        elif args.turbo:
+            cfg = cfg.replace(sweep_mode='jacobi', exact_weight_solve=True,
+                              matmul_precision='default')
         results = train(train_x, train_y, val_x, val_y, ps, cfg,
                         record_residuals=args.residuals,
                         stop_tol=args.stop_tol,
                         stop_divergence=args.stop_divergence,
-                        track_best=args.track_best, device=device)
+                        track_best=args.track_best, preset=args.preset,
+                        device=device)
         if args.residuals:
             for epoch, res in enumerate(results['residuals'], start=1):
                 info(f'Epoch {epoch} residuals: '

@@ -5,21 +5,28 @@ Counterpart of `admm_lstm_tpu/core/step.py` (reference
 
   1. readout update `wy`, closed form (solvers/closed_form.py says why
      the reference's search is a no-op);
-  2. the 8 gate-weight updates as two 4-gate-parallel prox-linear stages
-     (x side, then h side) with blocked line searches;
+  2. the 8 gate-weight updates as two 4-gate-parallel stages (x side,
+     then h side): prox-linear with blocked line searches, or, under
+     `exact_weight_solve`, the exact Gauss-Newton solve of
+     solvers/normal_eq.py for each stage whose width D is at most
+     `exact_solve_max_dim`;
   3. the timestep sweep t = 1..T: the interior steps in Gauss-Seidel
-     order, then a peeled final step (prox-linear h, output auxiliary
-     `a`, h-dual);
+     order (or, under sweep_mode='jacobi', all at once from the previous
+     sweep's h and c), then a peeled final step (prox-linear h, output
+     auxiliary `a`, h-dual);
   4. dual ascent for i, f, g, o, c at every t inside the sweep, the
      h-dual at t = T, and the optional y-dual.
 
-On CUDA tensors the interior sweep runs in the hand-written kernel
-(kernels/gate_sweep.interior_sweep) whenever `use_pallas_sweep` is True
-or 'auto' and T > 1; the JAX package's TPU shape floor for 'auto' does
-not carry over.  Otherwise it runs the plain loop below, which mirrors
-the JAX package's `lax.scan` body.  The JAX epoch-chunk programs become a
-plain Python loop in api.py; the only host syncs inside an epoch are the
-line searches of solvers/prox_linear.py.
+On CUDA tensors the interior sweep runs in a hand-written kernel
+(kernels/gate_sweep.interior_sweep, or .jacobi_sweep in Jacobi mode)
+whenever `use_pallas_sweep` is True or 'auto' and T > 1; the JAX
+package's TPU rules for 'auto' (the Gauss-Seidel kernel only at T >= 16,
+the Jacobi kernel never) do not carry over.  Otherwise the Gauss-Seidel
+sweep runs the plain loop below, which mirrors the JAX package's
+`lax.scan` body, and the Jacobi sweep the kernel's plain version.  The
+JAX epoch-chunk programs become a plain Python loop in api.py; the only
+host syncs inside an epoch are the line searches of
+solvers/prox_linear.py.
 """
 
 from __future__ import annotations
@@ -32,8 +39,10 @@ import torch
 from admm_lstm_torch.core.residuals import (admm_residuals_im, balanced_rho,
                                             dual_residuals)
 from admm_lstm_torch.core.state import ADMMState, DualSlabs, GateSlabs
+from admm_lstm_torch.kernels import gate_sweep
 from admm_lstm_torch.models.lstm import LSTMParams, train_val_mse_im
 from admm_lstm_torch.solvers import closed_form as cf
+from admm_lstm_torch.solvers.normal_eq import gauss_newton_ridge_update_wide
 from admm_lstm_torch.solvers.prox_linear import (h_final_update,
                                                  weight_stage_update_wide)
 from admm_lstm_torch.utils.config import ADMMConfig, unsupported_reason
@@ -67,9 +76,21 @@ class StepRules:
     adapt_tau: float = 2.0
     # Freeze the adaptation once the epoch count passes this (0 = never).
     adapt_stop_epoch: int = 0
-    # True / False / 'auto': True and 'auto' run the CUDA sweep kernel on
+    # True / False / 'auto': True and 'auto' run the CUDA sweep kernels on
     # CUDA tensors whenever T > 1.
     use_pallas_sweep: object = 'auto'
+    # True / False / 'auto': True and 'auto' run the CUDA Cholesky kernels
+    # of the exact weight solve on CUDA tensors.
+    use_pallas_chol: object = 'auto'
+    exact_weight_solve: bool = False
+    exact_solve_max_dim: int = 160
+    # 'gauss_seidel' = the reference's sequential order; 'jacobi' = every
+    # interior timestep from the PREVIOUS sweep's h[t-1], c[t-1] (within a
+    # timestep the Gauss-Seidel order i..h is kept).
+    sweep_mode: str = 'gauss_seidel'
+    # Sets the bf16 rounding of the wide Gram operands (solvers/normal_eq);
+    # every other product follows the process-wide matmul precision.
+    matmul_precision: str = 'highest'
 
 
 def rules_for(config: ADMMConfig) -> StepRules:
@@ -80,6 +101,11 @@ def rules_for(config: ADMMConfig) -> StepRules:
         h_theta0=config.h_theta0, h_theta_max=config.h_theta_max,
         max_backtrack=config.max_backtrack,
         use_pallas_sweep=config.use_pallas_sweep,
+        use_pallas_chol=config.use_pallas_chol,
+        exact_weight_solve=config.exact_weight_solve,
+        exact_solve_max_dim=config.exact_solve_max_dim,
+        sweep_mode=config.sweep_mode,
+        matmul_precision=config.matmul_precision,
         # Adaptive rho implies the Lipschitz-safeguarded wy step (the
         # reference's fixed theta is only valid while rho_y stays tiny).
         wy_lipschitz=config.wy_lipschitz or config.adaptive_rho,
@@ -152,15 +178,31 @@ def _weight_phase(state: ADMMState, x_im: torch.Tensor,
     xproj = torch.einsum('tdb,dk->tkb', x_im, wx_w)
     hproj = torch.einsum('tdb,dk->tkb', h_hist, wh_w)
 
+    def run_stage(m_inputs, proj_self, proj_other, w_w, beta_g, need_proj):
+        """-> (new wide weights, fresh self-projection or None).  Under
+        exact_weight_solve each stage picks by its own width D (axis 1 of
+        m_inputs): exact for D <= exact_solve_max_dim, prox-linear above."""
+        if (rules.exact_weight_solve
+                and m_inputs.shape[1] <= rules.exact_solve_max_dim):
+            new_w = gauss_newton_ridge_update_wide(
+                m_inputs, proj_self + proj_other, w_w, target_w, rho_g,
+                beta_g, tanh_cols, rules.matmul_precision,
+                use_pallas_chol=rules.use_pallas_chol)
+            proj_new = (torch.einsum('tdb,dk->tkb', m_inputs, new_w)
+                        if need_proj else None)
+            return new_w, proj_new
+        res = weight_stage_update_wide(m_inputs, proj_self, proj_other, w_w,
+                                       target_w, rho_g, beta_g, tanh_cols,
+                                       seq_len, rules.max_backtrack)
+        return res.weights, res.proj_new
+
     # Stage X: update x2{i,f,g,o}; hidden-side projection fixed at old wh.
-    res_x = weight_stage_update_wide(x_im, xproj, hproj, wx_w, target_w,
-                                     rho_g, state.beta.x, tanh_cols, seq_len,
-                                     rules.max_backtrack)
+    wx_new_w, xproj_new = run_stage(x_im, xproj, hproj, wx_w, state.beta.x,
+                                    need_proj=True)
     # Stage H: update h2{i,f,g,o}; input-side projection uses FRESH wx.
-    res_h = weight_stage_update_wide(h_hist, hproj, res_x.proj_new, wh_w,
-                                     target_w, rho_g, state.beta.h, tanh_cols,
-                                     seq_len, rules.max_backtrack)
-    return _from_wide(res_x.weights, hidden), _from_wide(res_h.weights, hidden)
+    wh_new_w, _ = run_stage(h_hist, hproj, xproj_new, wh_w, state.beta.h,
+                            need_proj=False)
+    return _from_wide(wx_new_w, hidden), _from_wide(wh_new_w, hidden)
 
 
 def _timestep_primal_duals(pre, old, duals_t, c_prev, rho):
@@ -212,13 +254,31 @@ def _sweep(state: ADMMState, x_im: torch.Tensor, params_new: LSTMParams,
     def recur_pre(xp_t, h_prev):
         return xp_t + torch.einsum('hb,ghk->gkb', h_prev, wh)
 
-    if _sweep_uses_kernel(rules, seq_len, x_im.device):
-        from admm_lstm_torch.kernels.gate_sweep import interior_sweep
-        rho_vec = torch.stack([rho.i, rho.f, rho.g, rho.o, rho.c, rho.h])
-        new_gates, new_duals = interior_sweep(
-            xproj[:seq_len - 1], wh,
-            tuple(s[1:seq_len] for s in old_slabs),
-            tuple(s[1:seq_len] for s in dual_slabs), rho_vec)
+    rho_vec = torch.stack([rho.i, rho.f, rho.g, rho.o, rho.c, rho.h])
+    interior = lambda slabs: tuple(s[1:seq_len] for s in slabs)
+    use_kernel = _sweep_uses_kernel(rules, seq_len, x_im.device)
+    if rules.sweep_mode == 'jacobi' and seq_len > 1:
+        # Every interior timestep reads the PREVIOUS sweep's h[t-1] and
+        # c[t-1]: the recurrent projection of all of them is one product,
+        # and the rest is one elementwise pass (JAX core/step.py:374-430).
+        h_prev_all = gates.h[:seq_len - 1]
+        c_prev_all = gates.c[:seq_len - 1]
+        wh_flat = wh.permute(1, 0, 2).reshape(hidden, 4 * hidden)
+        rec = torch.matmul(wh_flat.T, h_prev_all)       # (T-1, 4H, B)
+        pre_all = xproj[:seq_len - 1] + rec.reshape(seq_len - 1, 4, hidden,
+                                                    batch)
+        sweep = (gate_sweep.jacobi_sweep if use_kernel
+                 else gate_sweep.jacobi_sweep_plain)
+        new_gates, new_duals = sweep(
+            pre_all, interior(old_slabs), interior(dual_slabs),
+            h_prev_all, c_prev_all, rho_vec)
+        scanned = new_gates + new_duals
+        # The peeled final step consumes the freshest (h, c) at T-1.
+        h_prev, c_prev = scanned[5][-1], scanned[4][-1]
+    elif use_kernel:
+        new_gates, new_duals = gate_sweep.interior_sweep(
+            xproj[:seq_len - 1], wh, interior(old_slabs),
+            interior(dual_slabs), rho_vec)
         scanned = new_gates + new_duals
         h_prev, c_prev = scanned[5][-1], scanned[4][-1]
     else:

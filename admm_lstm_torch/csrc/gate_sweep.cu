@@ -1,28 +1,43 @@
-// Fused Gauss-Seidel interior sweep of the fast ADMM-LSTM epoch, for Hopper.
+// Fused interior timestep sweeps of the fast ADMM-LSTM epoch, for Hopper:
+// the Gauss-Seidel sweep and the Jacobi sweep.
 //
-// Replaces admm_lstm_tpu/kernels/gate_sweep.py::pallas_interior_sweep.
-// For t = 1..T-1 (here s = 0..steps-1), serially in time and
-// independently per batch column b, it computes
+// interior_sweep_kernel replaces
+// admm_lstm_tpu/kernels/gate_sweep.py::pallas_interior_sweep.  For
+// t = 1..T-1 (here s = 0..steps-1), serially in time and independently per
+// batch column b, it computes
 //   pre_g = xproj[s, g] + wh[g]^T h_{s-1}                 (g = i, f, g, o)
 //   the closed forms for i, f, g, o, the c prox-linear step (theta = 1/2),
 //   the interior h, and the five dual ascents i, f, g, o, c,
 // in the operation order of `_timestep_math` (gate_sweep.py:53-78), which
 // is the reference's Gauss-Seidel order.  h_0 = c_0 = 0.
 //
-// Layout: every slab is (steps, H, B) row-major, batch-minor; xproj is
-// (steps, 4, H, B); wh is (4, H, H) with wh[g][k][j] the weight from
-// h_{s-1}[k] to gate g's row j.  All f32.
+// jacobi_sweep_kernel replaces
+// admm_lstm_tpu/kernels/gate_sweep.py::pallas_jacobi_sweep: the same
+// per-timestep math, but every timestep reads the previous sweep's
+// c_{s-1} (c_prev) and a pre-activation whose recurrent product was
+// hoisted out (one matmul over all timesteps, in PyTorch), so there is no
+// carry and every (s, j, b) element is independent.  h_prev is part of the
+// contract but does not enter the math once the product is hoisted.
 //
-// What bounds it on an H100: bytes.  Each call reads 14 slab-sized inputs
-// (the 4 xproj gates, old f, g, c, h and 6 duals; old i and o do not enter
-// the math) and writes 11; at GoogleStock (steps 9, H 10, B 4224) that is
-// about 38 MB, about 11 us at 3.35 TB/s, while the arithmetic (8H + ~105
-// operations per element and step) is far below the FP32 peak.  The second
-// floor is the serial chain of `steps` dependent timesteps, each a small
-// matrix-vector product plus a block barrier.
+// Both kernels call one __device__ function, timestep_math, so the math
+// exists once.
 //
-// Design: one block owns a tile of TB = 32 batch columns (narrowed only
-// when H > ~600 would overflow shared memory) and loops over
+// Layout: every slab is (steps, H, B) row-major, batch-minor; xproj and
+// pre are (steps, 4, H, B); wh is (4, H, H) with wh[g][k][j] the weight
+// from h_{s-1}[k] to gate g's row j.  All f32.
+//
+// What bounds them on an H100: bytes.  The Gauss-Seidel sweep reads 14
+// slab-sized inputs (the 4 xproj gates, old f, g, c, h and 6 duals; old i
+// and o do not enter the math) and writes 11; at GoogleStock (steps 9,
+// H 10, B 4224) that is about 38 MB, about 11 us at 3.35 TB/s, while the
+// arithmetic (8H + ~105 operations per element and step) is far below the
+// FP32 peak.  Its second floor is the serial chain of `steps` dependent
+// timesteps, each a small matrix-vector product plus a block barrier.  The
+// Jacobi sweep reads 15 slabs (c_prev instead of the carry) and writes 11,
+// with ~105 operations per element: 39.5 MB at GoogleStock, 12 us.
+//
+// Gauss-Seidel design: one block owns a tile of TB = 32 batch columns
+// (narrowed only when H > ~600 would overflow shared memory) and loops over
 // time inside the block (this replaces the TPU's sequential time grid and
 // its carry reset at t == 0; blocks share nothing).  Thread (tx, ty) owns
 // column tx of the tile and hidden rows ty, ty + HY, ...; a warp spans
@@ -32,8 +47,15 @@
 // only read elementwise and stays in shared memory without a second
 // buffer.  wh sits in shared memory when it fits beside the tile
 // (16*H^2 bytes; H <= ~100) and is otherwise read through L1/L2.  The
-// ragged batch edge is masked in the kernel.  Numerics: FP32 FMA, no
-// TF32, IEEE division, full-precision expf/tanhf (no fast math).
+// ragged batch edge is masked in the kernel.
+//
+// Jacobi design: one thread per (s, j, b) element, consecutive threads on
+// consecutive b, so every one of the 26 slab accesses of a warp is one
+// contiguous 128-byte segment; a grid-stride loop covers any size and the
+// ragged edge needs no padding.  No shared memory, no barrier.
+//
+// Numerics of both: FP32 FMA, no TF32, IEEE division, full-precision
+// expf/tanhf (no fast math).
 
 #include <cuda_runtime.h>
 
@@ -41,6 +63,7 @@ namespace {
 
 constexpr int TB = 32;         // batch columns per block (one warp wide)
 constexpr int MAX_THREADS = 512;
+constexpr int JACOBI_THREADS = 256;
 
 struct SweepArgs {
   const float* xproj;        // (steps, 4, H, B)
@@ -51,8 +74,76 @@ struct SweepArgs {
   int steps, H, B;
 };
 
+struct JacobiArgs {
+  const float* pre;          // (steps, 4, H, B)
+  const float* c_prev;       // (steps, H, B) previous sweep's c_{s-1}
+  const float* rho;          // (6,) i, f, g, o, c, h
+  const float* in[12];       // gates i,f,g,o,c,h then duals i,f,g,o,c,h
+  float* out[11];            // gates i,f,g,o,c,h then duals i,f,g,o,c
+  int steps, H, B;
+};
+
+struct Rho {
+  float i, f, g, o, c, h;
+};
+
+__device__ __forceinline__ Rho load_rho(const float* rho) {
+  return Rho{rho[0], rho[1], rho[2], rho[3], rho[4], rho[5]};
+}
+
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// One interior timestep of element e: the four pre-activations, the old
+// f, g, c, h and the six duals at e (from `in`), and c_{s-1} -> the new
+// i, f, g, o, c, h and the new duals i, f, g, o, c, in that order, in res.
+__device__ __forceinline__ void timestep_math(const float pre[4],
+                                              const float* const* in,
+                                              size_t e, float cp,
+                                              const Rho& r, float res[11]) {
+  const float act_i = sigmoidf_(pre[0]);
+  const float act_f = sigmoidf_(pre[1]);
+  const float act_g = tanhf(pre[2]);
+  const float act_o = sigmoidf_(pre[3]);
+
+  const float f_o = in[1][e], g_o = in[2][e], c_o = in[4][e], h_o = in[5][e];
+  const float li = in[6][e], lf = in[7][e], lg = in[8][e], lo = in[9][e],
+              lc = in[10][e], lh = in[11][e];
+
+  // Gauss-Seidel closed forms (admm.py:353-386).  The old i and o gates
+  // do not enter their own updates.
+  const float i_n = -(li - r.i * act_i + (r.c * (f_o * cp - c_o) - lc) * g_o)
+                    / (r.i + r.c * g_o * g_o);
+  const float f_n = -(lf - r.f * act_f + (r.c * (g_o * i_n - c_o) - lc) * cp)
+                    / (r.f + r.c * cp * cp);
+  const float g_n = -(lg - r.g * act_g + (r.c * (f_n * cp - c_o) - lc) * i_n)
+                    / (r.g + r.c * i_n * i_n);
+  const float tc_o = tanhf(c_o);
+  const float o_n = -(lo - r.o * act_o + (r.h * (0.0f - h_o) - lh) * tc_o)
+                    / (r.o + r.h * tc_o * tc_o);
+
+  // c prox-linear with constant theta = 1/2 (admm.py:388-436).
+  const float z = h_o + lh / r.h;
+  const float grad_c = (tc_o * o_n - z) * o_n * (1.0f - tc_o * tc_o);
+  const float a_term = lc / r.c - f_n * cp - i_n * g_n;
+  const float c_n = (0.5f * c_o - grad_c - r.c * a_term) / (r.c + 0.5f);
+
+  // Interior h closed form (admm.py:456).
+  const float h_n = (r.h * o_n * tanhf(c_n) - lh) / r.h;
+
+  res[0] = i_n;
+  res[1] = f_n;
+  res[2] = g_n;
+  res[3] = o_n;
+  res[4] = c_n;
+  res[5] = h_n;
+  // Dual ascent i, f, g, o, c (admm.py:512-530).
+  res[6] = li + r.i * (i_n - act_i);
+  res[7] = lf + r.f * (f_n - act_f);
+  res[8] = lg + r.g * (g_n - act_g);
+  res[9] = lo + r.o * (o_n - act_o);
+  res[10] = lc + r.c * (c_n - (f_n * cp + i_n * g_n));
 }
 
 template <bool WH_SMEM>
@@ -79,8 +170,7 @@ interior_sweep_kernel(const SweepArgs a) {
     cbuf[e] = 0.0f;
   }
   const float* wh = WH_SMEM ? wh_s : a.wh;
-  const float ri = a.rho[0], rf = a.rho[1], rg = a.rho[2], ro = a.rho[3],
-              rc = a.rho[4], rh = a.rho[5];
+  const Rho rho = load_rho(a.rho);
   __syncthreads();
 
   const size_t slab = (size_t)H * B;                   // one time row
@@ -101,60 +191,41 @@ interior_sweep_kernel(const SweepArgs a) {
         }
         const size_t e = (size_t)s * slab + (size_t)j * B + b;
         const size_t xe = (size_t)s * 4 * slab + (size_t)j * B + b;
-        const float act_i = sigmoidf_(a.xproj[xe] + acc0);
-        const float act_f = sigmoidf_(a.xproj[xe + slab] + acc1);
-        const float act_g = tanhf(a.xproj[xe + 2 * slab] + acc2);
-        const float act_o = sigmoidf_(a.xproj[xe + 3 * slab] + acc3);
-
-        const float f_o = a.in[1][e], g_o = a.in[2][e], c_o = a.in[4][e],
-                    h_o = a.in[5][e];
-        const float li = a.in[6][e], lf = a.in[7][e], lg = a.in[8][e],
-                    lo = a.in[9][e], lc = a.in[10][e], lh = a.in[11][e];
+        const float pre[4] = {a.xproj[xe] + acc0, a.xproj[xe + slab] + acc1,
+                              a.xproj[xe + 2 * slab] + acc2,
+                              a.xproj[xe + 3 * slab] + acc3};
         const float cp = cbuf[j * tb + tx];
-
-        // Gauss-Seidel closed forms (admm.py:353-386).  The old i and o
-        // gates do not enter their own updates.
-        const float i_n = -(li - ri * act_i + (rc * (f_o * cp - c_o) - lc) * g_o)
-                          / (ri + rc * g_o * g_o);
-        const float f_n = -(lf - rf * act_f + (rc * (g_o * i_n - c_o) - lc) * cp)
-                          / (rf + rc * cp * cp);
-        const float g_n = -(lg - rg * act_g + (rc * (f_n * cp - c_o) - lc) * i_n)
-                          / (rg + rc * i_n * i_n);
-        const float tc_o = tanhf(c_o);
-        const float o_n = -(lo - ro * act_o + (rh * (0.0f - h_o) - lh) * tc_o)
-                          / (ro + rh * tc_o * tc_o);
-
-        // c prox-linear with constant theta = 1/2 (admm.py:388-436).
-        const float z = h_o + lh / rh;
-        const float grad_c = (tc_o * o_n - z) * o_n * (1.0f - tc_o * tc_o);
-        const float a_term = lc / rc - f_n * cp - i_n * g_n;
-        const float c_n = (0.5f * c_o - grad_c - rc * a_term) / (rc + 0.5f);
-
-        // Interior h closed form (admm.py:456).
-        const float h_n = (rh * o_n * tanhf(c_n) - lh) / rh;
-
-        a.out[0][e] = i_n;
-        a.out[1][e] = f_n;
-        a.out[2][e] = g_n;
-        a.out[3][e] = o_n;
-        a.out[4][e] = c_n;
-        a.out[5][e] = h_n;
-        // Dual ascent i, f, g, o, c (admm.py:512-530).
-        a.out[6][e] = li + ri * (i_n - act_i);
-        a.out[7][e] = lf + rf * (f_n - act_f);
-        a.out[8][e] = lg + rg * (g_n - act_g);
-        a.out[9][e] = lo + ro * (o_n - act_o);
-        a.out[10][e] = lc + rc * (c_n - (f_n * cp + i_n * g_n));
-
-        hn[j * tb + tx] = h_n;
-        cbuf[j * tb + tx] = c_n;
+        float res[11];
+        timestep_math(pre, a.in, e, cp, rho, res);
+        for (int k = 0; k < 11; ++k) a.out[k][e] = res[k];
+        hn[j * tb + tx] = res[5];
+        cbuf[j * tb + tx] = res[4];
       }
     }
     __syncthreads();
   }
 }
 
+__global__ void __launch_bounds__(JACOBI_THREADS)
+jacobi_sweep_kernel(const JacobiArgs a) {
+  const Rho rho = load_rho(a.rho);
+  const size_t slab = (size_t)a.H * a.B;
+  const size_t total = slab * a.steps;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += stride) {
+    const size_t s = e / slab;
+    const size_t xe = e + 3 * s * slab;     // (s, gate 0, j, b) in pre
+    const float pre[4] = {a.pre[xe], a.pre[xe + slab], a.pre[xe + 2 * slab],
+                          a.pre[xe + 3 * slab]};
+    float res[11];
+    timestep_math(pre, a.in, e, a.c_prev[e], rho, res);
+    for (int k = 0; k < 11; ++k) a.out[k][e] = res[k];
+  }
+}
+
 constexpr size_t MAX_SMEM = 232448;  // bytes a block may use on sm_90
+constexpr int JACOBI_MAX_BLOCKS = 132 * 16;  // a grid-stride loop covers the rest
 
 }  // namespace
 
@@ -205,6 +276,30 @@ int gate_sweep_interior(const void* xproj, const void* wh, const void* rho,
     if (err != cudaSuccess) return err;
     interior_sweep_kernel<false><<<grid, block, smem, st>>>(a);
   }
+  return cudaGetLastError();
+}
+
+// Launches the Jacobi sweep on `stream`.  `ins` and `outs` as above; pre
+// is (steps, 4, H, B) and c_prev (steps, H, B).  Returns
+// cudaGetLastError() after the launch (0 = launched).
+int gate_sweep_jacobi(const void* pre, const void* c_prev, const void* rho,
+                      const void* const* ins, void* const* outs, int steps,
+                      int hidden, int batch, void* stream) {
+  if (steps < 1 || hidden < 1 || batch < 1) return cudaErrorInvalidValue;
+  JacobiArgs a;
+  a.pre = static_cast<const float*>(pre);
+  a.c_prev = static_cast<const float*>(c_prev);
+  a.rho = static_cast<const float*>(rho);
+  for (int k = 0; k < 12; ++k) a.in[k] = static_cast<const float*>(ins[k]);
+  for (int k = 0; k < 11; ++k) a.out[k] = static_cast<float*>(outs[k]);
+  a.steps = steps;
+  a.H = hidden;
+  a.B = batch;
+  const size_t total = (size_t)steps * hidden * batch;
+  size_t blocks = (total + JACOBI_THREADS - 1) / JACOBI_THREADS;
+  if (blocks > JACOBI_MAX_BLOCKS) blocks = JACOBI_MAX_BLOCKS;
+  jacobi_sweep_kernel<<<(unsigned)blocks, JACOBI_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 

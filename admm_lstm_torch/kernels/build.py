@@ -5,7 +5,8 @@ is compiled by nvcc, for Hopper only, into a shared library under
 `admm_lstm_torch/_build/` (listed in .gitignore), named by the hash of
 its source and flags, at first use.  Nothing is compiled at import time,
 and a failed build raises.  `build_all` starts one nvcc per source, all
-together, and waits for them.
+together, and waits for them.  `launch` calls one exported function on
+PyTorch's current stream and raises if it reports a CUDA error.
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
@@ -84,3 +87,20 @@ def load_library(name: str) -> ctypes.CDLL:
         build_all([name])
         _LIBS[name] = ctypes.CDLL(_target(name)[1])
     return _LIBS[name]
+
+
+def launch(name: str, symbol: str, argtypes: Sequence, device: torch.device,
+           *args, detail: str = '') -> None:
+    """Calls `symbol` of csrc/<name>.cu with `args` (of ctypes types
+    `argtypes`) and, last, the current stream of `device`.  Every exported
+    function returns cudaGetLastError() after its launch; a non-zero
+    value raises RuntimeError, with `detail` in the message."""
+    fn = getattr(load_library(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'{symbol} launch failed: CUDA error {err} '
+                           f'({detail})')

@@ -1,9 +1,14 @@
-"""Where a GoogleStock epoch's time goes on the card.
+"""Where an epoch's time goes on the card.
 
-    python -m admm_lstm_torch.profile_epoch [--epochs 10] [--hidden 10]
+    python -m admm_lstm_torch.profile_epoch [--epochs 10] [--hidden H]
+        [--config default|turbo|auto] [--data googlestock|har]
 
-Trains the default fast-ADMM GoogleStock run on the CUDA card (3 warm-up
-epochs, `--epochs` timed, then `--epochs` more under `torch.profiler`) and
+Trains on the CUDA card with the chosen configuration (the default
+fast-ADMM run, ADMMConfig.turbo() or ADMMConfig.auto(); 3 warm-up epochs,
+`--epochs` timed, then `--epochs` more under `torch.profiler`) on
+GoogleStock (H 10 unless --hidden says otherwise) or on the JAX bench's
+HAR-shaped synthetic data (B 2048, T 10, I 561, O 6, ParameterSet 'HAR',
+H 128, exact_solve_max_dim 1024), and
 prints one JSON line: the wall ms per epoch (host clock, synchronized;
 with and without the profiler), the device-busy ms per epoch (sum of CUDA
 kernel and memcpy/memset times), the device's idle share of the profiled
@@ -23,7 +28,11 @@ import torch
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument('--epochs', type=int, default=10)
-    parser.add_argument('--hidden', type=int, default=10)
+    parser.add_argument('--hidden', type=int, default=None)
+    parser.add_argument('--config', default='default',
+                        choices=['default', 'turbo', 'auto'])
+    parser.add_argument('--data', default='googlestock',
+                        choices=['googlestock', 'har'])
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_epoch needs a CUDA card')
@@ -33,21 +42,33 @@ def main(argv=None) -> int:
     from admm_lstm_torch.core.init import init_admm_state
     from admm_lstm_torch.core.step import epoch_step, rules_for
     from admm_lstm_torch.data import load_dataset
+    from admm_lstm_torch.data.synthetic import load as synth_load
     from admm_lstm_torch.models.lstm import init_lstm_params
+    from admm_lstm_torch.params import parameter_set
     from admm_lstm_torch.utils.config import ADMMConfig
     from admm_lstm_torch.utils.device import set_matmul_precision
 
-    cfg = ADMMConfig(hidden_size=args.hidden)
+    make = {'default': ADMMConfig, 'turbo': ADMMConfig.turbo,
+            'auto': ADMMConfig.auto}[args.config]
+    if args.data == 'har':
+        args.hidden = args.hidden or 128
+        cfg = make(hidden_size=args.hidden, exact_solve_max_dim=1024)
+        tx, ty, vx, vy = synth_load(batch=2048, seq_len=10, input_size=561,
+                                    output_size=6, val_batch=128)
+        ps = parameter_set('HAR')
+    else:
+        args.hidden = args.hidden or 10
+        cfg = make(hidden_size=args.hidden)
+        (tx, ty, vx, vy), ps, _ = load_dataset('GoogleStock')
     set_matmul_precision(cfg.matmul_precision)
     rules = rules_for(cfg)
     dev = torch.device('cuda')
-    (tx, ty, vx, vy), ps, _ = load_dataset('GoogleStock')
     f = lambda a: torch.from_numpy(a).to(dev)
     x_im = f(tx).permute(1, 2, 0).contiguous()
     y_im, vy_im = f(ty).T.contiguous(), f(vy).T.contiguous()
     xall = torch.cat([x_im, f(vx).permute(1, 2, 0)], dim=-1).contiguous()
-    params = init_lstm_params(torch.Generator().manual_seed(0), 1,
-                              args.hidden, 1, device=dev)
+    params = init_lstm_params(torch.Generator().manual_seed(0), tx.shape[2],
+                              args.hidden, ty.shape[1], device=dev)
     state = init_admm_state(params, f(tx), ps, cfg)
 
     def run(state, n):
@@ -80,7 +101,8 @@ def main(argv=None) -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     print(json.dumps({
         'device': torch.cuda.get_device_name(0),
-        'epochs': args.epochs, 'hidden': args.hidden,
+        'config': args.config, 'data': args.data, 'epochs': args.epochs,
+        'hidden': args.hidden,
         'wall_ms_per_epoch': plain_wall_ms,
         'wall_ms_per_epoch_profiled': wall_ms,
         'device_busy_ms_per_epoch': busy_ms,

@@ -3,8 +3,8 @@
 The same two frozen dataclasses as the JAX package
 (`admm_lstm_tpu/utils/config.py`), field for field, so a config carries
 across unchanged.  In this package `use_pallas_sweep` selects the
-hand-written CUDA Gauss-Seidel sweep kernel (kernels/gate_sweep.py) and
-`use_pallas_chol` is kept for config parity only.
+hand-written CUDA sweep kernels (kernels/gate_sweep.py) and
+`use_pallas_chol` the CUDA Cholesky kernels (kernels/cholesky.py).
 
 Fields whose code path is not ported yet are accepted here (validation
 matches the JAX package) and rejected where they would run, by
@@ -28,8 +28,7 @@ AUTO_FIELDS = dict(sweep_mode='jacobi', exact_weight_solve=True,
                    matmul_precision='default', adaptive_rho=True,
                    adapt_stop_epoch=10)
 
-# The later slice of the port that brings each unported path.
-SLICE_2 = 'slice 2 of the port (the turbo/auto leg)'
+# Where each unported path arrives.
 LATER = 'a later slice of the port'
 
 
@@ -88,19 +87,24 @@ class ADMMConfig:
     # Mesh: axis names and sizes; None => single device.  Not ported yet.
     mesh_shape: Optional[Tuple[int, ...]] = None
     mesh_axes: Tuple[str, ...] = ('data',)
-    # Exact ridge/normal-equation weight solve.  Not ported yet.
+    # Exact ridge/normal-equation weight solve (solvers/normal_eq.py) for
+    # every weight stage whose design width D is at most
+    # exact_solve_max_dim; wider stages keep the prox-linear step.
     exact_weight_solve: bool = False
     exact_solve_max_dim: int = 160
-    # The CUDA Gauss-Seidel sweep kernel (kernels/gate_sweep.interior_sweep).
-    # True and 'auto' both launch it for CUDA tensors whenever T > 1; the
-    # JAX package's TPU shape floor for 'auto' does not carry over.
-    # False runs the plain PyTorch loop.
+    # The CUDA sweep kernels (kernels/gate_sweep.interior_sweep for the
+    # Gauss-Seidel sweep, .jacobi_sweep for the Jacobi one).  True and
+    # 'auto' both launch them for CUDA tensors whenever T > 1; the JAX
+    # package's TPU rules for 'auto' do not carry over.  False runs the
+    # plain PyTorch versions.
     use_pallas_sweep: object = 'auto'
-    # Batched Cholesky kernel of the exact weight solve.  Not ported yet;
-    # kept so configs carry across.
+    # The CUDA Cholesky kernels of the exact weight solve
+    # (kernels/cholesky.chol_solve for D <= 128, .chol_inverse for the
+    # diagonal blocks of the blocked solve above).  True and 'auto' both
+    # launch them for CUDA tensors; False runs the plain versions.
     use_pallas_chol: object = 'auto'
     # 'gauss_seidel' (reference-exact sequential sweep) or 'jacobi'
-    # (time-parallel block update; not ported yet).
+    # (every interior timestep from the previous sweep's h and c).
     sweep_mode: str = 'gauss_seidel'
     # Lipschitz-safeguarded readout step (core/step.StepRules.wy_lipschitz).
     wy_lipschitz: bool = False
@@ -136,7 +140,7 @@ class ADMMConfig:
     @classmethod
     def turbo(cls, **kw) -> 'ADMMConfig':
         """The speed preset: Jacobi sweep + exact weight solve + default
-        matmul precision (runs once slice 2 of the port lands)."""
+        matmul precision (TF32 allowed)."""
         base = dict(sweep_mode='jacobi', exact_weight_solve=True,
                     matmul_precision='default')
         base.update(kw)
@@ -145,7 +149,7 @@ class ADMMConfig:
     @classmethod
     def auto(cls, **kw) -> 'ADMMConfig':
         """turbo() plus residual-balancing rho adaptation frozen after a
-        10-epoch warmup (runs once slice 2 of the port lands)."""
+        10-epoch warmup."""
         base = dict(AUTO_FIELDS)
         base.update(kw)
         return cls(**base)
@@ -155,10 +159,6 @@ def unsupported_reason(config: ADMMConfig) -> Optional[str]:
     """Why this slice of the port cannot train `config`, or None."""
     if config.variant in ('admm_l', 'admm_s'):
         return f'variant {config.variant!r} arrives in {LATER}'
-    if config.sweep_mode == 'jacobi':
-        return f"sweep_mode='jacobi' arrives in {SLICE_2}"
-    if config.exact_weight_solve:
-        return f'exact_weight_solve=True arrives in {SLICE_2}'
     if config.mesh_shape is not None:
         return f'mesh_shape (data-parallel training) arrives in {LATER}'
     return None

@@ -7,6 +7,8 @@ raises, and the CPU runs only when the caller names it.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -29,3 +31,17 @@ def set_matmul_precision(matmul_precision: str) -> None:
     allow = matmul_precision != 'highest'
     torch.backends.cuda.matmul.allow_tf32 = allow
     torch.backends.cudnn.allow_tf32 = allow
+
+
+@contextlib.contextmanager
+def matmul_precision(name: str):
+    """`set_matmul_precision(name)` for the body, then the TF32 flags as
+    they were on entry (a run at 'default' leaves no TF32 behind it)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    set_matmul_precision(name)
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

@@ -3,16 +3,27 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build   - compile every CUDA kernel of the main path from csrc/ with
-               nvcc (one process per source, all started together);
+  1. build   - compile every CUDA kernel of the paths below from csrc/
+               with nvcc (one process per source, all started together);
   2. kernels - hold each kernel against its plain PyTorch version on the
-               card, at the main path's shape and two more, and time both
-               with CUDA events (L2 flushed before every launch);
-  3. train   - the main path: `admm_lstm_torch.api.train` on the bundled
-               GoogleStock data, H=10, default ADMMConfig, 30 epochs, from
-               the reference's seed-0 weights, held to the reference's
-               loss trajectory; the kernels' launch counts are zeroed just
-               before and read just after.
+               card, at its paths' shapes and more, and time kernel, plain
+               version and (where one exists) the one-call PyTorch
+               yardstick with CUDA events (L2 flushed before every launch);
+  3. train   - the paths, each through `admm_lstm_torch.api`, with the
+               kernels' launch counts zeroed just before each run and read
+               just after:
+               * slice 1: GoogleStock, H=10, default ADMMConfig, 30 epochs
+                 from the reference's seed-0 weights, held to the
+                 reference's loss trajectory;
+               * Path A, the turbo/auto leg on GoogleStock: auto() at
+                 'highest' held to the JAX package's trajectory and rho,
+                 auto() and turbo() at their own 'default' held to the
+                 JAX package's 30-epoch validation loss, preset='best'
+                 choosing auto;
+               * Path B, the wide exact solve: the JAX bench's HAR-shaped
+                 turbo run (B=2048, T=10, I=561, H=128, O=6, synthetic
+                 data), 5 epochs, and one epoch with the kernels against
+                 the same epoch with the plain versions.
 Then it prints the card's name and power limit, one JSON line describing
 every kernel, and as the last line {"ok": true, "device": {...}}.
 It exits non-zero, printing no result line, without a CUDA card.
@@ -33,16 +44,84 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, 'tests', 'golden', 'googlestock_fast.npz')
 EPOCHS = 30
 REF_VAL_30 = 0.346877           # the reference's 30-epoch validation loss
-KERNEL_ATOL = 1e-5              # f32: summation order and transcendental ulps
+# f32: summation order and transcendental ulps between a sweep kernel and
+# its plain version.
+KERNEL_ATOL = 1e-5
+# f32: the Cholesky kernels repeat their plain versions' roundings one by
+# one, so they should agree exactly; 1e-5 absolute (on solutions and
+# inverses of magnitude below 1: the SPD inputs M M^T + D I have condition
+# numbers below 5) leaves room only for a rounding PyTorch does otherwise.
+CHOL_ATOL = 1e-5
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate and FP32 (non
 # tensor-core) rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
-# (steps, H, B): the GoogleStock main path's shape first, then a ragged
-# batch edge and a width whose wh (16 H^2 bytes) does not fit in shared
-# memory.
-SWEEP_SHAPES = [(9, 10, 4224), (13, 5, 1000), (31, 130, 512)]
 SPIN_CYCLES = 1_000_000        # ~0.5 ms at the H100's ~2 GHz SM clock
+
+# Shapes, each kernel's main-path shape first.  Sweeps: (steps, H, B);
+# Cholesky: (N systems, D).
+SWEEP_SHAPES = [(9, 10, 4224), (13, 5, 1000), (31, 130, 512)]
+JACOBI_SHAPES = [(9, 10, 4224), (9, 128, 2048), (13, 5, 1000)]
+SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128), (37, 100)]
+INVERSE_SHAPES = [(512, 64), (16, 128), (7, 33)]
+
+# The JAX package's ADMMConfig.auto(epochs=30, hidden_size=10,
+# matmul_precision='highest') run on GoogleStock from the golden seed-0
+# weights `w0_*`, on the CPU (tests/test_torch_chip_reference.py
+# recomputes these with the JAX package and holds them equal).
+AUTO_TRAIN = [
+    0.05240365490317345, 0.052403680980205536, 0.05055248737335205,
+    0.047350089997053146, 0.042380549013614655, 0.03576134145259857,
+    0.028378261253237724, 0.02139207534492016, 0.016792142763733864,
+    0.014757433906197548, 0.013811700977385044, 0.013374772854149342,
+    0.013181203044950962, 0.012992314994335175, 0.012790260836482048,
+    0.012577584944665432, 0.012362509034574032, 0.012152327224612236,
+    0.011950729414820671, 0.011757789179682732, 0.011571304872632027,
+    0.011388520710170269, 0.011207420378923416, 0.011027233675122261,
+    0.010848266072571278, 0.010671372525393963, 0.01049739494919777,
+    0.010326826944947243, 0.010159728117287159, 0.009995860047638416,
+    0.009834851138293743]
+AUTO_VAL = [
+    0.552921712398529, 0.5529218912124634, 0.5345888137817383,
+    0.5028265118598938, 0.4534035325050354, 0.38726887106895447,
+    0.3129580020904541, 0.24187077581882477, 0.19441454112529755,
+    0.17317330837249756, 0.16325180232524872, 0.15868358314037323,
+    0.15669085085391998, 0.15474927425384521, 0.15264159440994263,
+    0.15039676427841187, 0.14811119437217712, 0.14587359130382538,
+    0.143731027841568, 0.14168693125247955, 0.1397164911031723,
+    0.13778679072856903, 0.1358727216720581, 0.13396380841732025,
+    0.132062628865242, 0.13017895817756653, 0.12832306325435638,
+    0.12650145590305328, 0.12471569329500198, 0.12296359241008759,
+    0.12124120444059372]
+# rho after each epoch (entry 0: the GoogleStock parameter set's) as the
+# power of tau = 2 it was multiplied by; i, f, g, o stay put.
+AUTO_RHO_DOUBLINGS = {
+    'c': [0, 1, 2, 3, 4, 5, 6, 6, 6, 6, 6] + [6] * 20,
+    'h': [0, 1, 2, 3, 4, 5, 6, 7, 7, 7, 8] + [8] * 20,
+    'y': [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10] + [10] * 20,
+}
+# The same package's 30-epoch validation losses at each preset's own
+# matmul precision, and preset='best' on the default config.
+AUTO_VAL_30 = 0.12124120444059372
+TURBO_VAL_30 = 0.3402582108974457
+BEST_CHOICE = 'auto'
+BEST_PROBE_VAL = {'shipped': 0.43839141726493835, 'auto': 0.15039676427841187}
+
+# Path B, the JAX bench's HAR-shaped exact-solve configuration
+# (bench.py:276-287): synthetic stand-in data, ParameterSet 'HAR'.
+HAR_SHAPE = dict(batch=2048, seq_len=10, input_size=561, output_size=6,
+                 val_batch=128)
+HAR_HIDDEN = 128
+HAR_EPOCHS = 5
+# f32: one epoch, kernels against plain versions at 'highest'; the
+# Cholesky kernels repeat their plain versions exactly, the Jacobi kernel
+# differs by FMA contraction and transcendental ulps.  Each leaf is held
+# to HAR_RTOL times its own scale: max |x| for weights and gates; for a
+# dual, max |lambda_k| + rho_k max |gate_k|, because lambda_k + rho_k
+# (gate_k - target) sums terms of the gate's size that nearly cancel in
+# the first epochs (the duals are ~1e-7 after one), so its rounding
+# error scales with rho_k |gate_k|, not with lambda_k.
+HAR_RTOL = 1e-5
 
 
 def log(msg):
@@ -70,98 +149,203 @@ def cuda_ms(fn, reps, flush):
     return float(np.median(times))
 
 
-def sweep_inputs(steps, hidden, batch, seed):
-    gen = torch.Generator().manual_seed(seed)
-
-    def rand(*shape, scale):
-        return (torch.randn(shape, generator=gen) * scale).cuda()
-
-    xproj = rand(steps, 4, hidden, batch, scale=0.3)
-    wh = rand(4, hidden, hidden, scale=0.3 / max(1.0, (hidden / 10) ** 0.5))
-    gates = tuple(rand(steps, hidden, batch, scale=0.2) for _ in range(6))
-    duals = tuple(rand(steps, hidden, batch, scale=s)
-                  for s in (0.01,) * 5 + (1e-4,))
-    rho = torch.tensor([1., 1., 1., 1., 0.008, 0.00045], device='cuda')
-    return xproj, wh, gates, duals, rho
-
-
-def sweep_bound(steps, hidden, batch):
-    """(bound_ms, bound_by) for one interior sweep.  Bytes: the inputs the
-    sweep reads (4 xproj gates, old f, g, c, h, 6 duals; old i and o do
-    not enter the math), wh and rho once, the 11 outputs once.  Operations:
-    8H per element and step for the four recurrent dot products plus 105
-    for the closed forms, activations and duals (a transcendental counts
-    as one)."""
-    elems = steps * hidden * batch
-    nbytes = 4 * (elems * (14 + 11) + 4 * hidden * hidden + 6)
-    flops = elems * (8 * hidden + 105)
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the FP32 rate."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_PER_S * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
+def sweep_bound(steps, hidden, batch):
+    """One interior sweep.  Bytes: the inputs the sweep reads (4 xproj
+    gates, old f, g, c, h, 6 duals; old i and o do not enter the math), wh
+    and rho once, the 11 outputs once.  Operations: 8H per element and
+    step for the four recurrent dot products plus 105 for the closed
+    forms, activations and duals (a transcendental counts as one)."""
+    elems = steps * hidden * batch
+    return bound(4 * (elems * (14 + 11) + 4 * hidden * hidden + 6),
+                 elems * (8 * hidden + 105))
+
+
+def jacobi_bound(steps, hidden, batch):
+    """One Jacobi sweep.  Bytes: 15 input slabs (4 pre gates, old f, g, c,
+    h, 6 duals, c_prev; h_prev is already inside pre and old i and o do
+    not enter the math), rho, 11 output slabs.  Operations: 105 per
+    element."""
+    elems = steps * hidden * batch
+    return bound(4 * (elems * (15 + 11) + 6), elems * 105)
+
+
+def solve_bound(n, dim):
+    """N SPD solves.  Bytes: the lower triangle of a (all the function
+    reads of it), b and x once.  Operations: D^3/3 for the factorization
+    and D^2 for each substitution, per system."""
+    return bound(4 * n * (dim * (dim + 1) // 2 + 2 * dim),
+                 n * (dim ** 3 / 3 + 2 * dim * dim))
+
+
+def inverse_bound(n, dim):
+    """N factorizations and triangular inverses.  Bytes: the lower
+    triangle of a once and all of L^-1 (zeros above the diagonal
+    included) once.  Operations: c^3/3 for the factorization and c^3/3
+    for L X = I."""
+    return bound(4 * n * (dim * (dim + 1) // 2 + dim * dim),
+                 n * 2 * dim ** 3 / 3)
+
+
+def _rand(gen, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen) * scale).cuda()
+
+
+def sweep_inputs(steps, hidden, batch, seed, jacobi=False):
+    gen = torch.Generator().manual_seed(seed)
+    proj = _rand(gen, steps, 4, hidden, batch, scale=0.3)
+    wh = _rand(gen, 4, hidden, hidden,
+               scale=0.3 / max(1.0, (hidden / 10) ** 0.5))
+    gates = tuple(_rand(gen, steps, hidden, batch, scale=0.2)
+                  for _ in range(6))
+    duals = tuple(_rand(gen, steps, hidden, batch, scale=s)
+                  for s in (0.01,) * 5 + (1e-4,))
+    rho = torch.tensor([1., 1., 1., 1., 0.008, 0.00045], device='cuda')
+    if jacobi:
+        h_prev, c_prev = (_rand(gen, steps, hidden, batch, scale=0.2)
+                          for _ in range(2))
+        return proj, gates, duals, h_prev, c_prev, rho
+    return proj, wh, gates, duals, rho
+
+
+def spd_inputs(n, dim, seed):
+    """M M^T + D I from a seeded generator, as the JAX package's tests make
+    them, and a right-hand side."""
+    gen = torch.Generator().manual_seed(seed)
+    m = torch.randn((n, dim, dim), generator=gen)
+    a = m @ m.transpose(1, 2) + dim * torch.eye(dim)
+    return a.cuda(), torch.randn((n, dim), generator=gen).cuda()
+
+
+def _flat(out):
+    return out[0] + out[1] if isinstance(out, tuple) else (out,)
+
+
+def kernel_row(name, shape, kernel, plain, library, tol, bound_ms_by, flush,
+               extra_check=None):
+    """Runs one comparison and the timings; raises on disagreement."""
+    got, want = _flat(kernel()), _flat(plain())
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    ms = cuda_ms(kernel, 50, flush)
+    plain_ms = cuda_ms(plain, 5, flush)
+    library_ms = cuda_ms(library, 20, flush) if library else None
+    row = dict(shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1],
+               library_ms=library_ms)
+    log(f'[kernels] {name} {row}')
+    if not finite or not err <= tol:
+        raise AssertionError(f'{name} disagrees with its plain version at '
+                             f'{list(shape)}: max abs err {err} (atol {tol}),'
+                             f' finite {finite}')
+    if extra_check is not None:
+        extra_check(got)
+    return row
+
+
 def phase_build():
     from admm_lstm_torch.kernels import build
     t0 = time.perf_counter()
-    build.build_all(['gate_sweep'])
-    log(f'[build] gate_sweep.cu built in {time.perf_counter() - t0:.2f} s')
+    build.build_all(['gate_sweep', 'cholesky'])
+    log(f'[build] gate_sweep.cu and cholesky.cu built in '
+        f'{time.perf_counter() - t0:.2f} s')
     for name, out in build.build_logs.items():
         for line in out.strip().splitlines():
             log(f'[build] {name}: {line}')
 
 
 def phase_kernels(flush):
-    from admm_lstm_torch.kernels.gate_sweep import (interior_sweep,
-                                                    interior_sweep_plain)
-    rows = []
-    for k, (steps, hidden, batch) in enumerate(SWEEP_SHAPES):
-        args = sweep_inputs(steps, hidden, batch, seed=k)
-        got = interior_sweep(*args)
-        want = interior_sweep_plain(*args)
-        torch.cuda.synchronize()
-        err = max(float((a - b).abs().max())
-                  for a, b in zip(got[0] + got[1], want[0] + want[1]))
-        finite = all(bool(torch.isfinite(a).all()) for a in got[0] + got[1])
-        ms = cuda_ms(lambda: interior_sweep(*args), 50, flush)
-        plain_ms = cuda_ms(lambda: interior_sweep_plain(*args), 5, flush)
-        bound_ms, bound_by = sweep_bound(steps, hidden, batch)
-        row = dict(shape=[steps, hidden, batch], max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        log(f'[kernels] interior_sweep {row}')
-        if not finite or not err <= KERNEL_ATOL:
-            raise AssertionError(f'interior_sweep disagrees with its plain '
-                                 f'version at {row["shape"]}: max abs err '
-                                 f'{err} (atol {KERNEL_ATOL}), finite '
-                                 f'{finite}')
-        rows.append(row)
+    from admm_lstm_torch.kernels import cholesky as ch
+    from admm_lstm_torch.kernels import gate_sweep as gs
+    rows = {k: [] for k in ('interior_sweep', 'jacobi_sweep', 'chol_solve',
+                            'chol_inverse')}
+    for k, shape in enumerate(SWEEP_SHAPES):
+        args = sweep_inputs(*shape, seed=k)
+        rows['interior_sweep'].append(kernel_row(
+            'interior_sweep', shape, lambda: gs.interior_sweep(*args),
+            lambda: gs.interior_sweep_plain(*args), None, KERNEL_ATOL,
+            sweep_bound(*shape), flush))
+    for k, shape in enumerate(JACOBI_SHAPES):
+        args = sweep_inputs(*shape, seed=10 + k, jacobi=True)
+        rows['jacobi_sweep'].append(kernel_row(
+            'jacobi_sweep', shape, lambda: gs.jacobi_sweep(*args),
+            lambda: gs.jacobi_sweep_plain(*args), None, KERNEL_ATOL,
+            jacobi_bound(*shape), flush))
+    for k, shape in enumerate(SOLVE_SHAPES):
+        a, b = spd_inputs(*shape, seed=20 + k)
+        rows['chol_solve'].append(kernel_row(
+            'chol_solve', shape, lambda: ch.chol_solve(a, b),
+            lambda: ch.chol_solve_plain(a, b),
+            lambda: torch.linalg.solve(a, b), CHOL_ATOL,
+            solve_bound(*shape), flush))
+
+    def upper_is_zero(got):
+        if float(torch.triu(got[0], diagonal=1).abs().max()) != 0.0:
+            raise AssertionError('chol_inverse wrote nonzeros above the '
+                                 'diagonal')
+
+    for k, shape in enumerate(INVERSE_SHAPES):
+        a, _ = spd_inputs(*shape, seed=30 + k)
+        rows['chol_inverse'].append(kernel_row(
+            'chol_inverse', shape, lambda: ch.chol_inverse(a),
+            lambda: ch.chol_inverse_plain(a), None, CHOL_ATOL,
+            inverse_bound(*shape), flush, extra_check=upper_is_zero))
     return rows
 
 
-def phase_train():
+def _kernels():
+    from admm_lstm_torch.kernels.cholesky import chol_inverse, chol_solve
+    from admm_lstm_torch.kernels.gate_sweep import (interior_sweep,
+                                                    jacobi_sweep)
+    return dict(interior_sweep=interior_sweep, jacobi_sweep=jacobi_sweep,
+                chol_solve=chol_solve, chol_inverse=chol_inverse)
+
+
+def run_counted(label, fn, epochs):
+    """Zeroes every kernel's launch count, runs `fn` (an api.train call),
+    reads the counts, and logs the run."""
+    kernels = _kernels()
+    for k in kernels.values():
+        k.launches = 0
+    res = fn()
+    launches = {name: k.launches for name, k in kernels.items()}
+    train_l, val_l = np.asarray(res['train_loss']), np.asarray(res['val_loss'])
+    log(f'[train] {label}: {res["seconds"] * 1e3 / epochs:.3f} ms/epoch '
+        f'(host clock, synchronized), final train {train_l[-1]:.6f} val '
+        f'{val_l[-1]:.6f}, launches {launches}')
+    if not (np.all(np.isfinite(train_l)) and np.all(np.isfinite(val_l))):
+        raise AssertionError(f'{label}: non-finite losses')
+    return res, train_l, val_l, launches
+
+
+def need(launches, name, at_least, label):
+    if launches[name] < at_least:
+        raise AssertionError(f'{label}: {name} launched {launches[name]} '
+                             f'times, expected at least {at_least}')
+
+
+def phase_slice1(tx, ty, vx, vy, ps, weights):
     from admm_lstm_torch import api
-    from admm_lstm_torch.data import load_dataset
-    from admm_lstm_torch.kernels.gate_sweep import interior_sweep
     from admm_lstm_torch.models.lstm import params_from_dict
     from admm_lstm_torch.utils.config import ADMMConfig
-
     g = np.load(GOLDEN)
-    weights = {k[3:]: g[k] for k in g.files if k.startswith('w0_')}
-    (tx, ty, vx, vy), ps, _ = load_dataset('GoogleStock')
     cfg = ADMMConfig(epochs=EPOCHS, hidden_size=10)
-
-    interior_sweep.launches = 0
-    res = api.train(tx, ty, vx, vy, ps, cfg, params=params_from_dict(weights),
-                    log_every=0, device='cuda')
-    launches = {'interior_sweep': interior_sweep.launches}
-
-    train_l, val_l = np.asarray(res['train_loss']), np.asarray(res['val_loss'])
-    ms_epoch = res['seconds'] * 1e3 / EPOCHS
-    log(f'[train] GoogleStock H=10 {EPOCHS} epochs on the card: '
-        f'{ms_epoch:.3f} ms/epoch (host clock, synchronized), final train '
-        f'{train_l[-1]:.6f} val {val_l[-1]:.6f}, launches {launches}')
-    log('[train] val trajectory ' + json.dumps([float(v) for v in val_l]))
-    if not (np.all(np.isfinite(train_l)) and np.all(np.isfinite(val_l))):
-        raise AssertionError('non-finite losses on the main path')
+    run = lambda: api.train(tx, ty, vx, vy, ps, cfg,
+                            params=params_from_dict(weights), log_every=0,
+                            device='cuda')
+    _, train_l, val_l, launches = run_counted(
+        f'slice 1: GoogleStock H=10 default config, {EPOCHS} epochs', run,
+        EPOCHS)
+    log('[train] slice 1 val trajectory '
+        + json.dumps([float(v) for v in val_l]))
     np.testing.assert_allclose(train_l, g['train_loss'][:EPOCHS + 1],
                                rtol=0.05, atol=1e-4)
     np.testing.assert_allclose(val_l, g['val_loss'][:EPOCHS + 1],
@@ -169,15 +353,158 @@ def phase_train():
     if not val_l[-1] <= REF_VAL_30 * 1.05:
         raise AssertionError(f'final val {val_l[-1]} above the reference '
                              f'{REF_VAL_30} x 1.05')
-    if launches['interior_sweep'] < EPOCHS:
-        raise AssertionError(f'the sweep kernel launched '
-                             f'{launches["interior_sweep"]} times in '
-                             f'{EPOCHS} epochs')
-
+    need(launches, 'interior_sweep', EPOCHS, 'slice 1')
     # A second, warm run of the same work for the epoch time.
-    res2 = api.train(tx, ty, vx, vy, ps, cfg, params=params_from_dict(weights),
-                     log_every=0, device='cuda')
-    log(f'[train] warm rerun: {res2["seconds"] * 1e3 / EPOCHS:.3f} ms/epoch')
+    res2 = run()
+    log(f'[train] slice 1 warm rerun: '
+        f'{res2["seconds"] * 1e3 / EPOCHS:.3f} ms/epoch')
+    return launches
+
+
+def _auto_rho_run(tx, ty, ps, weights, cfg):
+    """auto() at 'highest' stepped through ADMMBasedOptimizer, checking
+    rho after every epoch; on a mismatch it prints the epoch, the family
+    and each family's primal/dual residual ratio of that epoch first."""
+    from admm_lstm_torch import api
+    from admm_lstm_torch.core.residuals import admm_residuals, dual_residuals
+    from admm_lstm_torch.models.lstm import params_from_dict
+    opt = api.ADMMBasedOptimizer(params_from_dict(weights), (tx, ty), ps,
+                                 cfg, device='cuda')
+    bad = []
+    for epoch in range(1, EPOCHS + 1):
+        prev = opt.state
+        opt.step()
+        got = {k: float(getattr(opt.state.rho, k)) for k in 'cfghioy'}
+        for k in got:
+            n = AUTO_RHO_DOUBLINGS.get(k, [0] * (EPOCHS + 1))[epoch]
+            want = float(np.float32(ps.rho[k]) * np.float32(2.0) ** n)
+            if abs(got[k] - want) > 1e-6 * want:
+                primal = admm_residuals(opt.state, opt.train_x)
+                dual = dual_residuals(opt.state._replace(rho=prev.rho),
+                                      prev.gates)
+                ratios = {f: float(primal[f'r_{f}'] / dual[f's_{f}'])
+                          for f in 'cfghioy'}
+                log(f'[train] auto rho mismatch at epoch {epoch}, family '
+                    f'{k}: got {got[k]}, JAX {want}; primal/dual residual '
+                    f'ratios (mu = {cfg.adapt_mu}) {ratios}')
+                bad.append((epoch, k))
+    if bad:
+        raise AssertionError(f'auto() rho differs from the JAX package at '
+                             f'(epoch, family) {bad}')
+    return opt.state.rho
+
+
+def phase_path_a(tx, ty, vx, vy, ps, weights):
+    from admm_lstm_torch import api
+    from admm_lstm_torch.models.lstm import params_from_dict
+    from admm_lstm_torch.utils.config import ADMMConfig
+    run = lambda cfg, **kw: (lambda: api.train(
+        tx, ty, vx, vy, ps, cfg, params=params_from_dict(weights),
+        log_every=0, device='cuda', **kw))
+
+    cfg = ADMMConfig.auto(epochs=EPOCHS, hidden_size=10,
+                          matmul_precision='highest')
+    res, train_l, val_l, _ = run_counted(
+        "Path A: auto() at 'highest'", run(cfg), EPOCHS)
+    log('[train] auto highest val trajectory '
+        + json.dumps([float(v) for v in val_l]))
+    np.testing.assert_allclose(train_l, AUTO_TRAIN, rtol=0.05, atol=1e-4)
+    np.testing.assert_allclose(val_l, AUTO_VAL, rtol=0.05, atol=1e-4)
+    rho = _auto_rho_run(tx, ty, ps, weights, cfg)
+    for k in 'cfghioy':
+        if float(getattr(rho, k)) != float(getattr(res['state'].rho, k)):
+            raise AssertionError(f'train and ADMMBasedOptimizer end at '
+                                 f'different rho_{k}')
+    log('[train] auto highest: rho equal to the JAX package after every '
+        'epoch')
+
+    _, _, val_l, _ = run_counted("Path A: auto() at 'default'",
+                                 run(ADMMConfig.auto(epochs=EPOCHS,
+                                                     hidden_size=10)), EPOCHS)
+    if not val_l[-1] <= AUTO_VAL_30 * 1.05:
+        raise AssertionError(f'auto() val30 {val_l[-1]} above the JAX '
+                             f'package {AUTO_VAL_30} x 1.05')
+
+    _, _, val_l, launches = run_counted(
+        "Path A: turbo() at 'default'",
+        run(ADMMConfig.turbo(epochs=EPOCHS, hidden_size=10)), EPOCHS)
+    if not val_l[-1] <= TURBO_VAL_30 * 1.05:
+        raise AssertionError(f'turbo() val30 {val_l[-1]} above the JAX '
+                             f'package {TURBO_VAL_30} x 1.05')
+    need(launches, 'jacobi_sweep', EPOCHS, 'Path A turbo')
+    need(launches, 'chol_solve', 2 * EPOCHS, 'Path A turbo')
+
+    res, _, val_l, _ = run_counted(
+        "Path A: preset='best'",
+        run(ADMMConfig(epochs=EPOCHS, hidden_size=10), preset='best'), EPOCHS)
+    log(f"[train] preset='best' chose {res['preset_choice']}, probe "
+        f"{res['probe_val']} (JAX package: {BEST_CHOICE}, {BEST_PROBE_VAL})")
+    if res['preset_choice'] != BEST_CHOICE:
+        raise AssertionError(f"preset='best' chose {res['preset_choice']}")
+    return launches
+
+
+def phase_path_b():
+    from admm_lstm_torch import api
+    from admm_lstm_torch.core.init import init_admm_state
+    from admm_lstm_torch.core.step import make_admm_step
+    from admm_lstm_torch.data.synthetic import load as synth_load
+    from admm_lstm_torch.models.lstm import init_lstm_params
+    from admm_lstm_torch.params import parameter_set
+    from admm_lstm_torch.utils.config import ADMMConfig
+    from admm_lstm_torch.utils.device import matmul_precision
+
+    tx, ty, vx, vy = synth_load(seed=0, **HAR_SHAPE)
+    ps = parameter_set('HAR')
+    params = init_lstm_params(torch.Generator().manual_seed(0),
+                              HAR_SHAPE['input_size'], HAR_HIDDEN,
+                              HAR_SHAPE['output_size'], device='cuda')
+    cfg = ADMMConfig.turbo(hidden_size=HAR_HIDDEN, exact_solve_max_dim=1024,
+                           epochs=HAR_EPOCHS)
+    label = (f'Path B: HAR-shaped turbo (B {HAR_SHAPE["batch"]}, T '
+             f'{HAR_SHAPE["seq_len"]}, I {HAR_SHAPE["input_size"]}, H '
+             f'{HAR_HIDDEN}), {HAR_EPOCHS} epochs')
+    _, train_l, _, launches = run_counted(
+        label, lambda: api.train(tx, ty, vx, vy, ps, cfg, params=params,
+                                 log_every=0, device='cuda'), HAR_EPOCHS)
+    log(f'[train] Path B train trajectory '
+        f'{json.dumps([float(v) for v in train_l])}')
+    if not train_l[-1] < train_l[0]:
+        raise AssertionError(f'{label}: train loss did not fall: {train_l}')
+    need(launches, 'chol_inverse', 9 * HAR_EPOCHS, 'Path B')
+    need(launches, 'chol_solve', HAR_EPOCHS, 'Path B')
+    need(launches, 'jacobi_sweep', HAR_EPOCHS, 'Path B')
+
+    # One epoch with the kernels and with the plain versions, at 'highest'.
+    x, y = torch.from_numpy(tx).cuda(), torch.from_numpy(ty).cuda()
+    states = {}
+    for flag in (True, False):
+        c = cfg.replace(matmul_precision='highest', use_pallas_chol=flag,
+                        use_pallas_sweep=flag)
+        with matmul_precision('highest'):
+            st = init_admm_state(params, x, ps, c)
+            t0 = time.perf_counter()
+            states[flag] = make_admm_step(c)(st, x, y)
+            torch.cuda.synchronize()
+        log(f'[train] Path B one epoch at highest, kernels {flag}: '
+            f'{(time.perf_counter() - t0) * 1e3:.3f} ms')
+    got, ref = states[True], states[False]
+    amax = lambda t: float(t.abs().max())
+    leaves = [(f'param {f}', getattr(got.params, f), getattr(ref.params, f),
+               amax(getattr(ref.params, f))) for f in ('wx', 'wh', 'wy')]
+    leaves += [(f'gate {k}', getattr(got.gates, k), getattr(ref.gates, k),
+                amax(getattr(ref.gates, k))) for k in 'ifgocha']
+    leaves += [(f'dual {k}', getattr(got.duals, k), getattr(ref.duals, k),
+                amax(getattr(ref.duals, k)) + float(getattr(ref.rho, k))
+                * amax(getattr(ref.gates, k))) for k in 'ifgoch']
+    errs = {name: (float((a - b).abs().max()), HAR_RTOL * scale)
+            for name, a, b, scale in leaves}
+    log(f'[train] Path B kernels vs plain, one epoch, (max abs diff, '
+        f'tolerance) per leaf: {errs}')
+    bad = {name: e for name, e in errs.items() if not e[0] <= e[1]}
+    if bad:
+        raise AssertionError(f'Path B: the kernel epoch differs from the '
+                             f'plain epoch beyond tolerance at {bad}')
     return launches
 
 
@@ -193,6 +520,7 @@ def main() -> int:
         print('chip_smoke: no CUDA device available', file=sys.stderr)
         return 1
     os.environ.setdefault('ADMM_TORCH_NO_FILELOG', '1')
+    from admm_lstm_torch.data import load_dataset
     from admm_lstm_torch.utils.device import set_matmul_precision
     from admm_lstm_torch.utils.logging import set_console_enabled
     set_console_enabled(False)
@@ -203,20 +531,41 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device='cuda')
     rows = phase_kernels(flush)
     del flush
-    launches = phase_train()
+
+    g = np.load(GOLDEN)
+    weights = {k[3:]: g[k] for k in g.files if k.startswith('w0_')}
+    (tx, ty, vx, vy), ps, _ = load_dataset('GoogleStock')
+    # Each kernel's launch count comes from the run of its own path.
+    launches = {'slice1': phase_slice1(tx, ty, vx, vy, ps, weights),
+                'path_a': phase_path_a(tx, ty, vx, vy, ps, weights),
+                'path_b': phase_path_b()}
 
     card = card_name_and_power()
     log(f'[card] {card}')
-    main_row = rows[0]
-    kernels = [dict(
-        name='interior_sweep', route='cuda',
-        source='admm_lstm_torch/csrc/gate_sweep.cu',
-        replaces='admm_lstm_tpu/kernels/gate_sweep.py:184',
-        launches=launches['interior_sweep'],
-        max_abs_err=main_row['max_abs_err'], ms=main_row['ms'],
-        plain_ms=main_row['plain_ms'], bound_ms=main_row['bound_ms'],
-        bound_by=main_row['bound_by'], library_ms=None,
-        shape=main_row['shape'], other_shapes=rows[1:])]
+    meta = {
+        'interior_sweep': ('admm_lstm_torch/csrc/gate_sweep.cu',
+                           'admm_lstm_tpu/kernels/gate_sweep.py:184',
+                           launches['slice1']),
+        'jacobi_sweep': ('admm_lstm_torch/csrc/gate_sweep.cu',
+                         'admm_lstm_tpu/kernels/gate_sweep.py:260',
+                         launches['path_a']),
+        'chol_solve': ('admm_lstm_torch/csrc/cholesky.cu',
+                       'admm_lstm_tpu/kernels/cholesky.py:168',
+                       launches['path_a']),
+        'chol_inverse': ('admm_lstm_torch/csrc/cholesky.cu',
+                         'admm_lstm_tpu/kernels/cholesky.py:338',
+                         launches['path_b']),
+    }
+    kernels = []
+    for name, (source, replaces, counts) in meta.items():
+        main_row = rows[name][0]
+        kernels.append(dict(
+            name=name, route='cuda', source=source, replaces=replaces,
+            launches=counts[name], max_abs_err=main_row['max_abs_err'],
+            ms=main_row['ms'], plain_ms=main_row['plain_ms'],
+            bound_ms=main_row['bound_ms'], bound_by=main_row['bound_by'],
+            library_ms=main_row['library_ms'], shape=main_row['shape'],
+            other_shapes=rows[name][1:]))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -122,8 +122,7 @@ def test_torch_train_needs_a_card_unless_asked_for_cpu():
         api.train(tx, ty, vx, vy, ps, ADMMConfig(epochs=1))
 
 
-@pytest.mark.parametrize('kw', [dict(preset='best'),
-                                dict(checkpoint_dir='ckpt'),
+@pytest.mark.parametrize('kw', [dict(checkpoint_dir='ckpt'),
                                 dict(resume_from='ckpt')])
 def test_torch_train_unported_options_raise(kw):
     (tx, ty, vx, vy), ps, _ = load_dataset('Synthetic', batch=8, val_batch=4)
@@ -132,6 +131,66 @@ def test_torch_train_unported_options_raise(kw):
                   **kw)
     with pytest.raises(NotImplementedError, match='train_sharded'):
         api.train_sharded(tx, ty, vx, vy, ps, ADMMConfig(epochs=1))
+
+
+@pytest.mark.parametrize('cfgkw', [dict(epochs=8), dict(epochs=40)],
+                         ids=['probe8', 'probe15'])
+def test_torch_train_preset_best_matches_jax(cfgkw):
+    """preset='best' on small Synthetic data: the same choice, probe
+    losses at rtol 1e-4 and the committed trajectory at rtol 1e-4 (f32,
+    summation order).  40 epochs probe for the 15-epoch floor."""
+    (tx, ty, vx, vy), _, _ = load_dataset('Synthetic', batch=64, seq_len=5,
+                                          val_batch=16)
+    w = _synthetic_weights()
+    cfg = dict(cfgkw, hidden_size=5)
+    ref = j_api.train(tx, ty, vx, vy, j_parameter_set('Synthetic'),
+                      JConfig(**cfg), params=j_params_from_dict(w),
+                      log_every=0, preset='best')
+    got = api.train(tx, ty, vx, vy, parameter_set('Synthetic'),
+                    ADMMConfig(**cfg), params=params_from_dict(w),
+                    log_every=0, preset='best', device='cpu')
+    assert got['preset_choice'] == ref['preset_choice']
+    assert set(got['probe_val']) == {'shipped', 'auto'}
+    for k, v in ref['probe_val'].items():
+        np.testing.assert_allclose(got['probe_val'][k], v, rtol=1e-4)
+    np.testing.assert_allclose(got['val_loss'], ref['val_loss'], rtol=1e-4)
+    assert got['best_epoch'] == ref['best_epoch']
+
+
+def test_torch_train_best_unported_legs_raise():
+    (tx, ty, vx, vy), ps, _ = load_dataset('Synthetic', batch=8, val_batch=4)
+    with pytest.raises(NotImplementedError, match='refine_rho'):
+        api.train_best(tx, ty, vx, vy, ps, ADMMConfig(epochs=1),
+                       search_rounds=1, device='cpu')
+    with pytest.raises(ValueError, match='resume_from'):
+        api.train_best(tx, ty, vx, vy, ps, ADMMConfig(epochs=1),
+                       resume_from='ckpt', device='cpu')
+    with pytest.raises(ValueError, match='preset'):
+        api.train(tx, ty, vx, vy, ps, ADMMConfig(epochs=1), preset='fast',
+                  device='cpu')
+    assert api.derive_auto_config(ADMMConfig(hidden_size=7, epochs=3)) == \
+        ADMMConfig.auto(hidden_size=7, epochs=3)
+
+
+@pytest.mark.parametrize('start', [(False, True), (True, False)])
+def test_torch_train_restores_tf32_flags(start):
+    """A turbo() run (matmul_precision='default' turns TF32 on) and a
+    default run leave the process-wide TF32 flags as they found them."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    (tx, ty, vx, vy), ps, _ = load_dataset('Synthetic', batch=16, seq_len=4,
+                                          val_batch=4)
+    try:
+        for cfg in (ADMMConfig.turbo(epochs=1, hidden_size=3),
+                    ADMMConfig(epochs=1, hidden_size=3)):
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = start
+            api.train(tx, ty, vx, vy, ps, cfg, log_every=0, device='cpu')
+            assert (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32) == start
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def _cli(args, tmp_path):
@@ -156,12 +215,26 @@ def test_torch_cli_without_card_or_cpu_fails(tmp_path):
     assert 'no CUDA device was found' in proc.stdout
 
 
-@pytest.mark.parametrize('flag', [['--turbo'], ['--mesh', '2'],
-                                  ['--preset', 'best'], ['--layers', '2'],
+@pytest.mark.parametrize('flag', [['--mesh', '2'], ['--layers', '2'],
                                   ['--variant', 'admm_l']])
 def test_torch_cli_later_slice_flags_fail(flag):
     from admm_lstm_torch.cli import main
     assert main(['--cpu', '-y', '-e', '1', '--no-plot', *flag]) != 0
+
+
+@pytest.mark.parametrize('flag', [['--turbo'], ['--preset', 'best'],
+                                  ['--exact_weight_solve']])
+def test_torch_cli_turbo_leg_flags_run(flag):
+    from admm_lstm_torch.cli import main
+    assert main(['--cpu', '-y', '-e', '2', '--no-plot', '-d', 'Synthetic',
+                 *flag]) == 0
+
+
+def test_torch_cli_auto_run(tmp_path):
+    proc = _cli(['--cpu', '-y', '-d', 'GoogleStock', '-e', '2', '--hidden',
+                 '10', '--no-plot', '--auto'], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'Epoch 2 has done' in proc.stdout
 
 
 @pytest.mark.slow

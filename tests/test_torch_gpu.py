@@ -1,4 +1,5 @@
-"""Tests of the port's CUDA kernels; they need a CUDA card and skip
+"""Tests of the port's CUDA kernels (the Gauss-Seidel and Jacobi sweeps,
+the batched Cholesky solve and inverse); they need a CUDA card and skip
 without one.  This file imports no JAX, so it also runs where JAX is not
 installed:
 
@@ -12,8 +13,13 @@ import torch
 from admm_lstm_torch.core.init import init_admm_state
 from admm_lstm_torch.core.step import make_admm_step
 from admm_lstm_torch.data.synthetic import load as synth
+from admm_lstm_torch.kernels.cholesky import (chol_inverse,
+                                              chol_inverse_plain, chol_solve,
+                                              chol_solve_plain)
 from admm_lstm_torch.kernels.gate_sweep import (interior_sweep,
-                                                interior_sweep_plain)
+                                                interior_sweep_plain,
+                                                jacobi_sweep,
+                                                jacobi_sweep_plain)
 from admm_lstm_torch.models.lstm import init_lstm_params
 from admm_lstm_torch.params import parameter_set
 from admm_lstm_torch.utils.config import ADMMConfig
@@ -88,3 +94,117 @@ def test_torch_cuda_step_kernel_matches_plain_loop(cuda):
         np.testing.assert_allclose(
             getattr(states[True].gates, k).cpu().numpy(),
             getattr(states[False].gates, k).cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize('steps,hidden,batch', [
+    (9, 10, 4224),     # GoogleStock
+    (9, 128, 2048),    # the HAR-shaped turbo run
+    (13, 5, 1000),     # ragged batch edge
+    (1, 3, 1),
+])
+def test_torch_cuda_jacobi_matches_plain(cuda, steps, hidden, batch):
+    gen = torch.Generator().manual_seed(steps + hidden)
+    rand = lambda *s, scale: (torch.randn(s, generator=gen) * scale).to(cuda)
+    pre = rand(steps, 4, hidden, batch, scale=0.5)
+    gates = tuple(rand(steps, hidden, batch, scale=0.2) for _ in range(6))
+    duals = tuple(rand(steps, hidden, batch, scale=s)
+                  for s in (0.01,) * 5 + (1e-4,))
+    h_prev, c_prev = (rand(steps, hidden, batch, scale=0.2) for _ in range(2))
+    rho = torch.tensor([1., 1., 1., 1., 0.008, 0.00045], device=cuda)
+    args = (pre, gates, duals, h_prev, c_prev, rho)
+    before = jacobi_sweep.launches
+    got = jacobi_sweep(*args)
+    torch.cuda.synchronize()
+    assert jacobi_sweep.launches == before + 1
+    want = jacobi_sweep_plain(*args)
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
+
+
+def _spd(n, dim, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    m = torch.randn((n, dim, dim), generator=gen)
+    a = m @ m.transpose(1, 2) + dim * torch.eye(dim)
+    return a.to(device), torch.randn((n, dim), generator=gen).to(device)
+
+
+# f32: the kernels repeat their plain versions' roundings; the SPD inputs
+# have condition numbers below 5 and solutions below 1 in magnitude.
+CHOL_ATOL = 1e-5
+
+
+@pytest.mark.parametrize('n,dim', [(40, 1), (40, 10), (512, 128), (37, 100),
+                                   (3, 33)])
+def test_torch_cuda_chol_solve_matches_plain(cuda, n, dim):
+    a, b = _spd(n, dim, seed=dim, device=cuda)
+    before = chol_solve.launches
+    got = chol_solve(a, b)
+    torch.cuda.synchronize()
+    assert chol_solve.launches == before + 1
+    torch.testing.assert_close(got, chol_solve_plain(a, b), atol=CHOL_ATOL,
+                               rtol=0)
+    torch.testing.assert_close(got, torch.linalg.solve(a, b), atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize('n,dim', [(512, 64), (16, 128), (7, 33), (2, 1)])
+def test_torch_cuda_chol_inverse_matches_plain(cuda, n, dim):
+    a, _ = _spd(n, dim, seed=dim + 1, device=cuda)
+    before = chol_inverse.launches
+    got = chol_inverse(a)
+    torch.cuda.synchronize()
+    assert chol_inverse.launches == before + 1
+    torch.testing.assert_close(got, chol_inverse_plain(a), atol=CHOL_ATOL,
+                               rtol=0)
+    assert float(torch.triu(got, diagonal=1).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('which', ['solve', 'inverse'])
+def test_torch_cuda_chol_reads_only_lower_triangle(cuda, which):
+    """NaN above the diagonal changes nothing, bit for bit: the kernels
+    load only the lower triangle of a."""
+    a, b = _spd(9, 100, seed=5, device=cuda)
+    poisoned = torch.where(
+        torch.ones(100, 100, dtype=torch.bool, device=cuda).triu(1),
+        torch.tensor(float('nan'), device=cuda), a)
+    fn = (lambda m: chol_solve(m, b)) if which == 'solve' else chol_inverse
+    assert torch.equal(fn(poisoned), fn(a))
+
+
+@pytest.mark.parametrize('input_size', [2, 130])
+def test_torch_cuda_turbo_step_kernels_match_plain(cuda, input_size):
+    """Three turbo epochs with the kernels and with the plain versions on
+    the card, at 'highest'; I = 130 takes the blocked solve."""
+    tx, ty, _, _ = synth(batch=300, seq_len=6, input_size=input_size,
+                         val_batch=4)
+    x, y = torch.from_numpy(tx).to(cuda), torch.from_numpy(ty).to(cuda)
+    params = init_lstm_params(torch.Generator().manual_seed(0), input_size,
+                              7, 1, device=cuda)
+    ps = parameter_set('Synthetic')
+    states = {}
+    for flag in (True, False):
+        cfg = ADMMConfig.turbo(use_pallas_sweep=flag, use_pallas_chol=flag,
+                               matmul_precision='highest')
+        st = init_admm_state(params, x, ps, cfg)
+        step = make_admm_step(cfg)
+        before = (jacobi_sweep.launches, chol_solve.launches,
+                  chol_inverse.launches)
+        for _ in range(3):
+            st = step(st, x, y)
+        after = (jacobi_sweep.launches, chol_solve.launches,
+                 chol_inverse.launches)
+        if flag:
+            assert after[0] - before[0] == 3
+            assert after[1] - before[1] == (6 if input_size <= 128 else 3)
+            assert after[2] - before[2] == (0 if input_size <= 128 else 9)
+        else:
+            assert after == before
+        states[flag] = st
+    for k in ('i', 'f', 'g', 'o', 'c', 'h'):
+        np.testing.assert_allclose(
+            getattr(states[True].gates, k).cpu().numpy(),
+            getattr(states[False].gates, k).cpu().numpy(), atol=1e-4)
+    for field in ('wx', 'wh', 'wy'):
+        np.testing.assert_allclose(
+            getattr(states[True].params, field).cpu().numpy(),
+            getattr(states[False].params, field).cpu().numpy(), atol=1e-4)

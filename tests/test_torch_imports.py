@@ -47,6 +47,17 @@ def test_torch_port_sources_exist():
     assert len(_sources()) > 10
 
 
+@pytest.mark.parametrize('module', ['kernels/cholesky.py',
+                                    'kernels/gate_sweep.py',
+                                    'solvers/blocked_chol.py',
+                                    'solvers/normal_eq.py'])
+def test_torch_turbo_leg_modules_are_guarded(module):
+    """The slice-2 modules are among the sources the guard walks."""
+    path = os.path.join(ROOT, 'admm_lstm_torch', module)
+    assert path in _sources()
+    assert _bad_imports(path) == []
+
+
 @pytest.mark.parametrize('path', _sources(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_torch_port_never_imports_jax(path):

@@ -23,7 +23,7 @@ from admm_lstm_torch.core.step import make_admm_step
 from admm_lstm_torch.data.synthetic import load as synth
 from admm_lstm_torch.models.lstm import params_from_dict, params_from_numpy
 from admm_lstm_torch.params import parameter_set
-from admm_lstm_torch.utils.config import ADMMConfig
+from admm_lstm_torch.utils.config import AUTO_FIELDS, ADMMConfig
 
 torch.set_num_threads(1)
 
@@ -79,22 +79,34 @@ def test_torch_three_step_golden_parity(variant, cfgkw):
                                    atol=STATE_ATOL)
 
 
+TURBO = dict(sweep_mode='jacobi', exact_weight_solve=True,
+             matmul_precision='default')
 JAX_CASES = [
     ('fast', dict(variant='fast')),
     ('no_dual_y', dict(variant='no_dual_y')),
     ('bfloat16', dict(variant='fast', dtype='bfloat16')),
     ('adaptive_rho', dict(variant='fast', adaptive_rho=True)),
+    ('jacobi', dict(sweep_mode='jacobi')),
+    ('exact', dict(exact_weight_solve=True)),
+    ('turbo', TURBO),
+    ('auto', dict(AUTO_FIELDS)),
+    # I = 130 > 128: the x-side stage takes the blocked solve.
+    ('turbo_wide_input', dict(TURBO, input_size=130)),
 ]
 
 
 @pytest.mark.parametrize('name,cfgkw', JAX_CASES)
 def test_torch_step_matches_jax_step(name, cfgkw):
-    """3 epochs on Synthetic: every slab, a, y and the weights at 1e-4."""
-    tx, ty, _, _ = synth(batch=48, seq_len=7, input_size=2, output_size=1,
+    """3 epochs on Synthetic, each compared: every slab, a, y, the weights
+    at atol 1e-4 and rho at rtol 1e-6 (f32, summation order)."""
+    cfgkw = dict(cfgkw)
+    n_in = cfgkw.pop('input_size', 2)
+    tx, ty, _, _ = synth(batch=48, seq_len=7, input_size=n_in, output_size=1,
                          val_batch=4, seed=3)
     rng = np.random.default_rng(11)
     hidden = 6
-    wx = (rng.standard_normal((4, 2, hidden)) * 0.5).astype(np.float32)
+    wx = (rng.standard_normal((4, n_in, hidden)) * 0.5
+          * min(1.0, np.sqrt(2 / n_in))).astype(np.float32)
     wh = (rng.standard_normal((4, hidden, hidden)) * 0.4).astype(np.float32)
     wy = (rng.standard_normal((hidden, 1)) * 0.5).astype(np.float32)
     w = {f'x2{g}': wx[k] for k, g in enumerate('ifgo')}
@@ -195,8 +207,6 @@ def test_torch_kernel_route_matches_scan_loop(monkeypatch, input_size):
 
 
 @pytest.mark.parametrize('cfgkw,match', [
-    (dict(sweep_mode='jacobi'), 'jacobi'),
-    (dict(exact_weight_solve=True), 'exact_weight_solve'),
     (dict(mesh_shape=(2,)), 'mesh_shape'),
     (dict(variant='admm_l'), 'admm_l'),
     (dict(variant='admm_s'), 'admm_s'),
@@ -204,3 +214,84 @@ def test_torch_kernel_route_matches_scan_loop(monkeypatch, input_size):
 def test_torch_step_unported_configs_raise(cfgkw, match):
     with pytest.raises(NotImplementedError, match=match):
         make_admm_step(ADMMConfig(**cfgkw))
+
+
+@pytest.mark.parametrize('cfgkw', [dict(sweep_mode='jacobi'),
+                                   dict(exact_weight_solve=True)],
+                         ids=['jacobi', 'exact_weight_solve'])
+def test_torch_step_turbo_leg_configs_run(cfgkw):
+    """The configs slice 1 refused now take an epoch."""
+    tx, ty, _, _ = synth(batch=16, seq_len=4, input_size=2, val_batch=4)
+    x = torch.from_numpy(tx)
+    params = params_from_numpy(
+        *(np.full(s, 0.1, np.float32) for s in ((4, 2, 3), (4, 3, 3), (3, 1))))
+    cfg = ADMMConfig(**cfgkw)
+    state = init_admm_state(params, x, parameter_set('Synthetic'), cfg)
+    state = make_admm_step(cfg)(state, x, torch.from_numpy(ty))
+    assert state.epoch == 1
+    assert all(bool(torch.isfinite(s).all()) for s in state.gates)
+
+
+@pytest.mark.parametrize('input_size', [2, 130])
+def test_torch_turbo_kernel_routes_match_plain(monkeypatch, input_size):
+    """The step's Jacobi and Cholesky kernel routes (argument slicing,
+    contiguity, reassembly), taken on CPU tensors, where the wrappers run
+    the plain versions, agree with the plain routes exactly; and the
+    kernel route does go through the wrappers.  I = 130 takes the blocked
+    solve on the x side."""
+    from admm_lstm_torch.core import step as step_mod
+    from admm_lstm_torch.kernels import cholesky
+    from admm_lstm_torch.kernels import gate_sweep
+    from admm_lstm_torch.solvers import blocked_chol, normal_eq
+    tx, ty, _, _ = synth(batch=20, seq_len=5, input_size=input_size,
+                         val_batch=4)
+    x, y = torch.from_numpy(tx), torch.from_numpy(ty)
+    rng = np.random.default_rng(6)
+    wx = (rng.standard_normal((4, input_size, 4)) * 0.5
+          / np.sqrt(input_size)).astype(np.float32)
+    wh = (rng.standard_normal((4, 4, 4)) * 0.4).astype(np.float32)
+    wy = (rng.standard_normal((4, 1)) * 0.5).astype(np.float32)
+    ps = parameter_set('Synthetic')
+    calls = {}
+
+    def spy(module, name):
+        fn = getattr(module, name)
+
+        def wrapped(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        monkeypatch.setattr(module, name, wrapped)
+
+    wrappers = (cholesky.chol_solve, cholesky.chol_inverse,
+                gate_sweep.jacobi_sweep)
+    before = [w.launches for w in wrappers]
+    spy(gate_sweep, 'jacobi_sweep')
+    spy(normal_eq, 'chol_solve')
+    spy(blocked_chol, 'chol_inverse')
+    states = {}
+    for route in (True, False):
+        calls.clear()
+        monkeypatch.setattr(step_mod, '_sweep_uses_kernel',
+                            lambda rules, seq_len, device, r=route: r)
+        cfg = ADMMConfig.turbo(use_pallas_chol=route)
+        st = init_admm_state(params_from_numpy(wx, wh, wy), x, ps, cfg)
+        step = make_admm_step(cfg)
+        for _ in range(2):
+            st = step(st, x, y)
+        states[route] = st
+        if route:
+            assert calls['jacobi_sweep'] == 2
+            assert calls['chol_solve'] == (4 if input_size <= 128 else 2)
+            assert calls.get('chol_inverse', 0) == (
+                0 if input_size <= 128 else 2 * 3)
+        else:
+            assert calls == {}
+    assert [w.launches for w in wrappers] == before   # CPU: no launches
+    for k in SLABS:
+        assert torch.equal(getattr(states[True].gates, k),
+                           getattr(states[False].gates, k))
+        assert torch.equal(getattr(states[True].duals, k),
+                           getattr(states[False].duals, k))
+    for field in ('wx', 'wh', 'wy'):
+        assert torch.equal(getattr(states[True].params, field),
+                           getattr(states[False].params, field))

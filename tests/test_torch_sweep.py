@@ -1,16 +1,20 @@
-"""The interior Gauss-Seidel sweep (admm_lstm_torch.kernels.gate_sweep):
-its plain PyTorch version against the JAX package's Pallas kernel run in
-interpret mode, and the wrapper's checks.  The CUDA kernel itself is held
-against the plain version in tests/test_torch_gpu.py."""
+"""The interior Gauss-Seidel and Jacobi sweeps
+(admm_lstm_torch.kernels.gate_sweep): their plain PyTorch versions against
+the JAX package's Pallas kernels run in interpret mode, and the wrappers'
+checks.  The CUDA kernels themselves are held against the plain versions
+in tests/test_torch_gpu.py."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from admm_lstm_tpu.kernels.gate_sweep import pallas_interior_sweep
+from admm_lstm_tpu.kernels.gate_sweep import (pallas_interior_sweep,
+                                              pallas_jacobi_sweep)
 from admm_lstm_torch.kernels.gate_sweep import (interior_sweep,
-                                                interior_sweep_plain)
+                                                interior_sweep_plain,
+                                                jacobi_sweep,
+                                                jacobi_sweep_plain)
 
 torch.set_num_threads(1)
 
@@ -77,3 +81,62 @@ def test_torch_sweep_wrapper_rejects_bad_inputs(bad):
         duals = duals[:5]
     with pytest.raises((TypeError, ValueError)):
         interior_sweep(xproj, wh, gates, duals, rho)
+
+
+def _jacobi_inputs(steps, batch, hidden, seed=0):
+    rng = np.random.default_rng(seed)
+    pre = (rng.standard_normal((steps, 4, hidden, batch)) * 0.5).astype(np.float32)
+    slab = lambda scale: (rng.standard_normal((steps, hidden, batch))
+                          * scale).astype(np.float32)
+    gates = tuple(slab(0.2) for _ in range(6))
+    duals = tuple(slab(0.01) for _ in range(6))
+    return pre, gates, duals, slab(0.2), slab(0.2)
+
+
+@pytest.mark.parametrize('steps,batch,hidden', [(9, 24, 5), (4, 17, 4)])
+def test_torch_plain_jacobi_matches_pallas(steps, batch, hidden):
+    pre, gates, duals, h_prev, c_prev = _jacobi_inputs(steps, batch, hidden)
+    j = jnp.asarray
+    ref_g, ref_d = pallas_jacobi_sweep(
+        j(pre), tuple(map(j, gates)), tuple(map(j, duals)), j(h_prev),
+        j(c_prev), j(RHO), interpret=True)
+    t = torch.from_numpy
+    new_g, new_d = jacobi_sweep_plain(
+        t(pre), tuple(map(t, gates)), tuple(map(t, duals)), t(h_prev),
+        t(c_prev), t(RHO))
+    assert len(new_g) == 6 and len(new_d) == 5
+    for k, (a, b) in enumerate(zip(new_g + new_d, ref_g + ref_d)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
+                                   err_msg=f'output {k}')
+
+
+def _jacobi_torch(seed):
+    pre, gates, duals, h_prev, c_prev = _jacobi_inputs(3, 9, 4, seed=seed)
+    t = torch.from_numpy
+    return (t(pre), tuple(map(t, gates)), tuple(map(t, duals)), t(h_prev),
+            t(c_prev), t(RHO))
+
+
+def test_torch_jacobi_wrapper_cpu_is_plain():
+    args = _jacobi_torch(seed=4)
+    before = jacobi_sweep.launches
+    got = jacobi_sweep(*args)
+    want = jacobi_sweep_plain(*args)
+    assert jacobi_sweep.launches == before
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('bad', ['dtype', 'shape', 'contiguous', 'count'])
+def test_torch_jacobi_wrapper_rejects_bad_inputs(bad):
+    pre, gates, duals, h_prev, c_prev, rho = _jacobi_torch(seed=5)
+    if bad == 'dtype':
+        c_prev = c_prev.double()
+    elif bad == 'shape':
+        h_prev = h_prev[:, :2].contiguous()
+    elif bad == 'contiguous':
+        pre = pre.transpose(2, 3).contiguous().transpose(2, 3)
+    else:
+        gates = gates[:5]
+    with pytest.raises((TypeError, ValueError)):
+        jacobi_sweep(pre, gates, duals, h_prev, c_prev, rho)
