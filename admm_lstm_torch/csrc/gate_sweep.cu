@@ -227,6 +227,26 @@ jacobi_sweep_kernel(const JacobiArgs a) {
 constexpr size_t MAX_SMEM = 232448;  // bytes a block may use on sm_90
 constexpr int JACOBI_MAX_BLOCKS = 132 * 16;  // a grid-stride loop covers the rest
 
+constexpr int MAX_DEVICES = 64;
+bool sweep_ready[2][MAX_DEVICES];    // [WH_SMEM] per device
+
+// Raises interior_sweep_kernel<WH_SMEM>'s dynamic shared memory limit to
+// MAX_SMEM once per device and remembers it, so a launch does not pay a
+// cudaFuncSetAttribute.  Two threads racing here both set the same value.
+template <bool WH_SMEM>
+cudaError_t prepare_sweep() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  bool* done = sweep_ready[WH_SMEM];
+  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(interior_sweep_kernel<WH_SMEM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)MAX_SMEM);
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -264,15 +284,11 @@ int gate_sweep_interior(const void* xproj, const void* wh, const void* rho,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (wh_smem) {
-    err = cudaFuncSetAttribute(interior_sweep_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = prepare_sweep<true>();
     if (err != cudaSuccess) return err;
     interior_sweep_kernel<true><<<grid, block, smem, st>>>(a);
   } else {
-    err = cudaFuncSetAttribute(interior_sweep_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = prepare_sweep<false>();
     if (err != cudaSuccess) return err;
     interior_sweep_kernel<false><<<grid, block, smem, st>>>(a);
   }

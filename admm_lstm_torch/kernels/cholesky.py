@@ -12,12 +12,13 @@ its diagonal blocks.
 `chol_solve` and `chol_inverse` launch the kernels (csrc/cholesky.cu) for
 CUDA tensors and raise on anything they cannot take; they run the plain
 versions only for tensors that lie on the CPU.  There is no fallback from
-a kernel to its plain version.  The plain versions repeat the kernels'
-arithmetic step for step (right-looking factorization over columns, then
-right-looking substitutions, every product and difference rounded on its
-own), so the two agree to the last bit wherever PyTorch's elementwise
-kernels round as IEEE f32 does.  What bounds the kernels on an H100 is
-written at the top of the CUDA source.
+a kernel to its plain version.  The plain versions are the unblocked
+right-looking factorization over columns and right-looking substitutions,
+every product and difference rounded on its own; the kernels (one warp
+per system up to D = 32, blocked over 16-wide panels above) compute the
+same quantities in another order with fused multiply-adds, so the two
+agree to rounding, not bit for bit.  The kernels' designs and what bounds
+them on an H100 are written at the top of the CUDA source.
 """
 
 from __future__ import annotations

@@ -4,11 +4,16 @@
 
 Phases, each fatal on failure:
   1. build   - compile every CUDA kernel of the paths below from csrc/
-               with nvcc (one process per source, all started together);
+               with nvcc (one process per source, all started together),
+               and print each kernel's registers and spills;
   2. kernels - hold each kernel against its plain PyTorch version on the
                card, at its paths' shapes and more, and time kernel, plain
                version and (where one exists) the one-call PyTorch
                yardstick with CUDA events (L2 flushed before every launch);
+               for the Cholesky kernels also a two-call yardstick, their
+               registers and systems per SM, and gate (ii): the error
+               against float64 on ill-conditioned Gram-like inputs, held
+               to the plain version's;
   3. train   - the paths, each through `admm_lstm_torch.api`, with the
                kernels' launch counts zeroed just before each run and read
                just after:
@@ -31,8 +36,10 @@ It exits non-zero, printing no result line, without a CUDA card.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -47,11 +54,19 @@ REF_VAL_30 = 0.346877           # the reference's 30-epoch validation loss
 # f32: summation order and transcendental ulps between a sweep kernel and
 # its plain version.
 KERNEL_ATOL = 1e-5
-# f32: the Cholesky kernels repeat their plain versions' roundings one by
-# one, so they should agree exactly; 1e-5 absolute (on solutions and
-# inverses of magnitude below 1: the SPD inputs M M^T + D I have condition
-# numbers below 5) leaves room only for a rounding PyTorch does otherwise.
+# f32, gate (i): the Cholesky kernels (blocked, with FMA) and their plain
+# versions (unblocked, every product rounded) round differently; on the
+# SPD inputs M M^T + D I (condition numbers below 5, solutions and inverses
+# of magnitude below 1) that differs by ~1e-7, so 1e-5 absolute catches a
+# wrong index, not a rounding order.
 CHOL_ATOL = 1e-5
+# Gate (ii), the rounding order: on Gram-like inputs of condition number
+# kappa (gram_inputs), the kernel's error against a float64 reference may
+# be at most ILL_REL times the plain version's plus ILL_ABS times the
+# reference's max |x|.
+ILL_KAPPAS = (1e5, 1e6)
+ILL_REL = 2.0
+ILL_ABS = 1e-7
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate and FP32 (non
 # tensor-core) rate.
 PEAK_BYTES_PER_S = 3.35e12
@@ -64,6 +79,9 @@ SWEEP_SHAPES = [(9, 10, 4224), (13, 5, 1000), (31, 130, 512)]
 JACOBI_SHAPES = [(9, 10, 4224), (9, 128, 2048), (13, 5, 1000)]
 SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128), (37, 100)]
 INVERSE_SHAPES = [(512, 64), (16, 128), (7, 33)]
+# Gate (ii) at the shapes of Path A and Path B.
+ILL_SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128)]
+ILL_INVERSE_SHAPES = [(512, 64)]
 
 # The JAX package's ADMMConfig.auto(epochs=30, hidden_size=10,
 # matmul_precision='highest') run on GoogleStock from the golden seed-0
@@ -114,8 +132,10 @@ HAR_SHAPE = dict(batch=2048, seq_len=10, input_size=561, output_size=6,
 HAR_HIDDEN = 128
 HAR_EPOCHS = 5
 # f32: one epoch, kernels against plain versions at 'highest'; the
-# Cholesky kernels repeat their plain versions exactly, the Jacobi kernel
-# differs by FMA contraction and transcendental ulps.  Each leaf is held
+# Cholesky kernels and the Jacobi kernel differ from their plain versions
+# by FMA contraction and summation order (the Cholesky kernels' roundings
+# reach the D = 561 blocked solve, amplified by the Gram's conditioning),
+# the Jacobi kernel also by transcendental ulps.  Each leaf is held
 # to HAR_RTOL times its own scale: max |x| for weights and gates; for a
 # dual, max |lambda_k| + rho_k max |gate_k|, because lambda_k + rho_k
 # (gate_k - target) sums terms of the gate's size that nearly cancel in
@@ -130,14 +150,18 @@ def log(msg):
 
 def cuda_ms(fn, reps, flush):
     """Median device ms of `fn` over `reps` runs, each timed with CUDA
-    events after overwriting a buffer larger than the 50 MB L2 cache.  A
+    events after overwriting a buffer larger than the 50 MB L2 cache
+    (`flush`; None times it warm, after the same call).  A
     spin of ~0.5 ms on the device before the start event lets the host
     enqueue `fn`'s launches before the clock starts, so a kernel's time
     excludes its Python wrapper; a plain version that launches many small
     kernels still pays its host time between them."""
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if flush is None:
+            fn()
+        else:
+            flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -224,13 +248,45 @@ def spd_inputs(n, dim, seed):
     return a.cuda(), torch.randn((n, dim), generator=gen).cuda()
 
 
+def gram_inputs(n, dim, kappa, seed):
+    """Gram-like SPD systems X^T X + lambda I with condition number kappa
+    (1 at D = 1), as float32 CPU tensors, and a right-hand side.  X = Q1
+    diag(s) Q2^T with random orthogonal Q1, Q2 and s^2 log-spaced from 1
+    down to 1/kappa, lambda = 1e-3 / kappa; formed in float64, symmetrized,
+    then rounded to float32."""
+    gen = torch.Generator().manual_seed(seed)
+    q1, _ = torch.linalg.qr(torch.randn((n, dim, dim), generator=gen,
+                                        dtype=torch.float64))
+    q2, _ = torch.linalg.qr(torch.randn((n, dim, dim), generator=gen,
+                                        dtype=torch.float64))
+    s2 = torch.logspace(0.0, -np.log10(kappa), dim, dtype=torch.float64)
+    x = q1 * s2.sqrt() @ q2.transpose(1, 2)
+    a = x.transpose(1, 2) @ x + 1e-3 / kappa * torch.eye(dim,
+                                                         dtype=torch.float64)
+    a = (a + a.transpose(1, 2)) / 2
+    return (a.float().contiguous(),
+            torch.randn((n, dim), generator=gen).contiguous())
+
+
+def reference_f64(a, b=None):
+    """a^-1 b (b given) or L^-1 with a = L L^T, in float64 from float32
+    a, b, as a float64 tensor."""
+    low = torch.linalg.cholesky(a.double())
+    if b is not None:
+        return torch.cholesky_solve(b.double()[..., None], low)[..., 0]
+    eye = torch.eye(a.shape[-1], dtype=torch.float64,
+                    device=a.device).expand_as(low)
+    return torch.linalg.solve_triangular(low, eye, upper=False)
+
+
 def _flat(out):
     return out[0] + out[1] if isinstance(out, tuple) else (out,)
 
 
 def kernel_row(name, shape, kernel, plain, library, tol, bound_ms_by, flush,
-               extra_check=None):
-    """Runs one comparison and the timings; raises on disagreement."""
+               extra_check=None, two_call=None, info=None):
+    """Runs one comparison and the timings (`two_call`: a yardstick of two
+    PyTorch calls); raises on disagreement."""
     got, want = _flat(kernel()), _flat(plain())
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
@@ -241,6 +297,11 @@ def kernel_row(name, shape, kernel, plain, library, tol, bound_ms_by, flush,
     row = dict(shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
                bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1],
                library_ms=library_ms)
+    if two_call is not None:
+        row['two_call_ms'] = cuda_ms(two_call, 20, flush)
+        row['warm_ms'] = cuda_ms(kernel, 50, None)
+    if info is not None:
+        row.update(info)
     log(f'[kernels] {name} {row}')
     if not finite or not err <= tol:
         raise AssertionError(f'{name} disagrees with its plain version at '
@@ -249,6 +310,35 @@ def kernel_row(name, shape, kernel, plain, library, tol, bound_ms_by, flush,
     if extra_check is not None:
         extra_check(got)
     return row
+
+
+KERNEL_NAMES = ('warp_chol_kernel', 'blocked_solve_kernel',
+                'blocked_inverse_kernel', 'interior_sweep_kernel',
+                'jacobi_sweep_kernel')
+
+
+def ptxas_summary(out):
+    """{kernel<template args>: {regs, spill_stores, spill_loads}} from an
+    nvcc -Xptxas -v log."""
+    summary, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search('(' + '|'.join(KERNEL_NAMES) + r')(I\w*?E)?E',
+                          m.group(1))
+            name = m.group(1) if k is None else k.group(1) + (
+                '<' + ','.join(re.findall(r'L[ib](\d+)E', k.group(2) or ''))
+                + '>' if k.group(2) else '')
+            summary[name] = {}
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m and name:
+            summary[name].update(spill_stores=int(m.group(1)),
+                                 spill_loads=int(m.group(2)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name:
+            summary[name]['regs'] = int(m.group(1))
+    return summary
 
 
 def phase_build():
@@ -260,6 +350,52 @@ def phase_build():
     for name, out in build.build_logs.items():
         for line in out.strip().splitlines():
             log(f'[build] {name}: {line}')
+        log(f'[build] {name} registers and spills per kernel: '
+            f'{json.dumps(ptxas_summary(out))}')
+
+
+def chol_kernel_info(dim, solve):
+    """Registers per thread, local (spill) bytes per thread and systems
+    resident per SM of the Cholesky kernel that takes width dim, from the
+    CUDA runtime."""
+    from admm_lstm_torch.kernels.build import load_library
+    fn = load_library('cholesky').cholesky_kernel_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [
+        ctypes.POINTER(ctypes.c_int)] * 3
+    regs, local, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = fn(dim, int(solve), ctypes.byref(regs), ctypes.byref(local),
+             ctypes.byref(per_sm))
+    if err:
+        raise RuntimeError(f'cholesky_kernel_info: CUDA error {err}')
+    return dict(regs=regs.value, local_bytes=local.value,
+                systems_per_sm=per_sm.value)
+
+
+def ill_row(name, shape, kappa, seed, kernel, plain):
+    """Gate (ii): kernel and plain version against float64 on Gram-like
+    inputs of condition number kappa; raises if the kernel's error exceeds
+    ILL_REL times the plain version's plus ILL_ABS max |reference|."""
+    a, b = gram_inputs(*shape, kappa, seed)
+    args = (a, b) if name == 'chol_solve' else (a,)
+    ref = reference_f64(*args).cuda()
+    args = tuple(t.cuda() for t in args)
+    got, want = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    dims = tuple(range(1, ref.dim()))
+    errs = (got.double() - ref).abs().amax(dims)
+    plain_errs = (want.double() - ref).abs().amax(dims)
+    err, plain_err = float(errs.max()), float(plain_errs.max())
+    limit = ILL_REL * plain_err + ILL_ABS * float(ref.abs().max())
+    row = dict(shape=list(shape), kappa=kappa, err=err, plain_err=plain_err,
+               limit=limit, ratio=err / plain_err if plain_err else None,
+               median_system_ratio=float((errs / plain_errs).median())
+               if bool((plain_errs > 0).all()) else None)
+    log(f'[kernels] {name} ill-conditioned {row}')
+    if not err <= limit:
+        raise AssertionError(f'{name} at {list(shape)}, kappa {kappa}: error '
+                             f'{err} against float64 above {limit} (plain '
+                             f'version {plain_err})')
+    return row
 
 
 def phase_kernels(flush):
@@ -285,7 +421,10 @@ def phase_kernels(flush):
             'chol_solve', shape, lambda: ch.chol_solve(a, b),
             lambda: ch.chol_solve_plain(a, b),
             lambda: torch.linalg.solve(a, b), CHOL_ATOL,
-            solve_bound(*shape), flush))
+            solve_bound(*shape), flush,
+            two_call=lambda: torch.cholesky_solve(b[..., None],
+                                                  torch.linalg.cholesky(a)),
+            info=chol_kernel_info(shape[1], True)))
 
     def upper_is_zero(got):
         if float(torch.triu(got[0], diagonal=1).abs().max()) != 0.0:
@@ -294,11 +433,26 @@ def phase_kernels(flush):
 
     for k, shape in enumerate(INVERSE_SHAPES):
         a, _ = spd_inputs(*shape, seed=30 + k)
+        eye = torch.eye(shape[1], device='cuda').expand_as(a)
         rows['chol_inverse'].append(kernel_row(
             'chol_inverse', shape, lambda: ch.chol_inverse(a),
             lambda: ch.chol_inverse_plain(a), None, CHOL_ATOL,
-            inverse_bound(*shape), flush, extra_check=upper_is_zero))
-    return rows
+            inverse_bound(*shape), flush, extra_check=upper_is_zero,
+            two_call=lambda: torch.linalg.solve_triangular(
+                torch.linalg.cholesky(a), eye, upper=False),
+            info=chol_kernel_info(shape[1], False)))
+
+    ill = {'chol_solve': [], 'chol_inverse': []}
+    for kappa in ILL_KAPPAS:
+        for k, shape in enumerate(ILL_SOLVE_SHAPES):
+            ill['chol_solve'].append(ill_row(
+                'chol_solve', shape, kappa, 40 + k, ch.chol_solve,
+                ch.chol_solve_plain))
+        for k, shape in enumerate(ILL_INVERSE_SHAPES):
+            ill['chol_inverse'].append(ill_row(
+                'chol_inverse', shape, kappa, 50 + k, ch.chol_inverse,
+                ch.chol_inverse_plain))
+    return rows, ill
 
 
 def _kernels():
@@ -529,7 +683,7 @@ def main() -> int:
 
     phase_build()
     flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device='cuda')
-    rows = phase_kernels(flush)
+    rows, ill = phase_kernels(flush)
     del flush
 
     g = np.load(GOLDEN)
@@ -566,6 +720,11 @@ def main() -> int:
             bound_ms=main_row['bound_ms'], bound_by=main_row['bound_by'],
             library_ms=main_row['library_ms'], shape=main_row['shape'],
             other_shapes=rows[name][1:]))
+        for key in ('two_call_ms', 'regs', 'local_bytes', 'systems_per_sm'):
+            if key in main_row:
+                kernels[-1][key] = main_row[key]
+        if name in ill:
+            kernels[-1]['ill_conditioned'] = ill[name]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

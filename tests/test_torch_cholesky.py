@@ -3,13 +3,16 @@
 run in interpret mode, the wrappers' checks, and the blocked solve
 (admm_lstm_torch.solvers.blocked_chol) against the JAX package's and
 against torch.cholesky_solve.  The CUDA kernels themselves are held
-against the plain versions in tests/test_torch_gpu.py."""
+against the plain versions in tests/test_torch_gpu.py; the ill-conditioned
+inputs and float64 references of their gate (ii) (chip_smoke.gram_inputs,
+chip_smoke.reference_f64) are checked here."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from admm_lstm_tpu.kernels.cholesky import (pallas_chol_inverse,
                                             pallas_chol_solve)
 from admm_lstm_tpu.solvers.blocked_chol import \
@@ -58,6 +61,71 @@ def test_torch_chol_inverse_plain_matches_pallas(dim):
     np.testing.assert_allclose(got @ a @ np.transpose(got, (0, 2, 1)),
                                np.broadcast_to(np.eye(dim), a.shape),
                                atol=1e-4)
+
+
+# Gram-like inputs of condition number 1e5: f32 solves carry forward errors
+# of the order kappa * u (u = 2^-24) relative to max |x|; the plain
+# versions, the Pallas kernels and float64 each sit below 5e-4 of max |x|.
+ILL_KAPPA = 1e5
+ILL_RTOL = ILL_KAPPA * 2.0 ** -24
+
+
+def _rel_err(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize('dim', [10, 64, 128])
+def test_torch_chol_plain_matches_pallas_ill_conditioned(dim):
+    """D = 10 and 64 run the JAX G-minor kernels, D = 128 its blocked
+    route (block 64)."""
+    a, b = chip_smoke.gram_inputs(3, dim, ILL_KAPPA, seed=dim)
+    ja, jb = jnp.asarray(a.numpy()), jnp.asarray(b.numpy())
+    want = np.asarray(pallas_chol_solve(ja, jb, interpret=True))
+    assert _rel_err(chol_solve_plain(a, b).numpy(), want) <= ILL_RTOL
+    want = np.asarray(pallas_chol_inverse(ja, interpret=True))
+    got = chol_inverse_plain(a).numpy()
+    assert _rel_err(got, want) <= ILL_RTOL
+    assert np.all(np.triu(got, 1) == 0.0)
+
+
+@pytest.mark.parametrize('dim', [1, 10, 64, 128])
+def test_torch_chol_plain_matches_float64_ill_conditioned(dim):
+    """The oracle of the card's gate (ii): the plain versions against
+    float64 torch.linalg.cholesky / cholesky_solve / solve_triangular
+    (chip_smoke.reference_f64), and that reference against numpy's
+    float64 solve."""
+    a, b = chip_smoke.gram_inputs(3, dim, ILL_KAPPA, seed=dim + 7)
+    ref = chip_smoke.reference_f64(a, b)
+    assert ref.dtype == torch.float64
+    assert _rel_err(chol_solve_plain(a, b).double().numpy(),
+                    ref.numpy()) <= ILL_RTOL
+    a64 = a.double().numpy()
+    np.testing.assert_allclose(
+        ref.numpy(), np.linalg.solve(a64, b.double().numpy()[..., None])[..., 0],
+        rtol=0, atol=1e-9 * float(ref.abs().max()) * ILL_KAPPA)
+    refi = chip_smoke.reference_f64(a)
+    assert _rel_err(chol_inverse_plain(a).double().numpy(),
+                    refi.numpy()) <= ILL_RTOL
+    # L^-1 a L^-T = I in float64.
+    eye = refi.numpy() @ a64 @ np.transpose(refi.numpy(), (0, 2, 1))
+    np.testing.assert_allclose(eye, np.broadcast_to(np.eye(dim), eye.shape),
+                               atol=1e-9)
+
+
+@pytest.mark.parametrize('kappa', [1e5, 1e6])
+@pytest.mark.parametrize('dim', [1, 10, 64, 128])
+def test_torch_chol_gram_inputs_have_the_stated_condition(dim, kappa):
+    """chip_smoke.gram_inputs: float32, symmetric, SPD, condition number
+    kappa (1 at D = 1) within 10% after the rounding to float32."""
+    a, b = chip_smoke.gram_inputs(4, dim, kappa, seed=dim)
+    assert a.dtype == b.dtype == torch.float32
+    assert tuple(a.shape) == (4, dim, dim) and tuple(b.shape) == (4, dim)
+    assert torch.equal(a, a.transpose(1, 2))
+    ev = torch.linalg.eigvalsh(a.double())
+    assert bool((ev > 0).all())
+    cond = (ev[:, -1] / ev[:, 0]).numpy()
+    want = 1.0 if dim == 1 else kappa
+    np.testing.assert_allclose(cond, want, rtol=0.1)
 
 
 def test_torch_chol_wrappers_cpu_are_plain():

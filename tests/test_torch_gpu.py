@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from admm_lstm_torch.core.init import init_admm_state
 from admm_lstm_torch.core.step import make_admm_step
 from admm_lstm_torch.data.synthetic import load as synth
@@ -128,13 +129,23 @@ def _spd(n, dim, seed, device):
     return a.to(device), torch.randn((n, dim), generator=gen).to(device)
 
 
-# f32: the kernels repeat their plain versions' roundings; the SPD inputs
-# have condition numbers below 5 and solutions below 1 in magnitude.
+# f32: the kernels (FMA, blocked order) and the plain versions (every
+# product rounded, column order) differ by rounding, ~1e-7 on these SPD
+# inputs (condition numbers below 5, solutions below 1 in magnitude).
 CHOL_ATOL = 1e-5
+# Widths at the edges of the warp kernel's buckets (8, 16, 32) and of the
+# blocked kernels' 16-wide panels.
+CHOL_DIMS = [1, 2, 15, 16, 17, 31, 32, 33, 47, 63, 64, 65, 100, 127, 128]
+# N = 41 and 7 are not multiples of the warp kernel's 8 systems per block.
+SOLVE_CASES = ([(40, 1), (40, 10), (512, 128), (37, 100), (3, 33)]
+               + [(41, d) for d in CHOL_DIMS]
+               + [(1, 10), (7, 10), (1, 100), (7, 64)])
+INVERSE_CASES = ([(512, 64), (16, 128), (7, 33), (2, 1)]
+                 + [(41, d) for d in CHOL_DIMS]
+                 + [(1, 64), (7, 10), (1, 5)])
 
 
-@pytest.mark.parametrize('n,dim', [(40, 1), (40, 10), (512, 128), (37, 100),
-                                   (3, 33)])
+@pytest.mark.parametrize('n,dim', SOLVE_CASES)
 def test_torch_cuda_chol_solve_matches_plain(cuda, n, dim):
     a, b = _spd(n, dim, seed=dim, device=cuda)
     before = chol_solve.launches
@@ -147,7 +158,7 @@ def test_torch_cuda_chol_solve_matches_plain(cuda, n, dim):
                                rtol=0)
 
 
-@pytest.mark.parametrize('n,dim', [(512, 64), (16, 128), (7, 33), (2, 1)])
+@pytest.mark.parametrize('n,dim', INVERSE_CASES)
 def test_torch_cuda_chol_inverse_matches_plain(cuda, n, dim):
     a, _ = _spd(n, dim, seed=dim + 1, device=cuda)
     before = chol_inverse.launches
@@ -157,6 +168,43 @@ def test_torch_cuda_chol_inverse_matches_plain(cuda, n, dim):
     torch.testing.assert_close(got, chol_inverse_plain(a), atol=CHOL_ATOL,
                                rtol=0)
     assert float(torch.triu(got, diagonal=1).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('kappa', chip_smoke.ILL_KAPPAS)
+@pytest.mark.parametrize('which,n,dim', [
+    ('solve', 40, 10), ('solve', 40, 1), ('solve', 512, 128),
+    ('solve', 41, 33), ('inverse', 512, 64), ('inverse', 41, 128),
+    ('inverse', 41, 20)])
+def test_torch_cuda_chol_ill_conditioned_gate(cuda, which, n, dim, kappa):
+    """Gate (ii): on Gram-like inputs of condition number kappa, the
+    kernel's error against float64 is at most ILL_REL times the plain
+    version's plus ILL_ABS times the reference's max |x|."""
+    a, b = chip_smoke.gram_inputs(n, dim, kappa, seed=dim)
+    args = (a, b) if which == 'solve' else (a,)
+    ref = chip_smoke.reference_f64(*args).to(cuda)
+    args = tuple(t.to(cuda) for t in args)
+    kernel, plain = ((chol_solve, chol_solve_plain) if which == 'solve'
+                     else (chol_inverse, chol_inverse_plain))
+    err = float((kernel(*args).double() - ref).abs().max())
+    plain_err = float((plain(*args).double() - ref).abs().max())
+    assert err <= (chip_smoke.ILL_REL * plain_err
+                   + chip_smoke.ILL_ABS * float(ref.abs().max())), \
+        (err, plain_err)
+
+
+@pytest.mark.parametrize('which', ['solve', 'inverse'])
+@pytest.mark.parametrize('dim', [10, 100])
+def test_torch_cuda_chol_indefinite_system_is_nan_alone(cuda, which, dim):
+    """An indefinite system gives NaN in its own result and leaves every
+    other system of the launch as it was, bit for bit."""
+    a, b = _spd(9, dim, seed=3, device=cuda)
+    bad = a.clone()
+    bad[4, dim // 2, dim // 2] = -1e4
+    fn = (lambda m: chol_solve(m, b)) if which == 'solve' else chol_inverse
+    good_out, bad_out = fn(a), fn(bad)
+    assert bool(torch.isnan(bad_out[4]).any())
+    others = [k for k in range(9) if k != 4]
+    assert torch.equal(bad_out[others], good_out[others])
 
 
 @pytest.mark.parametrize('which', ['solve', 'inverse'])
