@@ -26,28 +26,66 @@
 // pre are (steps, 4, H, B); wh is (4, H, H) with wh[g][k][j] the weight
 // from h_{s-1}[k] to gate g's row j.  All f32.
 //
-// What bounds them on an H100: bytes.  The Gauss-Seidel sweep reads 14
-// slab-sized inputs (the 4 xproj gates, old f, g, c, h and 6 duals; old i
-// and o do not enter the math) and writes 11; at GoogleStock (steps 9,
-// H 10, B 4224) that is about 38 MB, about 11 us at 3.35 TB/s, while the
-// arithmetic (8H + ~105 operations per element and step) is far below the
-// FP32 peak.  Its second floor is the serial chain of `steps` dependent
-// timesteps, each a small matrix-vector product plus a block barrier.  The
-// Jacobi sweep reads 15 slabs (c_prev instead of the carry) and writes 11,
-// with ~105 operations per element: 39.5 MB at GoogleStock, 12 us.
+// What bounds them on an H100.  The Gauss-Seidel sweep reads 14 slab-sized
+// inputs (the 4 xproj gates, old f, g, c, h and 6 duals; old i and o do
+// not enter the math) and writes 11: at GoogleStock (steps 9, H 10,
+// B 4224) about 38 MB, 11.3 us at 3.35 TB/s; at (9, 100, 4224) 380 MB,
+// 113 us.  Its recurrent product is 8H operations per element and step
+// (3 GFLOP at (9, 100, 4224), 45 us at 67 TFLOP/s FP32), the rest ~105.
+// Its second floor is the serial chain of `steps` dependent timesteps,
+// each a product, 3 expf, 3 tanhf and 11 IEEE divisions deep, plus a block
+// barrier: at T = 128 that chain, not the bytes, sets the time.  In
+// between, on an H100 (clock64 stamps per phase), a step of two rows a
+// thread at (31, 130, 512) spent ~7K cycles streaming wh chunks from L2,
+// ~4.5K on the resident rows' product and ~8.5K on the math with the slab
+// stores and the next step's loads, which every block issues at once (the
+// math alone is ~2K).  Every FMA takes its wh operand from shared memory,
+// and a warp's shared load costs about one cycle per 4-byte lane even when
+// the lanes share the address.  The Jacobi sweep reads
+// 15 slabs (c_prev instead of the carry) and writes 11, with ~105
+// operations per element: 39.5 MB at GoogleStock, 12 us.
 //
-// Gauss-Seidel design: one block owns a tile of TB = 32 batch columns
-// (narrowed only when H > ~600 would overflow shared memory) and loops over
-// time inside the block (this replaces the TPU's sequential time grid and
-// its carry reset at t == 0; blocks share nothing).  Thread (tx, ty) owns
-// column tx of the tile and hidden rows ty, ty + HY, ...; a warp spans
-// the 32 columns of one row, so every slab load and store is one
-// contiguous 128-byte row segment.  h_{s-1} for the tile lives in shared
-// memory, double-buffered, with one __syncthreads() per step; c_{s-1} is
-// only read elementwise and stays in shared memory without a second
-// buffer.  wh sits in shared memory when it fits beside the tile
-// (16*H^2 bytes; H <= ~100) and is otherwise read through L1/L2.  The
-// ragged batch edge is masked in the kernel.
+// Gauss-Seidel design.  A block owns a tile of tb batch columns and loops
+// over time inside the block (this replaces the TPU's sequential time grid
+// and its carry reset at t == 0; blocks share nothing).  Thread (tx, ty)
+// owns column tx and the R consecutive hidden rows ty*R .. ty*R+R-1 for
+// all four gates (R = 1, 2 or 4; rows past H run on zeros and store
+// nothing).  kernels/gate_sweep.py::sweep_plan picks tb and R from the
+// card (at least min(SMs, ceil(B / 8)) blocks, the fewest waves, the last
+// wave as full as it can be; one row a thread below H = 32, where the
+// math's chain is the step, the fewest rows from 2 up that fit the tile
+// above) and how much of wh stays in shared memory; this entry point
+// checks the plan and launches it.
+//  * Prefetch: a step's 14 carry-free inputs per row do not depend on the
+//    carry, so right after a thread finishes row q of step s it issues
+//    row q's 14 loads for step s+1 into the same registers; they are in
+//    flight through the rest of step s, the barrier and step s+1's
+//    product.  c_{s-1} stays in registers (only its own thread reads it);
+//    h_{s-1} is in shared memory, double-buffered, one barrier per step.
+//  * Deferred stores: with R <= 2 a step's 11 results per row stay in
+//    registers and are stored at the start of the next step's resident
+//    product, where they overlap it, not in the math phase, where every
+//    block issues its traffic at once (at R = 4 the 44 registers spill).
+//  * Product: per k, one shared load of h[k][tx] and R float4 loads, the
+//    four gates of wh[.][k][j] for j = j0 .. j0+R-1, feed 4R FMAs into 4R
+//    register accumulators.  wh sits in shared memory as
+//    [k][hp][4], the four gates of one (k, j) side by side and rows padded
+//    with zeros to hp = R * blockDim.y.
+//  * wh resident or partly streamed: where all of wh fits beside h (H up
+//    to 116 at tb 16, 119 at tb 4) it is loaded once per launch.  Above
+//    that a ring of 2 chunks of up to 8 k-rows takes what space it needs
+//    and the first `resident` k-rows fill the rest; the other k-rows stream
+//    every step through the ring by 16-byte cp.async, one chunk ahead, one
+//    barrier per chunk, streamed chunks first and the resident rows last,
+//    with no barrier in between, so the warps drift apart.  More slots
+//    (more lead, fewer resident rows) were slower: every block reads the
+//    streamed rows from L2 every step, and the rows kept resident count
+//    for more than the lead.  The product code is the same.  The copies
+//    read the (H, hp, 4) padded layout, which the wrapper makes where a
+//    thread takes more than one row; the one-row plans gather from
+//    (4, H, H) once.  The k-sum runs over the streamed rows, then the
+//    resident ones, each ascending.
+// The ragged batch edge and the padded rows are masked in the kernel.
 //
 // Jacobi design: one thread per (s, j, b) element, consecutive threads on
 // consecutive b, so every one of the 26 slab accesses of a warp is one
@@ -59,19 +97,31 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int TB = 32;         // batch columns per block (one warp wide)
-constexpr int MAX_THREADS = 512;
 constexpr int JACOBI_THREADS = 256;
+constexpr int WH_BUFS = 2;     // ring of streamed wh chunks
+constexpr int AHEAD = WH_BUFS - 1;   // chunks in flight ahead of the one in use
+
+// Threads per block interior_sweep_kernel<R, .> is compiled for: a thread
+// holds 14 prefetched inputs and 4 accumulators per row, so with R = 2 or
+// 4 it may use 128 registers, with R = 1 64.  kernels/gate_sweep.py::
+// _MAX_THREADS holds the same numbers.
+constexpr int sweep_max_threads(int rows) { return rows == 1 ? 1024 : 512; }
 
 struct SweepArgs {
   const float* xproj;        // (steps, 4, H, B)
   const float* wh;           // (4, H, H)
+  const float* whp;          // (H, hp, 4): wh[g][k][j] at [k][j][g], 0 for j >= H
   const float* rho;          // (6,) i, f, g, o, c, h
   const float* in[12];       // gates i,f,g,o,c,h then duals i,f,g,o,c,h
   float* out[11];            // gates i,f,g,o,c,h then duals i,f,g,o,c
   int steps, H, B;
+  int hp;                    // wh's padded row length, R * blockDim.y
+  int resident;              // k-rows 0 .. resident-1 of wh stay in shared memory
+  int chunk;                 // the rest streams in chunks of this many k-rows
 };
 
 struct JacobiArgs {
@@ -95,21 +145,21 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// One interior timestep of element e: the four pre-activations, the old
-// f, g, c, h and the six duals at e (from `in`), and c_{s-1} -> the new
-// i, f, g, o, c, h and the new duals i, f, g, o, c, in that order, in res.
+// One interior timestep of one element: the four pre-activations, the old
+// f, g, c, h and the six duals (`old`, in that order), and c_{s-1} -> the
+// new i, f, g, o, c, h and the new duals i, f, g, o, c, in that order, in
+// res.
 __device__ __forceinline__ void timestep_math(const float pre[4],
-                                              const float* const* in,
-                                              size_t e, float cp,
+                                              const float old[10], float cp,
                                               const Rho& r, float res[11]) {
   const float act_i = sigmoidf_(pre[0]);
   const float act_f = sigmoidf_(pre[1]);
   const float act_g = tanhf(pre[2]);
   const float act_o = sigmoidf_(pre[3]);
 
-  const float f_o = in[1][e], g_o = in[2][e], c_o = in[4][e], h_o = in[5][e];
-  const float li = in[6][e], lf = in[7][e], lg = in[8][e], lo = in[9][e],
-              lc = in[10][e], lh = in[11][e];
+  const float f_o = old[0], g_o = old[1], c_o = old[2], h_o = old[3];
+  const float li = old[4], lf = old[5], lg = old[6], lo = old[7],
+              lc = old[8], lh = old[9];
 
   // Gauss-Seidel closed forms (admm.py:353-386).  The old i and o gates
   // do not enter their own updates.
@@ -146,64 +196,236 @@ __device__ __forceinline__ void timestep_math(const float pre[4],
   res[10] = lc + r.c * (c_n - (f_n * cp + i_n * g_n));
 }
 
-template <bool WH_SMEM>
-__global__ void __launch_bounds__(MAX_THREADS)
+// The same, reading the old gates and duals of element e from `in`.
+__device__ __forceinline__ void timestep_math(const float pre[4],
+                                              const float* const* in,
+                                              size_t e, float cp,
+                                              const Rho& r, float res[11]) {
+  const float old[10] = {in[1][e], in[2][e], in[4][e], in[5][e],
+                         in[6][e], in[7][e], in[8][e], in[9][e],
+                         in[10][e], in[11][e]};
+  timestep_math(pre, old, cp, r, res);
+}
+
+// ---- Gauss-Seidel sweep ----------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING));
+}
+
+// Copies k-rows k0 .. k0+rows-1 of the padded wh into dst.  Global and
+// shared memory share the [k][hp][4] layout, so that is one contiguous
+// range, 16 bytes per cp.async.
+__device__ __forceinline__ void stream_wh(float* dst, const float* whp,
+                                          int k0, int rows, int hp, int tid,
+                                          int nthreads) {
+  const float4* src =
+      reinterpret_cast<const float4*>(whp + (size_t)k0 * 4 * hp);
+  float4* d = reinterpret_cast<float4*>(dst);
+  for (int v = tid; v < rows * hp; v += nthreads) cp_async16(d + v, src + v);
+}
+
+// acc[g][q] += sum over kk < rows of w[kk][q][g] * h[kk * tb], kk ascending.
+// w points at wh row k0, column j0 of the shared [k][hp][4] layout (the
+// four gates of one (k, j) are one float4); h at h_{s-1}[k0][tx].
+template <int R>
+__device__ __forceinline__ void recurrent_product(const float* w,
+                                                  const float* h, int rows,
+                                                  int tb, int hp,
+                                                  float acc[4][R]) {
+#pragma unroll 4
+  for (int kk = 0; kk < rows; ++kk) {
+    const float hk = h[kk * tb];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(w + (kk * hp + q) * 4);
+      acc[0][q] = fmaf(v.x, hk, acc[0][q]);
+      acc[1][q] = fmaf(v.y, hk, acc[1][q]);
+      acc[2][q] = fmaf(v.z, hk, acc[2][q]);
+      acc[3][q] = fmaf(v.w, hk, acc[3][q]);
+    }
+  }
+}
+
+// The 14 carry-free inputs of element (s, j, b): xproj i, f, g, o, then the
+// old f, g, c, h and the six duals (timestep_math's `old`); zeros outside
+// the slabs (!ok), so the math of a padded row or column stays finite.
+__device__ __forceinline__ void load_step(const SweepArgs& a, int s, int j,
+                                          int b, bool ok, float v[14]) {
+  const size_t slab = (size_t)a.H * a.B;
+  const size_t e = (size_t)s * slab + (size_t)j * a.B + b;
+  const size_t xe = e + 3 * (size_t)s * slab;     // (s, gate 0, j, b)
+  const float* src[14] = {a.xproj + xe, a.xproj + xe + slab,
+                          a.xproj + xe + 2 * slab, a.xproj + xe + 3 * slab,
+                          a.in[1] + e, a.in[2] + e, a.in[4] + e, a.in[5] + e,
+                          a.in[6] + e, a.in[7] + e, a.in[8] + e, a.in[9] + e,
+                          a.in[10] + e, a.in[11] + e};
+#pragma unroll
+  for (int k = 0; k < 14; ++k) v[k] = ok ? __ldg(src[k]) : 0.0f;
+}
+
+// Stores the 11 results of rows j0 .. j0+R-1 of column b at step s: new
+// gates i..h, then duals i..c (masked by ok).
+template <int R>
+__device__ __forceinline__ void store_step(const SweepArgs& a, int s, int j0,
+                                           int b, const bool ok[R],
+                                           const float res[R][11]) {
+  const size_t slab = (size_t)a.H * a.B;
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+    if (ok[q]) {
+      const size_t e = (size_t)s * slab + (size_t)(j0 + q) * a.B + b;
+#pragma unroll
+      for (int k = 0; k < 11; ++k) a.out[k][e] = res[q][k];
+    }
+}
+
+template <int R, bool STREAM>
+__global__ void __launch_bounds__(sweep_max_threads(R))
 interior_sweep_kernel(const SweepArgs a) {
-  extern __shared__ float smem[];
-  const int H = a.H, B = a.B;
-  const int HH = H * H;
-  float* wh_s = smem;                                  // 4*H*H if WH_SMEM
-  const int tb = blockDim.x;                           // batch columns
-  float* hbuf = smem + (WH_SMEM ? 4 * HH : 0);         // [2][H][tb]
-  float* cbuf = hbuf + 2 * H * tb;                     // [H][tb]
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);   // [resident][4][hp]
+  const int H = a.H, B = a.B, hp = a.hp, tb = blockDim.x;
+  const int kres = STREAM ? a.resident : H, kc = a.chunk;
+  const int chunk_floats = kc * 4 * hp;
+  float* const ring = smem + kres * 4 * hp;            // [WH_BUFS][kc][4][hp]
+  float* const hbuf = ring + (STREAM ? WH_BUFS * chunk_floats : 0);  // [2][H][tb]
 
-  const int tx = threadIdx.x, ty = threadIdx.y, HY = blockDim.y;
-  const int nthreads = tb * HY, tid = ty * tb + tx;
+  const int tx = threadIdx.x, j0 = threadIdx.y * R;
+  const int nthreads = tb * blockDim.y, tid = threadIdx.y * tb + tx;
   const int b = blockIdx.x * tb + tx;
-  const bool valid = b < B;
 
-  if (WH_SMEM) {
-    for (int e = tid; e < 4 * HH; e += nthreads) wh_s[e] = a.wh[e];
+  // The streamed k-rows kres .. H-1 cycle through the ring in nck chunks
+  // per step; the first two are put in flight first.
+  const int nck = STREAM ? (H - kres + kc - 1) / kc : 0;
+  const int total_chunks = a.steps * nck;
+  if constexpr (STREAM) {
+    for (int i = 0; i < AHEAD; ++i) {
+      if (i < total_chunks) {
+        const int k1 = kres + (i % nck) * kc;
+        stream_wh(ring + i * chunk_floats, a.whp, k1, min(kc, H - k1), hp,
+                  tid, nthreads);
+      }
+      cp_async_commit();
+    }
   }
-  for (int e = tid; e < H * tb; e += nthreads) {
-    hbuf[e] = 0.0f;
-    cbuf[e] = 0.0f;
+  // The resident rows, once: from the padded layout where there is one,
+  // else gathered from wh (4, H, H), zero past H.
+  if (a.whp != nullptr) {
+    stream_wh(smem, a.whp, 0, kres, hp, tid, nthreads);
+  } else {
+    for (int e = tid; e < kres * 4 * hp; e += nthreads) {
+      const int kj = e >> 2, k = kj / hp, j = kj - k * hp, g = e & 3;
+      if (j < H)
+        cp_async4(smem + e, a.wh + ((size_t)g * H + k) * H + j);
+      else
+        smem[e] = 0.0f;
+    }
   }
-  const float* wh = WH_SMEM ? wh_s : a.wh;
+  cp_async_commit();
+  for (int e = tid; e < H * tb; e += nthreads) hbuf[e] = 0.0f;   // h_0 = 0
+
   const Rho rho = load_rho(a.rho);
+  float pf[R][14];   // this thread's prefetched inputs, row by row
+  float cst[R];      // c_{s-1}, c_0 = 0
+  bool ok[R];        // row j0 + q and column b lie in the slabs
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    cst[q] = 0.0f;
+    ok[q] = j0 + q < H && b < B;
+    load_step(a, 0, j0 + q, b, ok[q], pf[q]);
+  }
+  cp_async_wait<0>();
   __syncthreads();
 
-  const size_t slab = (size_t)H * B;                   // one time row
+  // A step's results: stored during the next step where their 11 R
+  // registers fit (R <= 2; at R = 4 they spill), else at once.
+  constexpr bool DEFER = R <= 2;
+  float pend[R][11];
+  int buf = 0;       // ring slot of the next chunk (STREAM)
+  int n = 0;         // index of the next chunk in the stream (STREAM)
   for (int s = 0; s < a.steps; ++s) {
-    const float* hp = hbuf + (s & 1) * H * tb;
-    float* hn = hbuf + ((s + 1) & 1) * H * tb;
-    if (valid) {
-      for (int j = ty; j < H; j += HY) {
-        // Recurrent projection for row j of all four gates.
-        float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc3 = 0.0f;
-        for (int k = 0; k < H; ++k) {
-          const float hk = hp[k * tb + tx];
-          const int w = k * H + j;
-          acc0 = fmaf(wh[w], hk, acc0);
-          acc1 = fmaf(wh[HH + w], hk, acc1);
-          acc2 = fmaf(wh[2 * HH + w], hk, acc2);
-          acc3 = fmaf(wh[3 * HH + w], hk, acc3);
+    const float* hp_s = hbuf + (s & 1) * H * tb;          // h_{s-1}
+    float* hn = hbuf + ((s + 1) & 1) * H * tb;            // h_s
+
+    float acc[4][R];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int q = 0; q < R; ++q) acc[g][q] = 0.0f;
+    if constexpr (STREAM) {
+      for (int c = 0; c < nck; ++c, ++n) {
+        if (c > 0) {          // for c = 0, at the end of the last step
+          cp_async_wait<AHEAD - 1>();   // chunk n has landed
+          __syncthreads();    // ... for every thread; chunk n-1 is done
         }
-        const size_t e = (size_t)s * slab + (size_t)j * B + b;
-        const size_t xe = (size_t)s * 4 * slab + (size_t)j * B + b;
-        const float pre[4] = {a.xproj[xe] + acc0, a.xproj[xe + slab] + acc1,
-                              a.xproj[xe + 2 * slab] + acc2,
-                              a.xproj[xe + 3 * slab] + acc3};
-        const float cp = cbuf[j * tb + tx];
-        float res[11];
-        timestep_math(pre, a.in, e, cp, rho, res);
-        for (int k = 0; k < 11; ++k) a.out[k][e] = res[k];
-        hn[j * tb + tx] = res[5];
-        cbuf[j * tb + tx] = res[4];
+        if (n + AHEAD < total_chunks) {
+          const int k2 = kres + ((c + AHEAD) % nck) * kc;
+          stream_wh(ring + ((buf + AHEAD) % WH_BUFS) * chunk_floats, a.whp, k2,
+                    min(kc, H - k2), hp, tid, nthreads);
+        }
+        cp_async_commit();
+        const int k0 = kres + c * kc;
+        recurrent_product<R>(ring + buf * chunk_floats + j0 * 4,
+                             hp_s + k0 * tb + tx, min(kc, H - k0), tb, hp,
+                             acc);
+        buf = buf + 1 == WH_BUFS ? 0 : buf + 1;
       }
     }
+    // Step s-1's results go out first (R <= 2), so the slab stores overlap
+    // the resident product instead of the math.  The resident rows last:
+    // no barrier from here to the end of the step, so the warps drift apart
+    // and one warp's math and memory traffic overlap another's product.
+    if constexpr (DEFER) {
+      if (s > 0) store_step<R>(a, s - 1, j0, b, ok, pend);
+    }
+    recurrent_product<R>(smem + j0 * 4, hp_s + tx, kres, tb, hp, acc);
+
+    // Every row runs the math (padded ones on zeros), with no branch, so
+    // the R rows' chains can interleave; only the memory accesses are
+    // masked.
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int j = j0 + q;
+      const float pre[4] = {pf[q][0] + acc[0][q], pf[q][1] + acc[1][q],
+                            pf[q][2] + acc[2][q], pf[q][3] + acc[3][q]};
+      float res[11];
+      timestep_math(pre, pf[q] + 4, cst[q], rho, res);
+      if constexpr (DEFER) {
+#pragma unroll
+        for (int k = 0; k < 11; ++k) pend[q][k] = res[k];
+      } else if (ok[q]) {
+        const size_t e = (size_t)s * H * B + (size_t)j * B + b;
+#pragma unroll
+        for (int k = 0; k < 11; ++k) a.out[k][e] = res[k];
+      }
+      if (j < H) hn[j * tb + tx] = res[5];
+      cst[q] = res[4];
+      if (s + 1 < a.steps) load_step(a, s + 1, j, b, ok[q], pf[q]);
+    }
+    if constexpr (STREAM) cp_async_wait<AHEAD - 1>();   // next step's chunk 0
     __syncthreads();
   }
+  if constexpr (DEFER) store_step<R>(a, a.steps - 1, j0, b, ok, pend);
 }
 
 __global__ void __launch_bounds__(JACOBI_THREADS)
@@ -224,75 +446,109 @@ jacobi_sweep_kernel(const JacobiArgs a) {
   }
 }
 
-constexpr size_t MAX_SMEM = 232448;  // bytes a block may use on sm_90
 constexpr int JACOBI_MAX_BLOCKS = 132 * 16;  // a grid-stride loop covers the rest
-
 constexpr int MAX_DEVICES = 64;
-bool sweep_ready[2][MAX_DEVICES];    // [WH_SMEM] per device
 
-// Raises interior_sweep_kernel<WH_SMEM>'s dynamic shared memory limit to
-// MAX_SMEM once per device and remembers it, so a launch does not pay a
-// cudaFuncSetAttribute.  Two threads racing here both set the same value.
-template <bool WH_SMEM>
-cudaError_t prepare_sweep() {
+// Raises interior_sweep_kernel<R, STREAM>'s dynamic shared-memory limit to
+// the device's opt-in maximum once per device and remembers it, so a
+// launch does not pay a cudaFuncSetAttribute (two threads racing here both
+// set the same value), then launches it.
+template <int R, bool STREAM>
+cudaError_t launch_sweep(const SweepArgs& a, dim3 grid, dim3 block,
+                         size_t smem, cudaStream_t st) {
+  static bool ready[MAX_DEVICES];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  bool* done = sweep_ready[WH_SMEM];
-  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(interior_sweep_kernel<WH_SMEM>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)MAX_SMEM);
-  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
-  return err;
+  if (!(dev < MAX_DEVICES && ready[dev])) {
+    int optin = 0;
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(interior_sweep_kernel<R, STREAM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES) ready[dev] = true;
+  }
+  interior_sweep_kernel<R, STREAM><<<grid, block, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the sweep on `stream`.  `ins` holds 12 device pointers (gates
-// i,f,g,o,c,h, duals i,f,g,o,c,h), `outs` 11 (gates i..h, duals i..c).
-// Returns cudaGetLastError() after the launch (0 = launched).
-int gate_sweep_interior(const void* xproj, const void* wh, const void* rho,
-                        const void* const* ins, void* const* outs,
-                        int steps, int hidden, int batch, void* stream) {
+// The current device's SM count and the shared memory a block may opt in
+// to, for kernels/gate_sweep.py::sweep_plan.  Returns a CUDA error code.
+int gate_sweep_limits(int* sms, int* smem_optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err;
+}
+
+// Launches the Gauss-Seidel sweep on `stream` with the tile plan of
+// kernels/gate_sweep.py::sweep_plan: `tb` batch columns per block and
+// `rows` hidden rows per thread; wh rows padded to `hp` floats in shared
+// memory, k-rows 0 .. resident-1 kept there and the rest streamed in
+// chunks of `chunk` k-rows from `whp`, the (H, hp, 4) padded layout of
+// the (4, H, H) weights `wh` (wh[g][k][j] at [k][j][g], zero for j >= H,
+// 16-byte aligned; null if the plan gathers from wh); `smem` bytes of dynamic
+// shared memory.  `ins` holds 12 device pointers (gates i,f,g,o,c,h, duals
+// i,f,g,o,c,h), `outs` 11 (gates i..h, duals i..c).  Returns
+// cudaErrorInvalidValue for a plan this kernel does not take, else
+// cudaGetLastError() after the launch (0 = launched).
+int gate_sweep_interior(const void* xproj, const void* wh, const void* whp,
+                        const void* rho, const void* const* ins,
+                        void* const* outs, int steps, int hidden, int batch,
+                        int tb, int rows, int hp, int resident, int chunk,
+                        int smem, void* stream) {
+  if (steps < 1 || hidden < 1 || batch < 1) return cudaErrorInvalidValue;
+  if (tb < 1 || tb > 32 || (32 % tb) != 0) return cudaErrorInvalidValue;
+  if (rows != 1 && rows != 2 && rows != 4) return cudaErrorInvalidValue;
+  const int groups = (hidden + rows - 1) / rows;
+  if (tb * groups > sweep_max_threads(rows)) return cudaErrorInvalidValue;
+  if (hp < groups * rows) return cudaErrorInvalidValue;
+  const bool streamed = resident < hidden;
+  if (resident < 0 || resident > hidden || (streamed && chunk < 1) ||
+      (streamed && whp == nullptr) ||
+      reinterpret_cast<uintptr_t>(whp) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const size_t wh_floats =
+      ((size_t)resident + (streamed ? WH_BUFS * (size_t)chunk : 0)) * 4 * hp;
+  const size_t need = (wh_floats + 2 * (size_t)hidden * tb) * sizeof(float);
+  if ((size_t)smem != need) return cudaErrorInvalidValue;
+
   SweepArgs a;
   a.xproj = static_cast<const float*>(xproj);
   a.wh = static_cast<const float*>(wh);
+  a.whp = static_cast<const float*>(whp);
   a.rho = static_cast<const float*>(rho);
   for (int k = 0; k < 12; ++k) a.in[k] = static_cast<const float*>(ins[k]);
   for (int k = 0; k < 11; ++k) a.out[k] = static_cast<float*>(outs[k]);
   a.steps = steps;
   a.H = hidden;
   a.B = batch;
+  a.hp = hp;
+  a.resident = resident;
+  a.chunk = chunk;
 
-  if (steps < 1 || hidden < 1 || batch < 1) return cudaErrorInvalidValue;
-  // A warp-wide tile of 32 columns, narrowed only when the tile's h and c
-  // (3 * H * tb floats) would not fit in shared memory (H > ~600).
-  int tb = TB;
-  while (tb > 1 && 3 * (size_t)hidden * tb * sizeof(float) > MAX_SMEM) tb /= 2;
-  const size_t tile_bytes = 3 * (size_t)hidden * tb * sizeof(float);
-  const size_t wh_bytes = 4 * (size_t)hidden * hidden * sizeof(float);
-  const bool wh_smem = tile_bytes + wh_bytes <= MAX_SMEM;
-  const size_t smem = tile_bytes + (wh_smem ? wh_bytes : 0);
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-
-  const int max_hy = MAX_THREADS / tb;
-  const dim3 block(tb, hidden < max_hy ? hidden : max_hy);
+  const dim3 block(tb, groups);
   const dim3 grid((batch + tb - 1) / tb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (wh_smem) {
-    err = prepare_sweep<true>();
-    if (err != cudaSuccess) return err;
-    interior_sweep_kernel<true><<<grid, block, smem, st>>>(a);
-  } else {
-    err = prepare_sweep<false>();
-    if (err != cudaSuccess) return err;
-    interior_sweep_kernel<false><<<grid, block, smem, st>>>(a);
+  switch (rows * 2 + streamed) {
+    case 2: return launch_sweep<1, false>(a, grid, block, need, st);
+    case 3: return launch_sweep<1, true>(a, grid, block, need, st);
+    case 4: return launch_sweep<2, false>(a, grid, block, need, st);
+    case 5: return launch_sweep<2, true>(a, grid, block, need, st);
+    case 8: return launch_sweep<4, false>(a, grid, block, need, st);
+    default: return launch_sweep<4, true>(a, grid, block, need, st);
   }
-  return cudaGetLastError();
 }
 
 // Launches the Jacobi sweep on `stream`.  `ins` and `outs` as above; pre

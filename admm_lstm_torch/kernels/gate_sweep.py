@@ -19,21 +19,159 @@ and raise on anything they cannot take; they run the plain version only
 for tensors that lie on the CPU.  There is no fallback from a kernel to
 its plain version.  What bounds the kernels on an H100 (bytes: about
 38 MB of slab traffic per sweep at GoogleStock) and how their design
-answers that is written at the top of the CUDA source.
+answers that is written at the top of the CUDA source.  `sweep_plan`
+picks the Gauss-Seidel kernel's tiles from the card's SM count and
+shared-memory limit; the kernel's entry point checks the plan it is given.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
-from admm_lstm_torch.kernels.build import launch
+from admm_lstm_torch.kernels.build import launch, load_library
 
 Slabs = Tuple[torch.Tensor, ...]
 
 _LIB = 'gate_sweep'
+
+# Batch tiles, widest first: a warp spans 32 // tb row groups, and down to
+# tb = 8 each of its row segments is a whole 32-byte sector.
+SWEEP_TILES = (32, 16, 8, 4, 2, 1)
+# Rows per thread -> threads per block the kernel is compiled for
+# (csrc/gate_sweep.cu::sweep_max_threads): 14 prefetched inputs and 4
+# accumulators per row stay in registers.
+_MAX_THREADS = {1: 1024, 2: 512, 4: 512}
+_WH_BUFS = 2               # the ring of streamed wh chunks (csrc WH_BUFS)
+_CHUNKS = (8, 4, 2, 1)     # k-rows per streamed chunk, largest first
+
+
+class SweepPlan(NamedTuple):
+    """The Gauss-Seidel kernel's launch: `tb` batch columns per block,
+    `rows` hidden rows (all four gates) of one column per thread,
+    `threads` per block, wh rows padded to `hp` floats, `grid` blocks;
+    k-rows 0 .. resident-1 of wh stay in shared memory and the rest (if
+    resident < H) stream every step in chunks of `chunk` k-rows; wh goes
+    to the kernel in its padded (H, hp, 4) layout (`padded_wh`) as well if
+    `padded`; `smem` bytes of dynamic shared memory."""
+    tb: int
+    rows: int
+    threads: int
+    hp: int
+    grid: int
+    resident: int
+    chunk: int
+    padded: bool
+    smem: int
+
+
+def _fit(hidden: int, tb: int, hp: int, smem_limit: int):
+    """(resident, chunk, smem) of wh for one tile, or None: all of wh in
+    shared memory beside the double buffer of h if it fits, else a ring of
+    two chunks (the largest of _CHUNKS that fits) and as many resident
+    k-rows as the rest holds."""
+    row_bytes = 16 * hp                               # a k-row, four gates
+    h_bytes = 8 * hidden * tb
+    if h_bytes + hidden * row_bytes <= smem_limit:
+        return hidden, 0, h_bytes + hidden * row_bytes
+    for chunk in _CHUNKS:
+        ring = _WH_BUFS * chunk * row_bytes
+        if h_bytes + ring <= smem_limit:
+            resident = min(hidden - 1,
+                           (smem_limit - h_bytes - ring) // row_bytes)
+            return resident, chunk, h_bytes + ring + resident * row_bytes
+    return None
+
+
+def _tile_plan(hidden: int, batch: int, tb: int, rows: int,
+              smem_limit: int):
+    """The plan of one tile width and rows per thread, or None if the
+    kernel does not take it (too many threads, or h alone overfills shared
+    memory).  Rows past H are padded with zeros to a multiple of R (hp)."""
+    groups = -(-hidden // rows)
+    if tb * groups > _MAX_THREADS[rows]:
+        return None
+    hp = groups * rows
+    fit = _fit(hidden, tb, hp, smem_limit)
+    if fit is None:
+        return None
+    resident, chunk, smem = fit
+    return SweepPlan(tb, rows, tb * groups, hp, -(-batch // tb), resident,
+                     chunk, rows > 1 or resident < hidden, smem)
+
+
+def sweep_plan(hidden: int, batch: int, sms: int,
+               smem_limit: int) -> SweepPlan:
+    """The tile plan of `interior_sweep` at hidden size H and batch B on a
+    card with `sms` SMs and `smem_limit` bytes of shared memory per block.
+
+    Tiles: of those in SWEEP_TILES that give at least min(sms, ceil(B / 8))
+    blocks, the one with the fewest waves of one block per SM (a block
+    that holds wh fills an SM's shared memory), then the one whose last
+    wave fills the SMs best, the widest of equals.  Rows per thread: the
+    fewest that fit the tile in the kernel's threads, at least 2 from
+    H = 32, where the recurrent product's shared loads outweigh the math
+    (at one row a thread, the math, a chain of transcendentals and IEEE
+    divisions, is the step's latency).  wh is resident if it fits beside
+    h, else partly streamed (`_fit`), and goes to the kernel padded where
+    a thread takes more than one row or wh streams.  Steps do not enter
+    the plan.  Raises ValueError for H beyond the kernel (above 2048)."""
+    if hidden < 1 or batch < 1:
+        raise ValueError(f'empty sweep: H {hidden}, B {batch}')
+    least = 1 if hidden < 32 else 2
+    target = min(sms, -(-batch // 8))
+    best = None
+    for tb in SWEEP_TILES:
+        if -(-batch // tb) < target:
+            continue
+        plan = next((p for p in (_tile_plan(hidden, batch, tb, rows,
+                                           smem_limit)
+                                 for rows in _MAX_THREADS if rows >= least)
+                     if p is not None), None)
+        if plan is None:
+            continue
+        waves = -(-plan.grid // sms)
+        key = (-waves, plan.grid / (waves * sms))
+        if best is None or key > best[0]:
+            best = (key, plan)
+    if best is None:
+        raise ValueError(f'interior_sweep has no tile plan for H {hidden} '
+                         f'(threads or {smem_limit} bytes of shared memory)')
+    return best[1]
+
+
+def padded_wh(wh: torch.Tensor, hp: int) -> torch.Tensor:
+    """The kernel's layout of wh (4, H, H): (H, hp, 4), wh[g][k][j] at
+    [k][j][g] and zero for j >= H, so a chunk of k-rows is one contiguous
+    range and the four gates of one (k, j) are one 16-byte load.  One copy
+    kernel where hp = H (the zero fill only where there is padding)."""
+    hidden = wh.shape[-1]
+    out = (wh.new_zeros if hp > hidden else wh.new_empty)((hidden, hp, 4))
+    out[:, :hidden].copy_(wh.permute(1, 2, 0))
+    return out
+
+
+_LIMITS: Dict[int, Tuple[int, int]] = {}
+
+
+def card_sweep_plan(device: torch.device, hidden: int,
+                    batch: int) -> SweepPlan:
+    """`sweep_plan` with the SM count and shared-memory limit of `device`,
+    read from the CUDA runtime once per card."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _LIMITS:
+        fn = load_library(_LIB).gate_sweep_limits
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        sms, smem = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(index):
+            err = fn(ctypes.byref(sms), ctypes.byref(smem))
+        if err:
+            raise RuntimeError(f'gate_sweep_limits: CUDA error {err}')
+        _LIMITS[index] = (sms.value, smem.value)
+    return sweep_plan(hidden, batch, *_LIMITS[index])
 
 
 def _timestep_plain(pre, old, lams, cp, rho_vec):
@@ -164,9 +302,11 @@ def _check(xproj, wh, gates, duals, rho_vec):
                  (*gates, *duals), steps, hidden, batch)
 
 
-def _launch(symbol, first, second, rho_vec, gates, duals):
-    """Allocates the 11 outputs and launches `symbol` on the current
-    stream of the inputs' card."""
+def _launch(symbol, first, operands, rho_vec, gates, duals, extra=()):
+    """Allocates the 11 outputs, shaped and placed as the slabs of `first`,
+    and launches `symbol` on the current stream of its card: `operands`
+    are the leading tensors (None for a null pointer), then rho, the slabs
+    and the outputs, steps, H, B and the ints `extra`."""
     steps, _, hidden, batch = first.shape
     outs = [torch.empty((steps, hidden, batch), dtype=torch.float32,
                         device=first.device) for _ in range(11)]
@@ -174,11 +314,12 @@ def _launch(symbol, first, second, rho_vec, gates, duals):
     outs_arr = (ctypes.c_void_p * 11)(*(o.data_ptr() for o in outs))
     vp = ctypes.c_void_p
     launch(_LIB, symbol,
-           [vp, vp, vp, ctypes.POINTER(vp), ctypes.POINTER(vp),
-            ctypes.c_int, ctypes.c_int, ctypes.c_int], first.device,
-           first.data_ptr(), second.data_ptr(), rho_vec.data_ptr(), ins_arr,
-           outs_arr, steps, hidden, batch,
-           detail=f'steps {steps}, H {hidden}, B {batch}')
+           [vp] * (len(operands) + 1) + [ctypes.POINTER(vp)] * 2
+           + [ctypes.c_int] * (3 + len(extra)), first.device,
+           *(None if t is None else t.data_ptr() for t in operands),
+           rho_vec.data_ptr(), ins_arr, outs_arr, steps, hidden, batch,
+           *extra, detail=f'steps {steps}, H {hidden}, B {batch}'
+                          + (f', plan {extra}' if extra else ''))
     return tuple(outs[:6]), tuple(outs[6:])
 
 
@@ -195,7 +336,12 @@ def interior_sweep(xproj: torch.Tensor, wh: torch.Tensor,
     _check(xproj, wh, gates, duals, rho_vec)
     if xproj.device.type == 'cpu':
         return interior_sweep_plain(xproj, wh, gates, duals, rho_vec)
-    out = _launch('gate_sweep_interior', xproj, wh, rho_vec, gates, duals)
+    _, _, hidden, batch = xproj.shape
+    plan = card_sweep_plan(xproj.device, hidden, batch)
+    whp = padded_wh(wh, plan.hp) if plan.padded else None
+    out = _launch('gate_sweep_interior', xproj, (xproj, wh, whp), rho_vec,
+                  gates, duals, (plan.tb, plan.rows, plan.hp, plan.resident,
+                                 plan.chunk, plan.smem))
     interior_sweep.launches += 1
     return out
 
@@ -217,7 +363,8 @@ def jacobi_sweep(pre: torch.Tensor, gates: Sequence[torch.Tensor],
                  (h_prev, c_prev, *gates, *duals), steps, hidden, batch)
     if pre.device.type == 'cpu':
         return jacobi_sweep_plain(pre, gates, duals, h_prev, c_prev, rho_vec)
-    out = _launch('gate_sweep_jacobi', pre, c_prev, rho_vec, gates, duals)
+    out = _launch('gate_sweep_jacobi', pre, (pre, c_prev), rho_vec, gates,
+                  duals)
     jacobi_sweep.launches += 1
     return out
 

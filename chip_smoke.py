@@ -10,6 +10,8 @@ Phases, each fatal on failure:
                card, at its paths' shapes and more, and time kernel, plain
                version and (where one exists) the one-call PyTorch
                yardstick with CUDA events (L2 flushed before every launch);
+               for the Gauss-Seidel sweep also its tile plan and its time
+               per step past the first (ms_per_step);
                for the Cholesky kernels also a two-call yardstick, their
                registers and systems per SM, and gate (ii): the error
                against float64 on ill-conditioned Gram-like inputs, held
@@ -75,7 +77,8 @@ SPIN_CYCLES = 1_000_000        # ~0.5 ms at the H100's ~2 GHz SM clock
 
 # Shapes, each kernel's main-path shape first.  Sweeps: (steps, H, B);
 # Cholesky: (N systems, D).
-SWEEP_SHAPES = [(9, 10, 4224), (13, 5, 1000), (31, 130, 512)]
+SWEEP_SHAPES = [(9, 10, 4224), (13, 5, 1000), (31, 130, 512),
+                (9, 100, 4224), (127, 16, 512)]
 JACOBI_SHAPES = [(9, 10, 4224), (9, 128, 2048), (13, 5, 1000)]
 SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128), (37, 100)]
 INVERSE_SHAPES = [(512, 64), (16, 128), (7, 33)]
@@ -404,11 +407,24 @@ def phase_kernels(flush):
     rows = {k: [] for k in ('interior_sweep', 'jacobi_sweep', 'chol_solve',
                             'chol_inverse')}
     for k, shape in enumerate(SWEEP_SHAPES):
+        steps, hidden, batch = shape
         args = sweep_inputs(*shape, seed=k)
-        rows['interior_sweep'].append(kernel_row(
+        one = sweep_inputs(1, hidden, batch, seed=k)
+        one_ms = cuda_ms(lambda: gs.interior_sweep(*one), 50, flush)
+        plan = gs.card_sweep_plan(torch.device('cuda'), hidden, batch)
+        row = kernel_row(
             'interior_sweep', shape, lambda: gs.interior_sweep(*args),
             lambda: gs.interior_sweep_plain(*args), None, KERNEL_ATOL,
-            sweep_bound(*shape), flush))
+            sweep_bound(*shape), flush,
+            info=dict(plan=plan._asdict(),
+                      wh='resident' if plan.resident == hidden else
+                      f'{plan.resident} of {hidden} k-rows resident, '
+                      f'the rest streamed', one_step_ms=one_ms))
+        # The serial cost of a step: the time past the first step.
+        row['ms_per_step'] = (row['ms'] - one_ms) / (steps - 1)
+        log(f'[kernels] interior_sweep {list(shape)} plan {row["plan"]} '
+            f'(wh {row["wh"]}), ms_per_step {row["ms_per_step"]}')
+        rows['interior_sweep'].append(row)
     for k, shape in enumerate(JACOBI_SHAPES):
         args = sweep_inputs(*shape, seed=10 + k, jacobi=True)
         rows['jacobi_sweep'].append(kernel_row(
@@ -720,7 +736,8 @@ def main() -> int:
             bound_ms=main_row['bound_ms'], bound_by=main_row['bound_by'],
             library_ms=main_row['library_ms'], shape=main_row['shape'],
             other_shapes=rows[name][1:]))
-        for key in ('two_call_ms', 'regs', 'local_bytes', 'systems_per_sm'):
+        for key in ('two_call_ms', 'regs', 'local_bytes', 'systems_per_sm',
+                    'plan', 'ms_per_step'):
             if key in main_row:
                 kernels[-1][key] = main_row[key]
         if name in ill:

@@ -17,7 +17,8 @@ from admm_lstm_torch.data.synthetic import load as synth
 from admm_lstm_torch.kernels.cholesky import (chol_inverse,
                                               chol_inverse_plain, chol_solve,
                                               chol_solve_plain)
-from admm_lstm_torch.kernels.gate_sweep import (interior_sweep,
+from admm_lstm_torch.kernels.gate_sweep import (card_sweep_plan,
+                                                interior_sweep,
                                                 interior_sweep_plain,
                                                 jacobi_sweep,
                                                 jacobi_sweep_plain)
@@ -56,14 +57,41 @@ def _inputs(steps, hidden, batch, seed, device):
     return xproj, wh, gates, duals, rho
 
 
+# B of the wh-residency threshold cases: the largest H whose wh the plan
+# keeps in shared memory at this B, and the next H, which streams it.
+THRESHOLD_BATCH = 512
+
+
+def _resident_threshold(device, batch):
+    hidden = 64
+    while card_sweep_plan(device, hidden + 1, batch).resident == hidden + 1:
+        hidden += 1
+    return hidden
+
+
 @pytest.mark.parametrize('steps,hidden,batch', [
     (9, 10, 4224),     # GoogleStock
     (13, 5, 1000),     # ragged batch edge
-    (31, 130, 512),    # wh read through L2
+    (31, 130, 512),    # wh streamed through shared memory
     (1, 3, 1),         # one step, one column
     (3, 700, 40),      # the batch tile narrows below a warp
+    (9, 100, 4224),    # GoogleStock at the reference's widest H
+    (127, 16, 512),    # the JAX package's long-sequence shape
+    (5, 10, 1001),     # B not a multiple of 4
+    (4, 7, 37),        # odd H, B below one tile of 8
+    (3, 'resident', THRESHOLD_BATCH),   # widest H with wh resident
+    (3, 'streamed', THRESHOLD_BATCH),   # the next H, wh streamed
+    (2, 120, 4224),    # four rows a thread with wh streamed
+    (4, 64, 1001),     # two rows a thread, ragged batch edge
+    (3, 40, 37),       # two rows a thread, one column a block
+    (4, 300, 24),      # wh streamed, a partial last warp
 ])
 def test_torch_cuda_sweep_matches_plain(cuda, steps, hidden, batch):
+    if isinstance(hidden, str):
+        streamed = hidden == 'streamed'
+        hidden = _resident_threshold(cuda, batch) + streamed
+        plan = card_sweep_plan(cuda, hidden, batch)
+        assert (plan.resident < hidden) == streamed
     args = _inputs(steps, hidden, batch, seed=steps, device=cuda)
     before = interior_sweep.launches
     got = interior_sweep(*args)
