@@ -43,7 +43,10 @@
 // and a warp's shared load costs about one cycle per 4-byte lane even when
 // the lanes share the address.  The Jacobi sweep reads
 // 15 slabs (c_prev instead of the carry) and writes 11, with ~105
-// operations per element: 39.5 MB at GoogleStock, 12 us.
+// operations per element (~250 instructions: 8 IEEE divisions, 3 expf,
+// 3 tanhf): 39.5 MB at GoogleStock, 12 us; 245 MB at (9, 128, 2048),
+// 73 us.  It is a stream: bytes bound it, and what keeps it from its bound
+// is how many of its loads are in flight and how evenly the SMs share them.
 //
 // Gauss-Seidel design.  A block owns a tile of tb batch columns and loops
 // over time inside the block (this replaces the TPU's sequential time grid
@@ -87,10 +90,32 @@
 //    resident ones, each ascending.
 // The ragged batch edge and the padded rows are masked in the kernel.
 //
-// Jacobi design: one thread per (s, j, b) element, consecutive threads on
-// consecutive b, so every one of the 26 slab accesses of a warp is one
-// contiguous 128-byte segment; a grid-stride loop covers any size and the
-// ragged edge needs no padding.  No shared memory, no barrier.
+// Jacobi design.  A slab is a flat run of H * B floats, so the kernel
+// walks items: one step s and V consecutive floats at vector offset o of
+// the slab (V = 4, one float4 per slab and item, where H * B % 4 == 0,
+// every pointer is 16-byte aligned and the items fill a wave; else V = 1,
+// the same code as another template instance, whose threads each run a
+// quarter of the math chain).  Consecutive threads take consecutive
+// offsets, so a warp's access to a slab is one contiguous 512-byte
+// (V = 4) or 128-byte run.  kernels/gate_sweep.py::jacobi_plan sizes the
+// grid from the card: one whole wave of the blocks the SMs hold at once
+// (the CUDA runtime's occupancy: 3 blocks of 128 at V = 4's 164
+// registers, 8 at V = 1's 64, on an H100), or every item's block at once
+// where there are fewer; each thread then takes every
+// (grid * threads)-th item, at most `per_thread` of them.
+//  * No division per item: a thread divides once, for its first (s, o)
+//    and for the grid's stride in (s, o); after that it adds, and an
+//    offset is the step's base plus a 32-bit offset.
+//  * Loads in flight: the inputs are read through the read-only path
+//    (ld.global.nc) and a thread issues its next item's 15 loads before
+//    it computes and stores the current one, so 15 16-byte loads a
+//    thread are always in flight (~90 KB an SM at 3 blocks of 128).
+// On an H100 it runs a few percent behind a device copy of the same bytes
+// and behind the same walk without the math (PERF.md); more loads in
+// flight (a cp.async ring in shared memory), no prefetch, 256-thread
+// blocks and evict-first loads or stores were each slower or no faster
+// (admm_lstm_torch/jacobi_ab.py times them).
+// No shared memory, no barrier.
 //
 // Numerics of both: FP32 FMA, no TF32, IEEE division, full-precision
 // expf/tanhf (no fast math).
@@ -101,7 +126,9 @@
 
 namespace {
 
-constexpr int JACOBI_THREADS = 256;
+// Threads per block of jacobi_sweep_kernel (kernels/gate_sweep.py::
+// JACOBI_THREADS holds the same number).
+constexpr int JACOBI_THREADS = 128;
 constexpr int WH_BUFS = 2;     // ring of streamed wh chunks
 constexpr int AHEAD = WH_BUFS - 1;   // chunks in flight ahead of the one in use
 
@@ -130,7 +157,8 @@ struct JacobiArgs {
   const float* rho;          // (6,) i, f, g, o, c, h
   const float* in[12];       // gates i,f,g,o,c,h then duals i,f,g,o,c,h
   float* out[11];            // gates i,f,g,o,c,h then duals i,f,g,o,c
-  int steps, H, B;
+  int steps;
+  int n;                     // vectors of V floats in a slab, H * B / V
 };
 
 struct Rho {
@@ -194,17 +222,6 @@ __device__ __forceinline__ void timestep_math(const float pre[4],
   res[8] = lg + r.g * (g_n - act_g);
   res[9] = lo + r.o * (o_n - act_o);
   res[10] = lc + r.c * (c_n - (f_n * cp + i_n * g_n));
-}
-
-// The same, reading the old gates and duals of element e from `in`.
-__device__ __forceinline__ void timestep_math(const float pre[4],
-                                              const float* const* in,
-                                              size_t e, float cp,
-                                              const Rho& r, float res[11]) {
-  const float old[10] = {in[1][e], in[2][e], in[4][e], in[5][e],
-                         in[6][e], in[7][e], in[8][e], in[9][e],
-                         in[10][e], in[11][e]};
-  timestep_math(pre, old, cp, r, res);
 }
 
 // ---- Gauss-Seidel sweep ----------------------------------------------------
@@ -428,25 +445,92 @@ interior_sweep_kernel(const SweepArgs a) {
   if constexpr (DEFER) store_step<R>(a, a.steps - 1, j0, b, ok, pend);
 }
 
+// ---- Jacobi sweep ----------------------------------------------------------
+
+template <int V> struct Vec;
+template <> struct Vec<4> { using T = float4; };
+template <> struct Vec<1> { using T = float; };
+
+__device__ __forceinline__ float lane(float4 v, int l) {
+  return l == 0 ? v.x : l == 1 ? v.y : l == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float lane(float v, int) { return v; }
+__device__ __forceinline__ void set_lane(float4& v, int l, float x) {
+  if (l == 0) v.x = x; else if (l == 1) v.y = x; else if (l == 2) v.z = x;
+  else v.w = x;
+}
+__device__ __forceinline__ void set_lane(float& v, int, float x) { v = x; }
+
+// The 15 inputs of item (s, o), sn = s * n: pre i, f, g, o, then the old
+// f, g, c, h and the six duals (timestep_math's `old`), then c_prev;
+// through the read-only path.
+template <int V>
+__device__ __forceinline__ void jacobi_load(const JacobiArgs& a, size_t sn,
+                                            int o,
+                                            typename Vec<V>::T v[15]) {
+  using T = typename Vec<V>::T;
+  const size_t e = sn + o, n = a.n;
+  const T* pre = reinterpret_cast<const T*>(a.pre) + 4 * sn + o;
+  const float* const src[11] = {a.in[1], a.in[2], a.in[4], a.in[5],
+                                a.in[6], a.in[7], a.in[8], a.in[9],
+                                a.in[10], a.in[11], a.c_prev};
+#pragma unroll
+  for (int g = 0; g < 4; ++g) v[g] = __ldg(pre + g * n);
+#pragma unroll
+  for (int k = 0; k < 11; ++k)
+    v[4 + k] = __ldg(reinterpret_cast<const T*>(src[k]) + e);
+}
+
+template <int V>
 __global__ void __launch_bounds__(JACOBI_THREADS)
 jacobi_sweep_kernel(const JacobiArgs a) {
+  using T = typename Vec<V>::T;
+  const int n = a.n;
+  // This thread's first item and the grid's stride, both in (s, o): the
+  // only divisions.
+  const int first = blockIdx.x * JACOBI_THREADS + threadIdx.x;
+  const int stride = gridDim.x * JACOBI_THREADS;
+  int s = first / n, o = first - s * n;
+  const int ds = stride / n, dof = stride - ds * n;
+  if (s >= a.steps) return;
   const Rho rho = load_rho(a.rho);
-  const size_t slab = (size_t)a.H * a.B;
-  const size_t total = slab * a.steps;
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += stride) {
-    const size_t s = e / slab;
-    const size_t xe = e + 3 * s * slab;     // (s, gate 0, j, b) in pre
-    const float pre[4] = {a.pre[xe], a.pre[xe + slab], a.pre[xe + 2 * slab],
-                          a.pre[xe + 3 * slab]};
-    float res[11];
-    timestep_math(pre, a.in, e, a.c_prev[e], rho, res);
-    for (int k = 0; k < 11; ++k) a.out[k][e] = res[k];
+
+  T cur[15], nxt[15];
+  jacobi_load<V>(a, (size_t)s * n, o, cur);
+  while (true) {
+    int s2 = s + ds, o2 = o + dof;
+    if (o2 >= n) {
+      o2 -= n;
+      ++s2;
+    }
+    const bool more = s2 < a.steps;
+    if (more) jacobi_load<V>(a, (size_t)s2 * n, o2, nxt);
+
+    T res[11];
+#pragma unroll
+    for (int l = 0; l < V; ++l) {
+      const float pre[4] = {lane(cur[0], l), lane(cur[1], l),
+                            lane(cur[2], l), lane(cur[3], l)};
+      float old[10];
+#pragma unroll
+      for (int k = 0; k < 10; ++k) old[k] = lane(cur[4 + k], l);
+      float r[11];
+      timestep_math(pre, old, lane(cur[14], l), rho, r);
+#pragma unroll
+      for (int k = 0; k < 11; ++k) set_lane(res[k], l, r[k]);
+    }
+    const size_t e = (size_t)s * n + o;
+#pragma unroll
+    for (int k = 0; k < 11; ++k) reinterpret_cast<T*>(a.out[k])[e] = res[k];
+
+    if (!more) break;
+    s = s2;
+    o = o2;
+#pragma unroll
+    for (int k = 0; k < 15; ++k) cur[k] = nxt[k];
   }
 }
 
-constexpr int JACOBI_MAX_BLOCKS = 132 * 16;  // a grid-stride loop covers the rest
 constexpr int MAX_DEVICES = 64;
 
 // Raises interior_sweep_kernel<R, STREAM>'s dynamic shared-memory limit to
@@ -551,13 +635,54 @@ int gate_sweep_interior(const void* xproj, const void* wh, const void* whp,
   }
 }
 
-// Launches the Jacobi sweep on `stream`.  `ins` and `outs` as above; pre
-// is (steps, 4, H, B) and c_prev (steps, H, B).  Returns
-// cudaGetLastError() after the launch (0 = launched).
+// Resident blocks per SM of jacobi_sweep_kernel<vec> at JACOBI_THREADS
+// threads, for kernels/gate_sweep.py::jacobi_plan, and the kernel's
+// registers and local (spill) bytes per thread.  Returns a CUDA error code.
+int gate_sweep_jacobi_occupancy(int vec, int* blocks_per_sm, int* regs,
+                                int* local_bytes) {
+  if (vec != 1 && vec != 4) return cudaErrorInvalidValue;
+  const void* fn = vec == 4 ? (const void*)jacobi_sweep_kernel<4>
+                            : (const void*)jacobi_sweep_kernel<1>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                       JACOBI_THREADS, 0);
+}
+
+// Launches the Jacobi sweep on `stream` with the plan of
+// kernels/gate_sweep.py::jacobi_plan: `vec` floats per access (4: every
+// slab and output pointer 16-byte aligned and H * B % 4 == 0),
+// `per_thread`, the most items a thread takes (ceil(steps * H * B / vec /
+// (grid * threads))), `threads` per block (JACOBI_THREADS) and `grid`
+// blocks.
+// `ins` and `outs` as above; pre is (steps, 4, H, B) and c_prev
+// (steps, H, B).  Returns cudaErrorInvalidValue for a plan this kernel
+// does not take, else cudaGetLastError() after the launch (0 = launched).
 int gate_sweep_jacobi(const void* pre, const void* c_prev, const void* rho,
                       const void* const* ins, void* const* outs, int steps,
-                      int hidden, int batch, void* stream) {
-  if (steps < 1 || hidden < 1 || batch < 1) return cudaErrorInvalidValue;
+                      int hidden, int batch, int vec, int per_thread,
+                      int threads, int grid, void* stream) {
+  if (steps < 1 || steps >= (1 << 30) || hidden < 1 || batch < 1)
+    return cudaErrorInvalidValue;
+  const long long slab = (long long)hidden * batch;
+  if ((vec != 1 && vec != 4) || slab % vec != 0 || slab / vec >= (1LL << 30))
+    return cudaErrorInvalidValue;
+  const long long n = slab / vec, items = n * steps;
+  const long long lanes = (long long)grid * threads;
+  if (threads != JACOBI_THREADS || grid < 1 || lanes >= (1LL << 30) ||
+      (lanes - threads) >= items || per_thread != (items + lanes - 1) / lanes)
+    return cudaErrorInvalidValue;
+  if (vec == 4) {
+    uintptr_t bits = reinterpret_cast<uintptr_t>(pre) |
+                     reinterpret_cast<uintptr_t>(c_prev);
+    for (int k = 0; k < 12; ++k) bits |= reinterpret_cast<uintptr_t>(ins[k]);
+    for (int k = 0; k < 11; ++k) bits |= reinterpret_cast<uintptr_t>(outs[k]);
+    if (bits % 16 != 0) return cudaErrorInvalidValue;
+  }
+
   JacobiArgs a;
   a.pre = static_cast<const float*>(pre);
   a.c_prev = static_cast<const float*>(c_prev);
@@ -565,13 +690,12 @@ int gate_sweep_jacobi(const void* pre, const void* c_prev, const void* rho,
   for (int k = 0; k < 12; ++k) a.in[k] = static_cast<const float*>(ins[k]);
   for (int k = 0; k < 11; ++k) a.out[k] = static_cast<float*>(outs[k]);
   a.steps = steps;
-  a.H = hidden;
-  a.B = batch;
-  const size_t total = (size_t)steps * hidden * batch;
-  size_t blocks = (total + JACOBI_THREADS - 1) / JACOBI_THREADS;
-  if (blocks > JACOBI_MAX_BLOCKS) blocks = JACOBI_MAX_BLOCKS;
-  jacobi_sweep_kernel<<<(unsigned)blocks, JACOBI_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(a);
+  a.n = (int)n;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 4)
+    jacobi_sweep_kernel<4><<<grid, JACOBI_THREADS, 0, st>>>(a);
+  else
+    jacobi_sweep_kernel<1><<<grid, JACOBI_THREADS, 0, st>>>(a);
   return cudaGetLastError();
 }
 

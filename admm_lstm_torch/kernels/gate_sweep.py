@@ -21,13 +21,15 @@ its plain version.  What bounds the kernels on an H100 (bytes: about
 38 MB of slab traffic per sweep at GoogleStock) and how their design
 answers that is written at the top of the CUDA source.  `sweep_plan`
 picks the Gauss-Seidel kernel's tiles from the card's SM count and
-shared-memory limit; the kernel's entry point checks the plan it is given.
+shared-memory limit, `jacobi_plan` the Jacobi kernel's vector width and
+grid from the SM count and the blocks an SM holds; each kernel's entry
+point checks the plan it is given.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -156,22 +158,112 @@ def padded_wh(wh: torch.Tensor, hp: int) -> torch.Tensor:
 _LIMITS: Dict[int, Tuple[int, int]] = {}
 
 
-def card_sweep_plan(device: torch.device, hidden: int,
-                    batch: int) -> SweepPlan:
-    """`sweep_plan` with the SM count and shared-memory limit of `device`,
-    read from the CUDA runtime once per card."""
-    index = device.index if device.index is not None else \
+def _card_index(device: torch.device) -> int:
+    return device.index if device.index is not None else \
         torch.cuda.current_device()
+
+
+def _card_limits(index: int) -> Tuple[int, int]:
+    """(SM count, shared memory a block may opt in to) of card `index`,
+    read from the CUDA runtime once per card."""
     if index not in _LIMITS:
         fn = load_library(_LIB).gate_sweep_limits
         fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.restype = ctypes.c_int
         sms, smem = ctypes.c_int(), ctypes.c_int()
         with torch.cuda.device(index):
             err = fn(ctypes.byref(sms), ctypes.byref(smem))
         if err:
             raise RuntimeError(f'gate_sweep_limits: CUDA error {err}')
         _LIMITS[index] = (sms.value, smem.value)
-    return sweep_plan(hidden, batch, *_LIMITS[index])
+    return _LIMITS[index]
+
+
+def card_sweep_plan(device: torch.device, hidden: int,
+                    batch: int) -> SweepPlan:
+    """`sweep_plan` with the SM count and shared-memory limit of `device`,
+    read from the CUDA runtime once per card."""
+    return sweep_plan(hidden, batch, *_card_limits(_card_index(device)))
+
+
+# Threads per block of the Jacobi kernel (csrc/gate_sweep.cu JACOBI_THREADS).
+JACOBI_THREADS = 128
+
+
+class JacobiPlan(NamedTuple):
+    """The Jacobi kernel's launch: `vec` floats per access (4: one float4
+    per slab, or 1), `grid` blocks of `threads`, each thread taking at
+    most `per_thread` items (an item: one step's `vec` consecutive floats
+    of every slab), every (grid * threads)-th one."""
+    vec: int
+    per_thread: int
+    threads: int
+    grid: int
+
+
+def jacobi_plan(steps: int, hidden: int, batch: int, sms: int,
+                blocks_per_sm: Mapping[int, int],
+                aligned: bool) -> JacobiPlan:
+    """The launch plan of `jacobi_sweep` at (steps, H, B) on a card with
+    `sms` SMs, each holding `blocks_per_sm[v]` blocks of the kernel
+    instance of vector width v (4 and 1) at once.
+
+    V = 4 where every slab of a step starts on 16 bytes (H * B % 4 == 0
+    and the tensors are `aligned`) and its items fill one whole wave of
+    the card; else V = 1, whose four times as many threads each run a
+    quarter of the math chain, which is faster where V = 4 leaves slots
+    of the wave empty (`admm_lstm_torch/jacobi_ab.py` times both).  The
+    grid is one whole wave, `sms * blocks_per_sm[V]` blocks, all resident
+    together, where the items fill it, else one block per `threads`
+    items.  Each thread takes every (grid * threads)-th item, so the
+    threads' shares differ by at most one item.  Raises ValueError for an
+    empty sweep or a card that holds no block."""
+    if min(steps, hidden, batch) < 1:
+        raise ValueError(f'empty sweep: steps {steps}, H {hidden}, B {batch}')
+    if sms < 1 or min(blocks_per_sm[4], blocks_per_sm[1]) < 1:
+        raise ValueError(f'no block fits: {sms} SMs, {dict(blocks_per_sm)} '
+                         f'blocks an SM')
+    slab = hidden * batch
+    wave4 = sms * blocks_per_sm[4] * JACOBI_THREADS
+    vec = 4 if aligned and slab % 4 == 0 and steps * slab // 4 >= wave4 \
+        else 1
+    items = steps * slab // vec
+    grid = min(-(-items // JACOBI_THREADS), sms * blocks_per_sm[vec])
+    return JacobiPlan(vec, -(-items // (grid * JACOBI_THREADS)),
+                      JACOBI_THREADS, grid)
+
+
+_OCCUPANCY: Dict[Tuple[int, int], int] = {}
+
+
+def jacobi_occupancy(device: torch.device, vec: int) -> Dict[str, int]:
+    """Resident blocks per SM, registers and local (spill) bytes per
+    thread of the Jacobi kernel instance `vec`, from the CUDA runtime."""
+    fn = load_library(_LIB).gate_sweep_jacobi_occupancy
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    blocks, regs, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(_card_index(device)):
+        err = fn(vec, ctypes.byref(blocks), ctypes.byref(regs),
+                 ctypes.byref(local))
+    if err:
+        raise RuntimeError(f'gate_sweep_jacobi_occupancy: CUDA error {err}')
+    return dict(blocks_per_sm=blocks.value, regs=regs.value,
+                local_bytes=local.value)
+
+
+def card_jacobi_plan(device: torch.device, steps: int, hidden: int,
+                     batch: int, aligned: bool) -> JacobiPlan:
+    """`jacobi_plan` with the SM count of `device` and the blocks per SM
+    of both kernel instances, read from the CUDA runtime once per card."""
+    index = _card_index(device)
+    for vec in (4, 1):
+        if (index, vec) not in _OCCUPANCY:
+            _OCCUPANCY[index, vec] = jacobi_occupancy(
+                device, vec)['blocks_per_sm']
+    return jacobi_plan(steps, hidden, batch, _card_limits(index)[0],
+                       {vec: _OCCUPANCY[index, vec] for vec in (4, 1)},
+                       aligned)
 
 
 def _timestep_plain(pre, old, lams, cp, rho_vec):
@@ -346,15 +438,29 @@ def interior_sweep(xproj: torch.Tensor, wh: torch.Tensor,
     return out
 
 
+def tensor_jacobi_plan(pre: torch.Tensor, gates: Sequence[torch.Tensor],
+                       duals: Sequence[torch.Tensor],
+                       c_prev: torch.Tensor) -> JacobiPlan:
+    """The plan `jacobi_sweep` takes by default for these CUDA tensors."""
+    steps, _, hidden, batch = pre.shape
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (pre, c_prev, *gates, *duals))
+    return card_jacobi_plan(pre.device, steps, hidden, batch, aligned)
+
+
 def jacobi_sweep(pre: torch.Tensor, gates: Sequence[torch.Tensor],
                  duals: Sequence[torch.Tensor], h_prev: torch.Tensor,
-                 c_prev: torch.Tensor,
-                 rho_vec: torch.Tensor) -> Tuple[Slabs, Slabs]:
+                 c_prev: torch.Tensor, rho_vec: torch.Tensor,
+                 plan: Optional[JacobiPlan] = None) -> Tuple[Slabs, Slabs]:
     """Every interior timestep of the Jacobi sweep at once.
 
     Same arguments and returns as `jacobi_sweep_plain`.  CUDA tensors go
     to the CUDA kernel (which adds one to `jacobi_sweep.launches` per
-    launch); CPU tensors go to the plain version.
+    launch) with `plan`, by default `card_jacobi_plan`'s: float4 accesses
+    where every slab is 16-byte aligned and the items fill the card, else
+    the same kernel one float at a time.  A plan the kernel does not take
+    (float4 on a misaligned slab, a grid that does not cover the sweep)
+    raises RuntimeError.  CPU tensors go to the plain version.
     """
     _check_common('jacobi_sweep', pre, gates, duals, rho_vec)
     steps, _, hidden, batch = pre.shape
@@ -363,8 +469,10 @@ def jacobi_sweep(pre: torch.Tensor, gates: Sequence[torch.Tensor],
                  (h_prev, c_prev, *gates, *duals), steps, hidden, batch)
     if pre.device.type == 'cpu':
         return jacobi_sweep_plain(pre, gates, duals, h_prev, c_prev, rho_vec)
+    if plan is None:
+        plan = tensor_jacobi_plan(pre, gates, duals, c_prev)
     out = _launch('gate_sweep_jacobi', pre, (pre, c_prev), rho_vec, gates,
-                  duals)
+                  duals, tuple(plan))
     jacobi_sweep.launches += 1
     return out
 

@@ -12,6 +12,10 @@ Phases, each fatal on failure:
                yardstick with CUDA events (L2 flushed before every launch);
                for the Gauss-Seidel sweep also its tile plan and its time
                per step past the first (ms_per_step);
+               for the Jacobi sweep also its plan, registers and spills,
+               GB/s, its L2-resident time (warm_ms), a device copy of the
+               same bytes (copy_ms), and, where it takes float4s, the
+               one-float instance's time (vec1_ms) and identical bits;
                for the Cholesky kernels also a two-call yardstick, their
                registers and systems per SM, and gate (ii): the error
                against float64 on ill-conditioned Gram-like inputs, held
@@ -79,7 +83,8 @@ SPIN_CYCLES = 1_000_000        # ~0.5 ms at the H100's ~2 GHz SM clock
 # Cholesky: (N systems, D).
 SWEEP_SHAPES = [(9, 10, 4224), (13, 5, 1000), (31, 130, 512),
                 (9, 100, 4224), (127, 16, 512)]
-JACOBI_SHAPES = [(9, 10, 4224), (9, 128, 2048), (13, 5, 1000)]
+JACOBI_SHAPES = [(9, 10, 4224), (9, 128, 2048), (13, 5, 1000),
+                 (5, 7, 1001)]     # H * B odd: the V = 1 instance
 SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128), (37, 100)]
 INVERSE_SHAPES = [(512, 64), (16, 128), (7, 33)]
 # Gate (ii) at the shapes of Path A and Path B.
@@ -195,13 +200,18 @@ def sweep_bound(steps, hidden, batch):
                  elems * (8 * hidden + 105))
 
 
+def jacobi_bytes(steps, hidden, batch):
+    """The bytes one Jacobi sweep must move: 15 input slabs (4 pre gates,
+    old f, g, c, h, 6 duals, c_prev; h_prev is already inside pre and old
+    i and o do not enter the math), rho, 11 output slabs."""
+    return 4 * (steps * hidden * batch * (15 + 11) + 6)
+
+
 def jacobi_bound(steps, hidden, batch):
-    """One Jacobi sweep.  Bytes: 15 input slabs (4 pre gates, old f, g, c,
-    h, 6 duals, c_prev; h_prev is already inside pre and old i and o do
-    not enter the math), rho, 11 output slabs.  Operations: 105 per
+    """One Jacobi sweep: `jacobi_bytes`, and 105 operations per
     element."""
-    elems = steps * hidden * batch
-    return bound(4 * (elems * (15 + 11) + 6), elems * 105)
+    return bound(jacobi_bytes(steps, hidden, batch),
+                 steps * hidden * batch * 105)
 
 
 def solve_bound(n, dim):
@@ -345,16 +355,21 @@ def ptxas_summary(out):
 
 
 def phase_build():
+    """Builds both sources and returns every kernel's registers and spills
+    ({} for a library built before this run)."""
     from admm_lstm_torch.kernels import build
     t0 = time.perf_counter()
     build.build_all(['gate_sweep', 'cholesky'])
     log(f'[build] gate_sweep.cu and cholesky.cu built in '
         f'{time.perf_counter() - t0:.2f} s')
+    summary = {}
     for name, out in build.build_logs.items():
         for line in out.strip().splitlines():
             log(f'[build] {name}: {line}')
+        summary.update(ptxas_summary(out))
         log(f'[build] {name} registers and spills per kernel: '
             f'{json.dumps(ptxas_summary(out))}')
+    return summary
 
 
 def chol_kernel_info(dim, solve):
@@ -401,7 +416,49 @@ def ill_row(name, shape, kappa, seed, kernel, plain):
     return row
 
 
-def phase_kernels(flush):
+def jacobi_row(shape, seed, flush, ptxas):
+    """The Jacobi kernel at one shape: against its plain version, timed L2
+    flushed and warm (`warm_ms`, the L2-resident time an epoch at
+    GoogleStock sees), beside `copy_ms` (one device copy of 13 slabs into
+    13 others: the same bytes, a yardstick of the rate the card reaches,
+    not the same function); its plan, achieved GB/s, and the registers and
+    spills of the instance the plan takes.  Where the plan takes float4s,
+    the V = 1 instance on the same inputs must give identical bits
+    (`vec1_ms`: its time)."""
+    from admm_lstm_torch.kernels import gate_sweep as gs
+    args = sweep_inputs(*shape, seed=seed, jacobi=True)
+    pre, gates, duals, _, c_prev, _ = args
+    plan = gs.tensor_jacobi_plan(pre, gates, duals, c_prev)
+    instance = gs.jacobi_occupancy(torch.device('cuda'), plan.vec)
+    instance.update(ptxas.get(f'jacobi_sweep_kernel<{plan.vec}>', {}))
+    row = kernel_row('jacobi_sweep', shape, lambda: gs.jacobi_sweep(*args),
+                     lambda: gs.jacobi_sweep_plain(*args), None, KERNEL_ATOL,
+                     jacobi_bound(*shape), flush,
+                     info=dict(plan=plan._asdict(), **instance))
+    src = torch.empty(13 * int(np.prod(shape)), device='cuda')
+    dst = torch.empty_like(src)
+    row['warm_ms'] = cuda_ms(lambda: gs.jacobi_sweep(*args), 50, None)
+    row['copy_ms'] = cuda_ms(lambda: dst.copy_(src), 50, flush)
+    row['gb_per_s'] = jacobi_bytes(*shape) / row['ms'] / 1e6
+    if plan.vec == 4:
+        one = gs.card_jacobi_plan(torch.device('cuda'), *shape, False)
+        got = _flat(gs.jacobi_sweep(*args, plan=one))
+        want = _flat(gs.jacobi_sweep(*args))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f'jacobi_sweep at {list(shape)}: the V = 1 '
+                                 f'instance differs from V = 4')
+        row['vec1_plan'] = one._asdict()
+        row['vec1_ms'] = cuda_ms(lambda: gs.jacobi_sweep(*args, plan=one),
+                                 50, flush)
+    log(f'[kernels] jacobi_sweep {list(shape)} plan {row["plan"]}, regs '
+        f'{row["regs"]}, local bytes {row["local_bytes"]}, ms {row["ms"]}, '
+        f'warm_ms {row["warm_ms"]}, copy_ms {row["copy_ms"]}, '
+        f'{row["gb_per_s"]:.0f} GB/s (bound {row["bound_ms"]} ms), vec1_ms '
+        f'{row.get("vec1_ms")}')
+    return row
+
+
+def phase_kernels(flush, ptxas):
     from admm_lstm_torch.kernels import cholesky as ch
     from admm_lstm_torch.kernels import gate_sweep as gs
     rows = {k: [] for k in ('interior_sweep', 'jacobi_sweep', 'chol_solve',
@@ -426,11 +483,7 @@ def phase_kernels(flush):
             f'(wh {row["wh"]}), ms_per_step {row["ms_per_step"]}')
         rows['interior_sweep'].append(row)
     for k, shape in enumerate(JACOBI_SHAPES):
-        args = sweep_inputs(*shape, seed=10 + k, jacobi=True)
-        rows['jacobi_sweep'].append(kernel_row(
-            'jacobi_sweep', shape, lambda: gs.jacobi_sweep(*args),
-            lambda: gs.jacobi_sweep_plain(*args), None, KERNEL_ATOL,
-            jacobi_bound(*shape), flush))
+        rows['jacobi_sweep'].append(jacobi_row(shape, 10 + k, flush, ptxas))
     for k, shape in enumerate(SOLVE_SHAPES):
         a, b = spd_inputs(*shape, seed=20 + k)
         rows['chol_solve'].append(kernel_row(
@@ -697,9 +750,9 @@ def main() -> int:
     set_matmul_precision('highest')
     torch.cuda.set_device(0)
 
-    phase_build()
+    ptxas = phase_build()
     flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device='cuda')
-    rows, ill = phase_kernels(flush)
+    rows, ill = phase_kernels(flush, ptxas)
     del flush
 
     g = np.load(GOLDEN)
@@ -737,7 +790,9 @@ def main() -> int:
             library_ms=main_row['library_ms'], shape=main_row['shape'],
             other_shapes=rows[name][1:]))
         for key in ('two_call_ms', 'regs', 'local_bytes', 'systems_per_sm',
-                    'plan', 'ms_per_step'):
+                    'plan', 'ms_per_step', 'warm_ms', 'copy_ms', 'gb_per_s',
+                    'blocks_per_sm', 'spill_stores', 'spill_loads',
+                    'vec1_ms'):
             if key in main_row:
                 kernels[-1][key] = main_row[key]
         if name in ill:

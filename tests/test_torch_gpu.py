@@ -17,7 +17,9 @@ from admm_lstm_torch.data.synthetic import load as synth
 from admm_lstm_torch.kernels.cholesky import (chol_inverse,
                                               chol_inverse_plain, chol_solve,
                                               chol_solve_plain)
-from admm_lstm_torch.kernels.gate_sweep import (card_sweep_plan,
+from admm_lstm_torch.kernels.gate_sweep import (JacobiPlan,
+                                                card_jacobi_plan,
+                                                card_sweep_plan,
                                                 interior_sweep,
                                                 interior_sweep_plain,
                                                 jacobi_sweep,
@@ -125,22 +127,25 @@ def test_torch_cuda_step_kernel_matches_plain_loop(cuda):
             getattr(states[False].gates, k).cpu().numpy(), atol=1e-4)
 
 
-@pytest.mark.parametrize('steps,hidden,batch', [
-    (9, 10, 4224),     # GoogleStock
-    (9, 128, 2048),    # the HAR-shaped turbo run
-    (13, 5, 1000),     # ragged batch edge
-    (1, 3, 1),
-])
-def test_torch_cuda_jacobi_matches_plain(cuda, steps, hidden, batch):
+def _jacobi_inputs(steps, hidden, batch, device, offset=0):
+    """Jacobi sweep inputs; with `offset`, each slab a view that starts
+    `offset` floats into its buffer, as the interior views s[1:T] do."""
     gen = torch.Generator().manual_seed(steps + hidden)
-    rand = lambda *s, scale: (torch.randn(s, generator=gen) * scale).to(cuda)
+
+    def rand(*shape, scale):
+        flat = torch.randn(int(np.prod(shape)) + offset, generator=gen)
+        return (flat * scale).to(device)[offset:].view(shape)
+
     pre = rand(steps, 4, hidden, batch, scale=0.5)
     gates = tuple(rand(steps, hidden, batch, scale=0.2) for _ in range(6))
     duals = tuple(rand(steps, hidden, batch, scale=s)
                   for s in (0.01,) * 5 + (1e-4,))
     h_prev, c_prev = (rand(steps, hidden, batch, scale=0.2) for _ in range(2))
-    rho = torch.tensor([1., 1., 1., 1., 0.008, 0.00045], device=cuda)
-    args = (pre, gates, duals, h_prev, c_prev, rho)
+    rho = torch.tensor([1., 1., 1., 1., 0.008, 0.00045], device=device)
+    return pre, gates, duals, h_prev, c_prev, rho
+
+
+def _jacobi_matches_plain(args):
     before = jacobi_sweep.launches
     got = jacobi_sweep(*args)
     torch.cuda.synchronize()
@@ -148,6 +153,54 @@ def test_torch_cuda_jacobi_matches_plain(cuda, steps, hidden, batch):
     want = jacobi_sweep_plain(*args)
     for a, b in zip(got[0] + got[1], want[0] + want[1]):
         torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize('steps,hidden,batch', [
+    (9, 10, 4224),     # GoogleStock
+    (9, 128, 2048),    # the HAR-shaped turbo run
+    (13, 5, 1000),     # ragged batch edge
+    (1, 3, 1),
+    (5, 7, 1001),      # B % 4 != 0: V = 1
+    (9, 20, 2052),     # float4s, several rounds, a partial last block
+    (7, 33, 3001),     # V = 1, several rounds, a partial last block
+])
+def test_torch_cuda_jacobi_matches_plain(cuda, steps, hidden, batch):
+    _jacobi_matches_plain(_jacobi_inputs(steps, hidden, batch, cuda))
+
+
+@pytest.mark.parametrize('steps,hidden,batch,offset', [
+    (4, 3, 37, 111),      # H * B odd, slabs at an odd offset (s[1:T] views)
+    (9, 10, 4224, 2),     # H * B % 4 == 0 on 8-byte-aligned slabs: V = 1
+])
+def test_torch_cuda_jacobi_misaligned_views_match_plain(cuda, steps, hidden,
+                                                        batch, offset):
+    _jacobi_matches_plain(_jacobi_inputs(steps, hidden, batch, cuda, offset))
+
+
+@pytest.mark.parametrize('steps,hidden,batch', [
+    (9, 10, 4224), (9, 128, 2048), (13, 5, 1000), (9, 20, 2052)])
+def test_torch_cuda_jacobi_instances_identical(cuda, steps, hidden, batch):
+    """The float4 and the one-float instance run the same arithmetic on
+    each element, so their outputs are bit for bit the same."""
+    args = _jacobi_inputs(steps, hidden, batch, cuda)
+    four = card_jacobi_plan(cuda, steps, hidden, batch, True)
+    one = card_jacobi_plan(cuda, steps, hidden, batch, False)
+    if four.vec != 4:     # too few items for a float4 wave: one block each
+        items = steps * hidden * batch // 4
+        four = JacobiPlan(4, 1, 128, -(-items // 128))
+    assert (four.vec, one.vec) == (4, 1)
+    got = jacobi_sweep(*args, plan=four)
+    want = jacobi_sweep(*args, plan=one)
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, b)
+
+
+def test_torch_cuda_jacobi_refuses_float4_on_misaligned_slabs(cuda):
+    """A float4 plan on slabs that do not start on 16 bytes raises; the
+    kernel never falls back to the plain version."""
+    args = _jacobi_inputs(3, 4, 8, cuda, offset=1)
+    with pytest.raises(RuntimeError):
+        jacobi_sweep(*args, plan=JacobiPlan(4, 1, 128, 1))
 
 
 def _spd(n, dim, seed, device):
