@@ -14,6 +14,8 @@ Layout:
   kernels/   CUDA kernels (ctypes-bound) with their plain versions
   models/    the LSTM-Linear model as plain functions
   data/      dataset loaders (numpy)
+  ckpt/      checkpoint/resume of the full ADMM state, .npz models
+  tune.py    the rho search
   utils/     config, logging, timing, plotting, device policy
 """
 

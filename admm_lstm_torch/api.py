@@ -25,7 +25,8 @@ from admm_lstm_torch.core.init import init_admm_state
 from admm_lstm_torch.core.residuals import admm_residuals
 from admm_lstm_torch.core.state import ADMMState
 from admm_lstm_torch.core.step import epoch_step, make_admm_step, rules_for
-from admm_lstm_torch.models.lstm import LSTMParams, init_lstm_params, mse_loss
+from admm_lstm_torch.models.lstm import (LSTMParams, init_lstm_params,
+                                         train_val_mse_im)
 from admm_lstm_torch.utils.config import (AUTO_FIELDS, LATER, ADMMConfig,
                                           ParameterSet)
 from admm_lstm_torch.utils.device import matmul_precision, resolve_device
@@ -37,6 +38,16 @@ def _as_tensor(a, device) -> torch.Tensor:
     if not isinstance(a, torch.Tensor):
         a = torch.from_numpy(np.asarray(a, np.float32))
     return a.to(device=device, dtype=torch.float32)
+
+
+def batch_minor(train_x, train_y, val_x, val_y):
+    """The epoch's inputs, made once per run: x_im (T, I, B), y_im (O, B),
+    xall_im (T, I, B + Bv) with the validation inputs appended along the
+    batch (train and validation losses ride one forward) and vy_im
+    (O, Bv)."""
+    x_im = train_x.permute(1, 2, 0).contiguous()
+    xall_im = torch.cat([x_im, val_x.permute(1, 2, 0)], dim=-1).contiguous()
+    return x_im, train_y.T.contiguous(), xall_im, val_y.T.contiguous()
 
 
 class ADMMBasedOptimizer:
@@ -92,13 +103,44 @@ class ADMMBasedOptimizer:
             return admm_residuals(self.state, self.train_x)
 
 
-def _run_chunked(state, run_chunk, epochs: int, log_every: int, timer: Timer,
-                 stop_tol: Optional[float] = None,
+def _open_checkpointing(state: ADMMState, resume_from: Optional[str],
+                        checkpoint_dir: Optional[str], checkpoint_every: int,
+                        async_checkpoint: bool, device):
+    """Resume and checkpoint bring-up (JAX api.py:79-108).  Returns
+    (manager or None, state, start_epoch)."""
+    from admm_lstm_torch.ckpt.checkpoint import CheckpointManager
+    ckpt_mgr = None
+    start_epoch = 0
+    if resume_from or (checkpoint_dir and checkpoint_every):
+        ckpt_mgr = CheckpointManager(resume_from or checkpoint_dir,
+                                     async_save=async_checkpoint)
+    if resume_from:
+        if ckpt_mgr.latest_step() is None:
+            info(f'No checkpoint found under {resume_from}; '
+                 f'starting from scratch.')
+        else:
+            state = ckpt_mgr.restore(device=device)
+            start_epoch = state.epoch
+            info(f'Resumed from {resume_from} at epoch {start_epoch}.')
+        if resume_from != checkpoint_dir or not checkpoint_every:
+            ckpt_mgr.close()
+            ckpt_mgr = None
+            if checkpoint_dir and checkpoint_every:
+                ckpt_mgr = CheckpointManager(checkpoint_dir,
+                                             async_save=async_checkpoint)
+    return ckpt_mgr, state, start_epoch
+
+
+def _run_chunked(state, run_chunk, epochs: int, start_epoch: int,
+                 log_every: int, checkpoint_every: int, ckpt_mgr,
+                 timer: Timer, stop_tol: Optional[float] = None,
                  stop_check_every: int = 25,
                  stop_divergence: Optional[float] = None):
-    """The epoch loop, in chunks bounded by the host's sync points: log
-    lines (log_every) and the convergence/divergence checks (at least
-    every `stop_check_every` epochs).
+    """The epoch loop from `start_epoch`, in chunks bounded by the host's
+    sync points: log lines (log_every), checkpoint saves
+    (checkpoint_every, when `ckpt_mgr` is given) and the
+    convergence/divergence checks (at least every `stop_check_every`
+    epochs).
 
     run_chunk(state, n) -> (state, metrics with a leading (n,) axis, on
     the device).  Returns (state, metric_hist).
@@ -109,12 +151,14 @@ def _run_chunked(state, run_chunk, epochs: int, log_every: int, timer: Timer,
     """
     metric_hist = []
     timer.start()
-    epoch = 0
+    epoch = start_epoch
     resid_floor = None
     while epoch < epochs:
         chunk = epochs - epoch
         if log_every:
             chunk = min(chunk, log_every - epoch % log_every)
+        if ckpt_mgr and checkpoint_every:
+            chunk = min(chunk, checkpoint_every - epoch % checkpoint_every)
         if stop_tol is not None or stop_divergence is not None:
             chunk = min(chunk, stop_check_every)
         state, metrics = run_chunk(state, chunk)
@@ -139,12 +183,15 @@ def _run_chunked(state, run_chunk, epochs: int, log_every: int, timer: Timer,
                     break
         if log_every and epoch % log_every == 0:
             timer.pause()
+            done = epoch - start_epoch
             info(f'Epoch {epoch} has done in '
-                 f'{timer.get_elapsed_time() * 1e3 / epoch:.3f} ms (avg). '
+                 f'{timer.get_elapsed_time() * 1e3 / done:.3f} ms (avg). '
                  f'Present loss: Training: '
                  f'{float(metrics["train_loss"][-1]):.8f} '
                  f'| Validation: {float(metrics["val_loss"][-1]):.8f}.')
             timer.resume()
+        if ckpt_mgr and epoch % checkpoint_every == 0:
+            ckpt_mgr.save(state, step=epoch)
     if state.params.wy.is_cuda:
         torch.cuda.synchronize(state.params.wy.device)
     timer.pause()
@@ -206,6 +253,7 @@ def train(train_x, train_y, val_x, val_y,
           checkpoint_dir: Optional[str] = None,
           checkpoint_every: int = 0,
           resume_from: Optional[str] = None,
+          async_checkpoint: bool = True,
           stop_tol: Optional[float] = None,
           stop_divergence: Optional[float] = None,
           track_best: bool = False,
@@ -228,13 +276,16 @@ def train(train_x, train_y, val_x, val_y,
 
     preset='best': the probe-and-commit recipe, `train_best`.
 
-    Not in this slice of the port (NotImplementedError):
-    checkpoint_dir/checkpoint_every/resume_from, and configs that need a
-    mesh or ADMM-L/-S.
+    checkpoint_dir/checkpoint_every: save the full ADMM state every
+    `checkpoint_every` epochs (ckpt/checkpoint.py; `async_checkpoint`
+    writes the files on a background thread).  resume_from: a checkpoint
+    directory to restore the latest state from; training continues at
+    the restored epoch, the loss lists start there, and the run ends bit
+    for bit where the uninterrupted one does.
+
+    Not in this slice of the port (NotImplementedError): configs that
+    need a mesh or ADMM-L/-S.
     """
-    if checkpoint_dir or checkpoint_every or resume_from:
-        raise NotImplementedError(
-            f'checkpoint_dir/checkpoint_every/resume_from arrive in {LATER}')
     if preset is not None:
         if preset != 'best':
             raise ValueError(f"preset must be None or 'best', got {preset!r}")
@@ -243,19 +294,24 @@ def train(train_x, train_y, val_x, val_y,
             params=params, log_every=log_every,
             divergence_guard=(stop_divergence if stop_divergence is not None
                               else 3.0),
-            record_residuals=record_residuals, stop_tol=stop_tol,
-            device=device)
+            record_residuals=record_residuals,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            resume_from=resume_from, async_checkpoint=async_checkpoint,
+            stop_tol=stop_tol, device=device)
     rules = rules_for(config)        # raises for configs not ported yet
     device = resolve_device(device)
     with matmul_precision(config.matmul_precision):
         return _train(train_x, train_y, val_x, val_y, parameter_set, config,
-                      rules, params, log_every, record_residuals, stop_tol,
-                      stop_divergence, track_best, device)
+                      rules, params, log_every, record_residuals,
+                      checkpoint_dir, checkpoint_every, resume_from,
+                      async_checkpoint, stop_tol, stop_divergence,
+                      track_best, device)
 
 
 def _train(train_x, train_y, val_x, val_y, parameter_set, config, rules,
-           params, log_every, record_residuals, stop_tol, stop_divergence,
-           track_best, device):
+           params, log_every, record_residuals, checkpoint_dir,
+           checkpoint_every, resume_from, async_checkpoint, stop_tol,
+           stop_divergence, track_best, device):
     if isinstance(parameter_set, dict):
         parameter_set = ParameterSet.from_dict(parameter_set)
     train_x, train_y = _as_tensor(train_x, device), _as_tensor(train_y, device)
@@ -266,19 +322,21 @@ def _train(train_x, train_y, val_x, val_y, parameter_set, config, rules,
                                   train_y.shape[1], device=device)
 
     state = init_admm_state(params.to(device), train_x, parameter_set, config)
-    initial = (float(mse_loss(state.params, train_x, train_y)),
-               float(mse_loss(state.params, val_x, val_y)))
+    ckpt_mgr, state, start_epoch = _open_checkpointing(
+        state, resume_from, checkpoint_dir, checkpoint_every,
+        async_checkpoint, device)
+
+    # The initial losses come from the epochs' one forward, so a resumed
+    # run's first losses equal the uninterrupted run's at that epoch bit
+    # for bit.
+    x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x, val_y)
+    initial = tuple(map(float, train_val_mse_im(state.params, xall_im, y_im,
+                                                vy_im)))
     info(f'Training has started on {device}. Initial loss: train '
          f'{initial[0]:.8f} | val {initial[1]:.8f}')
 
     if stop_tol is not None or stop_divergence is not None:
         record_residuals = True
-    # Batch-minor inputs, made once per run; train and validation inputs
-    # ride one forward per epoch for the two losses.
-    x_im = train_x.permute(1, 2, 0).contiguous()
-    y_im = train_y.T.contiguous()
-    vy_im = val_y.T.contiguous()
-    xall_im = torch.cat([x_im, val_x.permute(1, 2, 0)], dim=-1).contiguous()
 
     best = None
     if track_best:
@@ -303,9 +361,14 @@ def _train(train_x, train_y, val_x, val_y, parameter_set, config, rules,
         return st, {k: torch.stack([m[k] for m in hist]) for k in hist[0]}
 
     timer = Timer()
-    state, metric_hist = _run_chunked(
-        state, run_chunk, config.epochs, log_every, timer,
-        stop_tol=stop_tol, stop_divergence=stop_divergence)
+    try:
+        state, metric_hist = _run_chunked(
+            state, run_chunk, config.epochs, start_epoch, log_every,
+            checkpoint_every, ckpt_mgr, timer, stop_tol=stop_tol,
+            stop_divergence=stop_divergence)
+    finally:
+        if ckpt_mgr:
+            ckpt_mgr.close()
 
     train_losses, val_losses, residual_log = _collect_metrics(
         metric_hist, initial, record_residuals)
@@ -358,21 +421,19 @@ def train_best(train_x, train_y, val_x, val_y,
     the lower best validation loss and rerun it for the full budget the
     same way.
 
+    search_rounds > 0 adds a third candidate, 'tuned': the shipped config
+    with the rho that `search_rounds` rounds of `tune.refine_rho` at the
+    probe length find.
+
     Returns the committed run's `train` result, with 'preset_choice' (the
     winning candidate's name) and 'probe_val' (each candidate's probe best
     validation loss).
 
-    search_rounds > 0 (a third, rho-searched candidate) needs the tuning
-    module, which arrives in a later slice of the port; so do the legacy
-    variants' candidate sets.
+    The legacy variants' candidate sets arrive in a later slice.
     """
     if config.variant in ('admm_l', 'admm_s'):
         raise NotImplementedError(
             f"preset='best' for variant {config.variant!r} arrives in "
-            f'{LATER}')
-    if search_rounds:
-        raise NotImplementedError(
-            f'search_rounds > 0 needs tune.refine_rho, which arrives in '
             f'{LATER}')
     if train_kw.get('resume_from'):
         raise ValueError(
@@ -389,12 +450,20 @@ def train_best(train_x, train_y, val_x, val_y,
                                   config.hidden_size, np.shape(train_y)[1],
                                   device=device)
 
-    candidates = {'shipped': config, 'auto': derive_auto_config(config)}
+    candidates = {'shipped': (config, parameter_set),
+                  'auto': (derive_auto_config(config), parameter_set)}
     n_probe = max(1, min(config.epochs,
                          max(probe_epochs, config.epochs // 4)))
+    if search_rounds:
+        from admm_lstm_torch.tune import refine_rho
+        tuned = refine_rho(train_x, train_y, val_x, val_y, parameter_set,
+                           config=config, epochs=n_probe,
+                           rounds=search_rounds, params=params,
+                           device=device)
+        candidates['tuned'] = (config, tuned['best_parameter_set'])
     probe_val: Dict[str, float] = {}
-    for name, cand in candidates.items():
-        res = train(train_x, train_y, val_x, val_y, parameter_set,
+    for name, (cand, pset) in candidates.items():
+        res = train(train_x, train_y, val_x, val_y, pset,
                     config=cand.replace(epochs=n_probe), params=params,
                     log_every=0, track_best=True,
                     stop_divergence=divergence_guard, device=device)
@@ -405,8 +474,9 @@ def train_best(train_x, train_y, val_x, val_y,
          + ', '.join(f'{k} {v:.6g}' for k, v in probe_val.items())
          + f'; committing to {winner}.')
 
-    result = train(train_x, train_y, val_x, val_y, parameter_set,
-                   config=candidates[winner], params=params,
+    win_cfg, win_pset = candidates[winner]
+    result = train(train_x, train_y, val_x, val_y, win_pset,
+                   config=win_cfg, params=params,
                    log_every=log_every, track_best=True,
                    stop_divergence=divergence_guard, device=device,
                    **train_kw)

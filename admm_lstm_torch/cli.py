@@ -23,13 +23,16 @@ from admm_lstm_torch.utils.device import NoCudaDeviceError, resolve_device
 from admm_lstm_torch.utils.logging import ADMMError, error, info, log_assert
 
 # Flags of the JAX CLI whose paths arrive in later slices of the port.
-_LATER_FLAGS = ('tune_rho', 'mesh', 'layers', 'scenarios', 'checkpoint_dir',
-                'checkpoint_every', 'resume', 'save', 'record_matlab_data')
+_LATER_FLAGS = ('mesh', 'layers', 'scenarios', 'save', 'record_matlab_data')
 
 
 def generate_parser() -> argparse.ArgumentParser:
     from admm_lstm_torch.data import supported_datasets
     parser = argparse.ArgumentParser(prog='admm-lstm-torch')
+    parser.add_argument('--data_dir', default=None, type=str,
+                        help='Directory holding the raw files of the '
+                             'selected dataset (HAR: X/y_{train,test}.txt; '
+                             'GEFCOM2012: Load/Load_history.csv)')
     parser.add_argument('--dataset', '-d', default='GoogleStock', type=str,
                         help=f'Supported datasets: {supported_datasets}')
     parser.add_argument('--epoch', '-e', default=default_epoch, type=int,
@@ -88,18 +91,25 @@ def generate_parser() -> argparse.ArgumentParser:
                         help="'best': probe the shipped tuning and the "
                              'auto() composition, commit to the better '
                              '(api.train_best)')
+    parser.add_argument('--checkpoint_dir', default=None, type=str,
+                        help='Directory of full-state checkpoints')
+    parser.add_argument('--checkpoint_every', default=0, type=int,
+                        help='Save a checkpoint every this many epochs')
+    parser.add_argument('--resume', action='store_true',
+                        help='Resume from the latest checkpoint in '
+                             '--checkpoint_dir (full optimizer state)')
+    parser.add_argument('--tune_rho', default=0, type=int, metavar='ROUNDS',
+                        help='Run ROUNDS of successive-halving rho '
+                             'refinement before training and use the winner')
     parser.add_argument('--plot', action='store_true', default=True)
     parser.add_argument('--no-plot', dest='plot', action='store_false')
     later = parser.add_argument_group('not ported yet (exit non-zero)')
-    for flag in ('resume', 'save', 'record_matlab_data'):
+    for flag in ('save', 'record_matlab_data'):
         later.add_argument(f'--{flag}', action='store_true',
                            help=argparse.SUPPRESS)
-    for flag in ('tune_rho', 'mesh', 'layers', 'scenarios',
-                 'checkpoint_every'):
+    for flag in ('mesh', 'layers', 'scenarios'):
         later.add_argument(f'--{flag}', default=None, type=int,
                            help=argparse.SUPPRESS)
-    later.add_argument('--checkpoint_dir', default=None, type=str,
-                       help=argparse.SUPPRESS)
     return parser
 
 
@@ -139,8 +149,16 @@ def main(argv=None) -> int:
         num_val = parse_num_samples(args.num_val)
         log_assert(args.epoch > 0,
                    'The number of epochs must be a positive integer.')
+        loader_kwargs = {}
+        if args.data_dir:
+            log_assert(args.dataset in ('HAR', 'GEFCOM2012'),
+                       '--data_dir applies to the raw-file datasets '
+                       '(HAR, GEFCOM2012)')
+            loader_kwargs['path'] = args.data_dir
+        if args.resume and not args.checkpoint_dir:
+            error('--resume requires --checkpoint_dir')
         (train_x, train_y, val_x, val_y), ps, title = load_dataset(
-            args.dataset, num_train, num_val)
+            args.dataset, num_train, num_val, **loader_kwargs)
         seed = 0 if args.seed < 0 else args.seed
 
         info(f'Training summary: \n'
@@ -178,8 +196,20 @@ def main(argv=None) -> int:
         elif args.turbo:
             cfg = cfg.replace(sweep_mode='jacobi', exact_weight_solve=True,
                               matmul_precision='default')
+        if args.tune_rho:
+            from admm_lstm_torch.tune import refine_rho
+            tuned = refine_rho(train_x, train_y, val_x, val_y, ps,
+                               config=cfg, epochs=min(30, args.epoch),
+                               rounds=args.tune_rho, device=device)
+            ps = tuned['best_parameter_set']
+            info(f'rho search ({args.tune_rho} rounds): best val '
+                 f'{tuned["best_val_loss"]:.8f} with rho {ps.rho}')
         results = train(train_x, train_y, val_x, val_y, ps, cfg,
                         record_residuals=args.residuals,
+                        checkpoint_dir=args.checkpoint_dir,
+                        checkpoint_every=args.checkpoint_every,
+                        resume_from=(args.checkpoint_dir if args.resume
+                                     else None),
                         stop_tol=args.stop_tol,
                         stop_divergence=args.stop_divergence,
                         track_best=args.track_best, preset=args.preset,

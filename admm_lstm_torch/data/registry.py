@@ -1,10 +1,10 @@
 """Dataset registry: names -> loader + tuned parameter set + display title.
 
-Counterpart of `admm_lstm_tpu/data/registry.py`.  This slice of the port
-serves GoogleStock (the reference's default run) and Synthetic; the other
-names the JAX package knows raise "not yet ported".  Loaders return numpy
-float32 arrays (train_x, train_y, val_x, val_y) with shapes (B,T,I),
-(B,O), (Bv,T,I), (Bv,O).
+Counterpart of `admm_lstm_tpu/data/registry.py`, serving the same names
+(the reference's `supported_datasets` + `parse_dataset` dispatch,
+dataset.py:22-28, demo.py:238-264, plus 'Synthetic' for hermetic runs).
+Loaders return numpy float32 arrays (train_x, train_y, val_x, val_y) with
+shapes (B,T,I), (B,O), (Bv,T,I), (Bv,O).
 """
 
 from __future__ import annotations
@@ -16,13 +16,23 @@ import numpy as np
 from admm_lstm_torch.params import parameter_set
 from admm_lstm_torch.utils.config import ParameterSet
 
-supported_datasets = ['GoogleStock', 'Synthetic']
-# Served by the JAX package; their loaders arrive in a later slice.
-not_yet_ported = ['GEFCOM2012', 'GEFCOM2012Wind', 'YahooFinance', 'HAR',
-                  'DNA1', 'SMSSpam']
+supported_datasets = ['GoogleStock', 'GEFCOM2012', 'GEFCOM2012Wind',
+                      'YahooFinance', 'HAR', 'DNA1', 'SMSSpam', 'Synthetic']
+
+# Datasets the reference carries as dead stubs that raise on use
+# (dataset.py:506,535,736; demo.py:249-262).  SMSSpam is a stub there
+# too (dataset.py:974) but its raw data ships, so it has a working
+# loader (data/sms_spam.py).
+removed_datasets = ['MNISTDataset', 'UCF101', 'PTB']
 
 _TITLES = {
     'GoogleStock': 'Google Stock',
+    'GEFCOM2012': 'GEFCOM2012',
+    'GEFCOM2012Wind': 'GEFCOM2012 Wind (farm wp1)',
+    'YahooFinance': 'Yahoo Finance',
+    'HAR': 'HAR',
+    'DNA1': 'DNA1',
+    'SMSSpam': 'SMS Spam Recognition',
     'Synthetic': 'Synthetic',
 }
 
@@ -30,11 +40,25 @@ _TITLES = {
 def _loader(name: str) -> Callable:
     if name == 'GoogleStock':
         from admm_lstm_torch.data.google_stock import load
+    elif name == 'GEFCOM2012':
+        from admm_lstm_torch.data.gefcom2012 import load
+    elif name == 'GEFCOM2012Wind':
+        from admm_lstm_torch.data.gefcom_wind import load
+    elif name == 'YahooFinance':
+        from admm_lstm_torch.data.yahoo_finance import load
+    elif name == 'HAR':
+        from admm_lstm_torch.data.har import load
+    elif name == 'DNA1':
+        from admm_lstm_torch.data.dna1 import load
+    elif name == 'SMSSpam':
+        from admm_lstm_torch.data.sms_spam import load
     elif name == 'Synthetic':
         from admm_lstm_torch.data.synthetic import load
-    elif name in not_yet_ported:
-        raise ValueError(f'Dataset {name!r} is not yet ported to '
-                         f'admm_lstm_torch; choose from {supported_datasets}')
+    elif name in removed_datasets:
+        raise ValueError(f'{name} was removed from the supported datasets '
+                         f'(kept only as tuned parameters in params.py, '
+                         f'mirroring the reference); choose from '
+                         f'{supported_datasets}')
     else:
         raise ValueError(f'Dataset {name!r} is not supported; '
                          f'choose from {supported_datasets}')

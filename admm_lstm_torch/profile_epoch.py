@@ -1,12 +1,13 @@
 """Where an epoch's time goes on the card.
 
     python -m admm_lstm_torch.profile_epoch [--epochs 10] [--hidden H]
-        [--config default|turbo|auto] [--data googlestock|har]
+        [--config default|turbo|auto]
+        [--data googlestock|yahoofinance|dna1|smsspam|gefcom2012wind|har]
 
 Trains on the CUDA card with the chosen configuration (the default
 fast-ADMM run, ADMMConfig.turbo() or ADMMConfig.auto(); 3 warm-up epochs,
-`--epochs` timed, then `--epochs` more under `torch.profiler`) on
-GoogleStock (H 10 unless --hidden says otherwise) or on the JAX bench's
+`--epochs` timed, then `--epochs` more under `torch.profiler`) on a
+bundled dataset (H 10 unless --hidden says otherwise) or on the JAX bench's
 HAR-shaped synthetic data (B 2048, T 10, I 561, O 6, ParameterSet 'HAR',
 H 128, exact_solve_max_dim 1024), and
 prints one JSON line: the wall ms per epoch (host clock, synchronized;
@@ -24,6 +25,11 @@ import time
 
 import torch
 
+# --data names of the bundled datasets.
+_DATASETS = {'googlestock': 'GoogleStock', 'yahoofinance': 'YahooFinance',
+             'dna1': 'DNA1', 'smsspam': 'SMSSpam',
+             'gefcom2012wind': 'GEFCOM2012Wind'}
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
@@ -32,13 +38,14 @@ def main(argv=None) -> int:
     parser.add_argument('--config', default='default',
                         choices=['default', 'turbo', 'auto'])
     parser.add_argument('--data', default='googlestock',
-                        choices=['googlestock', 'har'])
+                        choices=[*_DATASETS, 'har'])
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_epoch needs a CUDA card')
 
     from torch.profiler import ProfilerActivity, profile
 
+    from admm_lstm_torch.api import batch_minor
     from admm_lstm_torch.core.init import init_admm_state
     from admm_lstm_torch.core.step import epoch_step, rules_for
     from admm_lstm_torch.data import load_dataset
@@ -59,14 +66,12 @@ def main(argv=None) -> int:
     else:
         args.hidden = args.hidden or 10
         cfg = make(hidden_size=args.hidden)
-        (tx, ty, vx, vy), ps, _ = load_dataset('GoogleStock')
+        (tx, ty, vx, vy), ps, _ = load_dataset(_DATASETS[args.data])
     set_matmul_precision(cfg.matmul_precision)
     rules = rules_for(cfg)
     dev = torch.device('cuda')
     f = lambda a: torch.from_numpy(a).to(dev)
-    x_im = f(tx).permute(1, 2, 0).contiguous()
-    y_im, vy_im = f(ty).T.contiguous(), f(vy).T.contiguous()
-    xall = torch.cat([x_im, f(vx).permute(1, 2, 0)], dim=-1).contiguous()
+    x_im, y_im, xall, vy_im = batch_minor(f(tx), f(ty), f(vx), f(vy))
     params = init_lstm_params(torch.Generator().manual_seed(0), tx.shape[2],
                               args.hidden, ty.shape[1], device=dev)
     state = init_admm_state(params, f(tx), ps, cfg)

@@ -34,7 +34,19 @@ Phases, each fatal on failure:
                * Path B, the wide exact solve: the JAX bench's HAR-shaped
                  turbo run (B=2048, T=10, I=561, H=128, O=6, synthetic
                  data), 5 epochs, and one epoch with the kernels against
-                 the same epoch with the plain versions.
+                 the same epoch with the plain versions;
+               * datasets: the default config at H=10 on YahooFinance and
+                 DNA1, 30 epochs from the reference's seed-0 weights, held
+                 to its trajectories, one interior_sweep launch an epoch;
+                 SMSSpam (I=95, O=2) and GEFCOM2012Wind, 5 epochs from
+                 numpy-seeded weights, held to the JAX package's losses;
+  4. tune    - search_rho on GoogleStock over the default 27-point grid, 30
+               epochs a candidate: the JAX package's best rho, every
+               candidate's validation loss, 810 interior_sweep launches,
+               and the search's wall seconds;
+  5. resume  - YahooFinance 10 epochs straight against 5 checkpointed
+               (async) and resumed from the directory to 10: losses,
+               weights and the whole final state equal bit for bit.
 Then it prints the card's name and power limit, one JSON line describing
 every kernel, and as the last line {"ok": true, "device": {...}}.
 It exits non-zero, printing no result line, without a CUDA card.
@@ -82,7 +94,9 @@ SPIN_CYCLES = 1_000_000        # ~0.5 ms at the H100's ~2 GHz SM clock
 # Shapes, each kernel's main-path shape first.  Sweeps: (steps, H, B);
 # Cholesky: (N systems, D).
 SWEEP_SHAPES = [(9, 10, 4224), (13, 5, 1000), (31, 130, 512),
-                (9, 100, 4224), (127, 16, 512)]
+                (9, 100, 4224), (127, 16, 512),
+                # YahooFinance, DNA1, SMSSpam, GEFCOM2012Wind at H = 10
+                (59, 10, 1360), (56, 10, 85), (24, 10, 487), (23, 10, 10522)]
 JACOBI_SHAPES = [(9, 10, 4224), (9, 128, 2048), (13, 5, 1000),
                  (5, 7, 1001)]     # H * B odd: the V = 1 instance
 SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128), (37, 100)]
@@ -151,9 +165,74 @@ HAR_EPOCHS = 5
 # error scales with rho_k |gate_k|, not with lambda_k.
 HAR_RTOL = 1e-5
 
+# The bundled datasets at the CLI's --hidden 10 from the reference's
+# recorded seed-0 weights: the default config, 30 epochs, held to the
+# reference trajectories as tests/test_golden_parity.py does on the CPU.
+GOLDEN_DATASETS = {'YahooFinance': 'yahoofinance_fast.npz',
+                   'DNA1': 'dna1_fast.npz'}
+# SMSSpam and GEFCOM2012Wind: no recorded trajectory; the default config,
+# DATASET_EPOCHS epochs from numpy_weights(I, 10, O, seed 0), held to the
+# JAX package's losses on the CPU (pinned by
+# tests/test_torch_chip_reference.py).
+DATASET_EPOCHS = 5
+DATASET_REF = {
+    'SMSSpam': {
+        'train': [0.5106704235076904, 0.5106703639030457, 0.5106588006019592,
+                  0.5106475353240967, 0.510636568069458, 0.5106250643730164],
+        'val': [0.5117548108100891, 0.5117547512054443, 0.5117449760437012,
+                0.5117356777191162, 0.5117266774177551, 0.5117172002792358]},
+    'GEFCOM2012Wind': {
+        'train': [0.06161622703075409, 0.06161627918481827,
+                  0.054962750524282455, 0.04914909601211548,
+                  0.04407046362757683, 0.039639558643102646],
+        'val': [0.08647491782903671, 0.08647499978542328,
+                0.07697774469852448, 0.0686643049120903,
+                0.06138790398836136, 0.055027078837156296]},
+}
+# search_rho on GoogleStock: the default 27-point grid (candidate_grid,
+# multipliers 0.2/1/5 on c, h, y), ADMMConfig(hidden_size=10), 30 epochs
+# from the golden seed-0 weights; the JAX package's validation loss of
+# each candidate in grid order and its best rho.
+TUNE_VAL = [
+    0.4976523518562317, 0.3444494605064392, 0.11874193698167801,
+    0.49760112166404724, 0.3443931043148041, 0.11845565587282181,
+    0.4975305199623108, 0.34414198994636536, 0.11719442158937454,
+    0.4978333115577698, 0.34727662801742554, 0.14318852126598358,
+    0.4978214204311371, 0.3468780219554901, 0.1420157253742218,
+    0.49777063727378845, 0.3441072106361389, 0.134624645113945,
+    0.49904343485832214, 0.34859123826026917, 0.16435106098651886,
+    0.4989416301250458, 0.3480836749076843, 0.16086992621421814,
+    0.49854615330696106, 0.34616103768348694, 0.13619090616703033,
+]
+TUNE_BEST_RHO = {'i': 1.0, 'f': 1.0, 'g': 1.0, 'o': 1.0,
+                 'c': 0.001600000075995922, 'h': 0.0022499999031424522,
+                 'y': 0.0002809999859891832}
+# The resume phase: YahooFinance, the default config, RESUME_EPOCHS
+# epochs straight through against RESUME_AT epochs checkpointed and the
+# rest resumed; equal bit for bit.
+RESUME_EPOCHS = 10
+RESUME_AT = 5
+
 
 def log(msg):
     print(msg, flush=True)
+
+
+def numpy_weights(input_size, hidden, output_size, seed):
+    """Xavier-normal weights from numpy's default_rng(seed), as the
+    {'x2i', ..., 'h2o', 'wy'} arrays `params_from_dict` takes; both
+    packages start from the same numbers."""
+    rng = np.random.default_rng(seed)
+
+    def xavier(fan_in, fan_out):
+        std = (2.0 / (fan_in + fan_out)) ** 0.5
+        return (std * rng.standard_normal((fan_in, fan_out))).astype(
+            np.float32)
+
+    w = {f'x2{g}': xavier(input_size, hidden) for g in 'ifgo'}
+    w.update({f'h2{g}': xavier(hidden, hidden) for g in 'ifgo'})
+    w['wy'] = xavier(hidden, output_size)
+    return w
 
 
 def cuda_ms(fn, reps, flush):
@@ -731,6 +810,162 @@ def phase_path_b():
     return launches
 
 
+def _hold_to(label, train_l, val_l, ref_train, ref_val):
+    np.testing.assert_allclose(train_l, ref_train, rtol=0.05, atol=1e-4,
+                               err_msg=f'{label} train loss')
+    np.testing.assert_allclose(val_l, ref_val, rtol=0.05, atol=1e-4,
+                               err_msg=f'{label} val loss')
+
+
+def phase_datasets():
+    """Every bundled dataset but GoogleStock at full width, the default
+    config: YahooFinance and DNA1 against the reference's trajectories,
+    SMSSpam and GEFCOM2012Wind against the JAX package's."""
+    from admm_lstm_torch import api
+    from admm_lstm_torch.data import load_dataset
+    from admm_lstm_torch.models.lstm import params_from_dict
+    from admm_lstm_torch.utils.config import ADMMConfig
+    launches = {}
+    for name, golden in GOLDEN_DATASETS.items():
+        g = np.load(os.path.join(ROOT, 'tests', 'golden', golden))
+        (tx, ty, vx, vy), ps, _ = load_dataset(name)
+        weights = {k[3:]: g[k] for k in g.files if k.startswith('w0_')}
+        cfg = ADMMConfig(epochs=EPOCHS, hidden_size=int(g['hidden']))
+        label = (f'{name} {list(tx.shape)} -> {ty.shape[1]}, H '
+                 f'{cfg.hidden_size}, default config, {EPOCHS} epochs')
+        _, train_l, val_l, counts = run_counted(label, lambda: api.train(
+            tx, ty, vx, vy, ps, cfg, params=params_from_dict(weights),
+            log_every=0, device='cuda'), EPOCHS)
+        log(f'[train] {name} val trajectory '
+            + json.dumps([float(v) for v in val_l]))
+        _hold_to(name, train_l, val_l, g['train_loss'], g['val_loss'])
+        if not train_l[-1] <= g['train_loss'][-1] * 1.05:
+            raise AssertionError(f'{name}: final train loss {train_l[-1]} '
+                                 f'above the reference '
+                                 f'{g["train_loss"][-1]} x 1.05')
+        if counts['interior_sweep'] != EPOCHS:
+            raise AssertionError(f'{name}: interior_sweep launched '
+                                 f'{counts["interior_sweep"]} times in '
+                                 f'{EPOCHS} epochs')
+        launches[name] = counts
+    for name, ref in DATASET_REF.items():
+        (tx, ty, vx, vy), ps, _ = load_dataset(name)
+        weights = numpy_weights(tx.shape[2], 10, ty.shape[1], 0)
+        cfg = ADMMConfig(epochs=DATASET_EPOCHS, hidden_size=10)
+        label = (f'{name} {list(tx.shape)} -> {ty.shape[1]}, H 10, default '
+                 f'config, {DATASET_EPOCHS} epochs')
+        _, train_l, val_l, counts = run_counted(label, lambda: api.train(
+            tx, ty, vx, vy, ps, cfg, params=params_from_dict(weights),
+            log_every=0, device='cuda'), DATASET_EPOCHS)
+        log(f'[train] {name} train/val trajectories '
+            + json.dumps([[float(v) for v in train_l],
+                          [float(v) for v in val_l]]))
+        _hold_to(name, train_l, val_l, ref['train'], ref['val'])
+        # The drop itself at the same rtol: SMSSpam's 5-epoch drop (~5e-5)
+        # lies below the trajectory's atol.
+        drop, ref_drop = (train_l[0] - train_l[-1],
+                          ref['train'][0] - ref['train'][-1])
+        if not abs(drop - ref_drop) <= 0.05 * abs(ref_drop):
+            raise AssertionError(f'{name}: train loss fell by {drop}, the JAX '
+                                 f'package\'s by {ref_drop}')
+        need(counts, 'interior_sweep', DATASET_EPOCHS, name)
+        launches[name] = counts
+    return launches
+
+
+def phase_tune(tx, ty, vx, vy, ps, weights):
+    """search_rho on GoogleStock over the default 27-point grid, against
+    the JAX package's best rho and each candidate's validation loss."""
+    from admm_lstm_torch import tune
+    from admm_lstm_torch.models.lstm import params_from_dict
+    from admm_lstm_torch.utils.config import ADMMConfig
+    kernels = _kernels()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = tune.search_rho(tx, ty, vx, vy, ps, ADMMConfig(hidden_size=10),
+                          epochs=EPOCHS, params=params_from_dict(weights),
+                          device='cuda')
+    seconds = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    n = len(res['val_losses'])
+    log(f'[tune] search_rho GoogleStock, {n} candidates x {EPOCHS} epochs: '
+        f'{seconds:.3f} s wall (host clock), best rho {res["best_rho"]} '
+        f'val {res["best_val_loss"]:.6f} (JAX package: {TUNE_BEST_RHO}), '
+        f'launches {launches}')
+    log('[tune] val losses in grid order '
+        + json.dumps([float(v) for v in res['val_losses']]))
+    got, want = np.asarray(res['val_losses']), np.asarray(TUNE_VAL)
+    finite = np.isfinite(want)
+    if not np.array_equal(np.isfinite(got), finite):
+        raise AssertionError(f'search_rho: non-finite candidates '
+                             f'{np.nonzero(~np.isfinite(got))[0]} against '
+                             f'the JAX package\'s {np.nonzero(~finite)[0]}')
+    np.testing.assert_allclose(got[finite], want[finite], rtol=0.05,
+                               atol=1e-4, err_msg='search_rho val losses')
+    if res['best_rho'] != TUNE_BEST_RHO:
+        raise AssertionError(f'search_rho chose {res["best_rho"]}, the JAX '
+                             f'package {TUNE_BEST_RHO}')
+    if launches['interior_sweep'] != n * EPOCHS:
+        raise AssertionError(f'search_rho: interior_sweep launched '
+                             f'{launches["interior_sweep"]} times, expected '
+                             f'{n * EPOCHS}')
+    return launches, seconds
+
+
+def phase_resume():
+    """YahooFinance straight through against checkpointed (async) and
+    resumed from the directory: the losses, the weights and the whole
+    final state equal bit for bit."""
+    import shutil
+    import tempfile
+
+    from admm_lstm_torch import api
+    from admm_lstm_torch.data import load_dataset
+    from admm_lstm_torch.models.lstm import params_from_dict
+    from admm_lstm_torch.utils.config import ADMMConfig
+    g = np.load(os.path.join(ROOT, 'tests', 'golden',
+                             GOLDEN_DATASETS['YahooFinance']))
+    weights = {k[3:]: g[k] for k in g.files if k.startswith('w0_')}
+    (tx, ty, vx, vy), ps, _ = load_dataset('YahooFinance')
+    cfg = ADMMConfig(epochs=RESUME_EPOCHS, hidden_size=10)
+    run = lambda epochs, **kw: api.train(
+        tx, ty, vx, vy, ps, cfg.replace(epochs=epochs),
+        params=params_from_dict(weights), log_every=0, device='cuda', **kw)
+    ckpt = tempfile.mkdtemp(prefix='.chip_smoke_ckpt_', dir=ROOT)
+    try:
+        full = run(RESUME_EPOCHS)
+        first = run(RESUME_AT, checkpoint_dir=ckpt, checkpoint_every=RESUME_AT,
+                    async_checkpoint=True)
+        saved = sorted(os.listdir(ckpt))
+        resumed = run(RESUME_EPOCHS, resume_from=ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log(f'[resume] YahooFinance {RESUME_EPOCHS} epochs straight: val '
+        f'{full["val_loss"][-1]!r}; {RESUME_AT} checkpointed (files '
+        f'{saved}) then resumed to {RESUME_EPOCHS}: val '
+        f'{resumed["val_loss"][-1]!r}')
+    diffs = []
+    for key in ('train_loss', 'val_loss'):
+        if first[key] != full[key][:RESUME_AT + 1]:
+            diffs.append(f'{key} of the checkpointed run')
+        if resumed[key] != full[key][RESUME_AT:]:
+            diffs.append(f'{key} of the resumed run')
+    if resumed['state'].epoch != RESUME_EPOCHS:
+        diffs.append(f'epoch {resumed["state"].epoch}')
+    for group in ('params', 'gates', 'duals', 'rho', 'beta'):
+        for field, a in getattr(resumed['state'], group)._asdict().items():
+            b = getattr(getattr(full['state'], group), field)
+            if not torch.equal(a, b):
+                diffs.append(f'{group}.{field} (max abs diff '
+                             f'{float((a - b).abs().max())})')
+    if diffs:
+        raise AssertionError(f'resume: not bit-equal to the straight run: '
+                             f'{diffs}')
+    log('[resume] losses, weights and the whole final state equal bit for '
+        'bit')
+
+
 def card_name_and_power():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -762,6 +997,9 @@ def main() -> int:
     launches = {'slice1': phase_slice1(tx, ty, vx, vy, ps, weights),
                 'path_a': phase_path_a(tx, ty, vx, vy, ps, weights),
                 'path_b': phase_path_b()}
+    launches.update(phase_datasets())
+    launches['tune'], tune_seconds = phase_tune(tx, ty, vx, vy, ps, weights)
+    phase_resume()
 
     card = card_name_and_power()
     log(f'[card] {card}')
@@ -797,6 +1035,9 @@ def main() -> int:
                 kernels[-1][key] = main_row[key]
         if name in ill:
             kernels[-1]['ill_conditioned'] = ill[name]
+        kernels[-1]['launches_by_path'] = {
+            path: counts[name] for path, counts in launches.items()}
+    log(f'[tune] search_rho wall seconds {tune_seconds!r} on {card}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

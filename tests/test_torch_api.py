@@ -124,11 +124,18 @@ def test_torch_train_needs_a_card_unless_asked_for_cpu():
 
 @pytest.mark.parametrize('kw', [dict(checkpoint_dir='ckpt'),
                                 dict(resume_from='ckpt')])
-def test_torch_train_unported_options_raise(kw):
+def test_torch_train_unported_options_raise(kw, tmp_path):
+    """The checkpoint options run now (a resume from an empty directory
+    starts from scratch, as in the JAX package); train_sharded still
+    raises."""
     (tx, ty, vx, vy), ps, _ = load_dataset('Synthetic', batch=8, val_batch=4)
-    with pytest.raises(NotImplementedError):
-        api.train(tx, ty, vx, vy, ps, ADMMConfig(epochs=1), device='cpu',
-                  **kw)
+    kw = {k: str(tmp_path / v) for k, v in kw.items()}
+    res = api.train(tx, ty, vx, vy, ps, ADMMConfig(epochs=2), device='cpu',
+                    checkpoint_every=1, log_every=0, **kw)
+    assert res['state'].epoch == 2 and len(res['train_loss']) == 3
+    saved = sorted(os.listdir(tmp_path / 'ckpt'))
+    assert saved == (['step_1.pt', 'step_2.pt'] if 'checkpoint_dir' in kw
+                     else [])
     with pytest.raises(NotImplementedError, match='train_sharded'):
         api.train_sharded(tx, ty, vx, vy, ps, ADMMConfig(epochs=1))
 
@@ -158,10 +165,14 @@ def test_torch_train_preset_best_matches_jax(cfgkw):
 
 
 def test_torch_train_best_unported_legs_raise():
+    """The legacy variants' candidate sets still raise, and resume_from
+    stays refused (train_best(search_rounds > 0) runs now:
+    tests/test_torch_tune.py)."""
     (tx, ty, vx, vy), ps, _ = load_dataset('Synthetic', batch=8, val_batch=4)
-    with pytest.raises(NotImplementedError, match='refine_rho'):
-        api.train_best(tx, ty, vx, vy, ps, ADMMConfig(epochs=1),
-                       search_rounds=1, device='cpu')
+    with pytest.raises(NotImplementedError, match='admm_l'):
+        api.train_best(tx, ty, vx, vy, ps, ADMMConfig(variant='admm_l',
+                                                      epochs=1),
+                       device='cpu')
     with pytest.raises(ValueError, match='resume_from'):
         api.train_best(tx, ty, vx, vy, ps, ADMMConfig(epochs=1),
                        resume_from='ckpt', device='cpu')
@@ -228,6 +239,48 @@ def test_torch_cli_turbo_leg_flags_run(flag):
     from admm_lstm_torch.cli import main
     assert main(['--cpu', '-y', '-e', '2', '--no-plot', '-d', 'Synthetic',
                  *flag]) == 0
+
+
+def test_torch_cli_dna1_run(tmp_path):
+    proc = _cli(['--cpu', '-y', '-d', 'DNA1', '-e', '2', '--no-plot'],
+                tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'Epoch 2 has done' in proc.stdout
+
+
+def test_torch_cli_tune_rho_run():
+    from admm_lstm_torch.cli import main
+    assert main(['--cpu', '-y', '-d', 'Synthetic', '-nt', '64', '-nv', '16',
+                 '-e', '2', '--hidden', '4', '--no-plot',
+                 '--tune_rho', '1']) == 0
+
+
+def test_torch_cli_checkpoint_then_resume(tmp_path):
+    from admm_lstm_torch.cli import main
+    ckpt = str(tmp_path / 'ckpt')
+    args = ['--cpu', '-y', '-d', 'Synthetic', '-nt', '64', '-nv', '16',
+            '--hidden', '4', '--no-plot', '--checkpoint_dir', ckpt,
+            '--checkpoint_every', '1']
+    assert main([*args, '-e', '2']) == 0
+    assert sorted(os.listdir(ckpt)) == ['step_1.pt', 'step_2.pt']
+    assert main([*args, '-e', '3', '--resume']) == 0
+    assert sorted(os.listdir(ckpt)) == ['step_1.pt', 'step_2.pt', 'step_3.pt']
+    assert main(['--cpu', '-y', '-e', '1', '--no-plot', '--resume']) != 0
+
+
+def test_torch_cli_data_dir(tmp_path):
+    """--data_dir reaches the HAR loader (files the test writes) and is
+    refused for a bundled dataset, as in the JAX CLI."""
+    from admm_lstm_torch.cli import main
+    labels = [1] * 12 + [2] * 11 + [3] * 20
+    feats = np.random.default_rng(0).standard_normal((len(labels), 6))
+    for split in ('train', 'test'):
+        np.savetxt(tmp_path / f'X_{split}.txt', feats)
+        np.savetxt(tmp_path / f'y_{split}.txt', labels, fmt='%d')
+    args = ['--cpu', '-y', '-e', '1', '--hidden', '3', '--no-plot',
+            '--data_dir', str(tmp_path)]
+    assert main([*args, '-d', 'HAR']) == 0
+    assert main([*args, '-d', 'GoogleStock']) != 0
 
 
 def test_torch_cli_auto_run(tmp_path):

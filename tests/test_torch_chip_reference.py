@@ -16,6 +16,7 @@ import torch
 import chip_smoke
 from admm_lstm_tpu import ADMMConfig as JConfig
 from admm_lstm_tpu import api as j_api
+from admm_lstm_tpu import tune as j_tune
 from admm_lstm_tpu.core.init import init_admm_state
 from admm_lstm_tpu.core.step import make_admm_step
 from admm_lstm_tpu.data import load_dataset
@@ -73,6 +74,33 @@ def test_torch_chip_reference_preset_vals(googlestock):
     assert best['preset_choice'] == chip_smoke.BEST_CHOICE
     for k, v in chip_smoke.BEST_PROBE_VAL.items():
         np.testing.assert_allclose(best['probe_val'][k], v, rtol=RTOL)
+
+
+def test_torch_chip_reference_tune_grid(googlestock):
+    """search_rho's 27 validation losses on GoogleStock and the best rho
+    (about a minute on the CPU)."""
+    tx, ty, vx, vy, ps, weights = googlestock
+    res = j_tune.search_rho(tx, ty, vx, vy, ps, JConfig(hidden_size=10),
+                            epochs=chip_smoke.EPOCHS,
+                            params=params_from_dict(weights))
+    np.testing.assert_allclose(res['val_losses'], chip_smoke.TUNE_VAL,
+                               rtol=RTOL)
+    assert res['best_rho'] == chip_smoke.TUNE_BEST_RHO
+
+
+@pytest.mark.parametrize('name', sorted(chip_smoke.DATASET_REF))
+def test_torch_chip_reference_dataset_losses(name):
+    """The default config's DATASET_EPOCHS-epoch trajectories on SMSSpam
+    and GEFCOM2012Wind from chip_smoke.numpy_weights."""
+    (tx, ty, vx, vy), ps, _ = load_dataset(name)
+    weights = chip_smoke.numpy_weights(tx.shape[2], 10, ty.shape[1], 0)
+    res = j_api.train(tx, ty, vx, vy, ps,
+                      JConfig(epochs=chip_smoke.DATASET_EPOCHS,
+                              hidden_size=10),
+                      params=params_from_dict(weights), log_every=0)
+    ref = chip_smoke.DATASET_REF[name]
+    np.testing.assert_allclose(res['train_loss'], ref['train'], rtol=RTOL)
+    np.testing.assert_allclose(res['val_loss'], ref['val'], rtol=RTOL)
 
 
 def test_torch_chip_smoke_needs_a_card():

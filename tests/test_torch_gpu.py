@@ -87,6 +87,10 @@ def _resident_threshold(device, batch):
     (4, 64, 1001),     # two rows a thread, ragged batch edge
     (3, 40, 37),       # two rows a thread, one column a block
     (4, 300, 24),      # wh streamed, a partial last warp
+    (59, 10, 1360),    # YahooFinance
+    (56, 10, 85),      # DNA1
+    (24, 10, 487),     # SMSSpam
+    (23, 10, 10522),   # GEFCOM2012Wind
 ])
 def test_torch_cuda_sweep_matches_plain(cuda, steps, hidden, batch):
     if isinstance(hidden, str):
