@@ -10,6 +10,7 @@ plain PyTorch version that the CPU path and the tests use.
 
 Layout:
   core/      ADMMState + the one-epoch `admm_step`
+  variants/  the stacked N-layer variant (`train_stacked`)
   solvers/   closed-form / prox-linear / exact (normal-equation) solvers
   kernels/   CUDA kernels (ctypes-bound) with their plain versions
   models/    the LSTM-Linear model as plain functions

@@ -485,6 +485,76 @@ def train_best(train_x, train_y, val_x, val_y,
     return result
 
 
+def train_best_stacked(train_x, train_y, val_x, val_y,
+                       parameter_set: ParameterSet | Dict,
+                       config: ADMMConfig = ADMMConfig(),
+                       hiddens=None,
+                       probe_epochs: int = 15,
+                       search_rounds: int = 1,
+                       log_every: int = 1,
+                       params=None,
+                       device='cuda') -> Dict[str, object]:
+    """preset='best' for the stacked N-layer variant (JAX api.py:445-505):
+    probe the shipped tuning against the winner of
+    `tune.refine_rho_stacked` over the c/h/y penalties, from the same
+    initial weights, and commit to the one with the lower probe
+    validation loss for the full budget, with the best-iterate carry.
+
+    The probe and search budget is max(probe_epochs, epochs // 4) (at
+    most the budget), with a second search round once that reaches 100
+    epochs: short probes do not rank the stack's tunings for long runs.
+    Each probe is ranked by its trajectory's nan-min.  `params`: the
+    initial StackedParams (default: `init_stacked` from
+    `torch.Generator().manual_seed(config.seed)`).
+
+    Returns the committed `train_stacked` result, with 'preset_choice',
+    'probe_val' (each candidate's probe validation loss) and
+    'candidate_rho' (each candidate's rho, 'z' included).
+    """
+    from admm_lstm_torch.variants.stacked import init_stacked, train_stacked
+    device = resolve_device(device)
+    if isinstance(parameter_set, dict):
+        parameter_set = ParameterSet.from_dict(parameter_set)
+    if params is None:
+        if hiddens is None:
+            hiddens = (config.hidden_size, config.hidden_size)
+        params = init_stacked(torch.Generator().manual_seed(config.seed),
+                              np.shape(train_x)[2], tuple(hiddens),
+                              np.shape(train_y)[1], device=device)
+    hiddens = tuple(lp.hidden_size for lp in params.layers)
+    n_probe = max(1, min(config.epochs,
+                         max(probe_epochs, config.epochs // 4)))
+
+    candidates = {'shipped': parameter_set}
+    if search_rounds:
+        from admm_lstm_torch.tune import refine_rho_stacked
+        n_rounds = max(search_rounds, 2) if n_probe >= 100 else search_rounds
+        tuned = refine_rho_stacked(train_x, train_y, val_x, val_y,
+                                   parameter_set, hiddens, config=config,
+                                   epochs=n_probe, rounds=n_rounds,
+                                   params=params, device=device)
+        candidates['tuned'] = tuned['best_parameter_set']
+    probe_val: Dict[str, float] = {}
+    for name, pset in candidates.items():
+        res = train_stacked(train_x, train_y, val_x, val_y, pset,
+                            config.replace(epochs=n_probe), log_every=0,
+                            params=params, device=device)
+        v = float(np.nanmin(np.asarray(res['val_loss'])))
+        probe_val[name] = v if np.isfinite(v) else float('inf')
+    winner = min(probe_val, key=probe_val.get)
+    info(f"preset='best' [stacked {hiddens}]: probe {n_probe} epochs -> "
+         + ', '.join(f'{k} {v:.6g}' for k, v in probe_val.items())
+         + f'; committing to {winner}.')
+    result = train_stacked(train_x, train_y, val_x, val_y,
+                           candidates[winner], config, log_every=log_every,
+                           params=params, device=device)
+    result['preset_choice'] = winner
+    result['probe_val'] = probe_val
+    result['candidate_rho'] = {name: dict(pset.rho)
+                               for name, pset in candidates.items()}
+    return result
+
+
 def train_sharded(*args, **kwargs):
     """Data-parallel training over several cards: not in this slice."""
     raise NotImplementedError(f'train_sharded arrives in {LATER}')

@@ -13,8 +13,9 @@ tensors and the epoch as an int, so `torch.load(..., weights_only=True)`
 reads it back.
 
 `save_model`/`load_model` write and read final weights as `.npz` files
-with the JAX package's keys (`x2{g}`, `h2{g}`, `wy`), so a file written
-by either package loads in the other.
+with the JAX package's keys (`x2{g}`, `h2{g}`, `wy`; `l{k}_*` per layer
+of a stacked model), so a file written by either package loads in the
+other.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ from admm_lstm_torch.core.state import (ADMMState, DualSlabs, GateSlabs,
                                         Penalties, Ridges)
 from admm_lstm_torch.models.lstm import (GATE_ORDER, LSTMParams,
                                          params_from_dict)
-from admm_lstm_torch.utils.config import LATER
 from admm_lstm_torch.utils.device import resolve_device
 from admm_lstm_torch.utils.logging import info
 
@@ -144,30 +144,38 @@ class CheckpointManager:
         self.wait()
 
 
-def save_model(name: str, params: LSTMParams,
-               save_dir: str = 'SAVED_MODELS') -> str:
+def save_model(name: str, params, save_dir: str = 'SAVED_MODELS') -> str:
     """Final weights as `<save_dir>/<name>.npz` (reference:
-    demo.py:302-308), with the JAX package's keys."""
-    if not isinstance(params, LSTMParams):
-        raise NotImplementedError(f'saving stacked models arrives in {LATER}')
+    demo.py:302-308), with the JAX package's keys: x2i ... h2o and wy for
+    LSTMParams; l{k}_x2i ... l{k}_h2o and l{k}_wy per layer and the head
+    wy for the stacked variant's StackedParams."""
+    from admm_lstm_torch.variants.stacked import StackedParams
     os.makedirs(save_dir, exist_ok=True)
     path = os.path.join(save_dir, f'{name}.npz')
+    host = lambda t: t.detach().cpu().numpy()
     arrays = {}
-    for gi, g in enumerate(GATE_ORDER):
-        arrays[f'x2{g}'] = params.wx[gi].detach().cpu().numpy()
-        arrays[f'h2{g}'] = params.wh[gi].detach().cpu().numpy()
-    arrays['wy'] = params.wy.detach().cpu().numpy()
+    if isinstance(params, StackedParams):
+        blocks = [(f'l{k}_', layer) for k, layer in enumerate(params.layers)]
+    else:
+        blocks = [('', params)]
+    for prefix, layer in blocks:
+        for gi, g in enumerate(GATE_ORDER):
+            arrays[f'{prefix}x2{g}'] = host(layer.wx[gi])
+            arrays[f'{prefix}h2{g}'] = host(layer.wh[gi])
+        arrays[f'{prefix}wy'] = host(layer.wy)
+    arrays['wy'] = host(params.wy)
     np.savez(path, **arrays)
     info(f'{name}: Saved model to {path}.')
     return path
 
 
-def load_model(path: str, device='cuda') -> LSTMParams:
-    """Inverse of save_model: LSTMParams on `device`."""
+def load_model(path: str, device='cuda'):
+    """Inverse of save_model: LSTMParams, or StackedParams for a file with
+    l{k}_* keys, on `device`."""
+    from admm_lstm_torch.variants.stacked import stacked_params_from_dict
+    device = resolve_device(device)
     with np.load(path) as data:
-        if any(k.startswith('l0_') for k in data.files):
-            raise NotImplementedError(
-                f'{path} holds a stacked model; stacked models arrive in '
-                f'{LATER}')
-        return params_from_dict({k: data[k] for k in data.files},
-                                device=resolve_device(device))
+        arrays = {k: data[k] for k in data.files}
+    if any(k.startswith('l0_') for k in arrays):
+        return stacked_params_from_dict(arrays, device=device)
+    return params_from_dict(arrays, device=device)

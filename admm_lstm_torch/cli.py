@@ -23,7 +23,7 @@ from admm_lstm_torch.utils.device import NoCudaDeviceError, resolve_device
 from admm_lstm_torch.utils.logging import ADMMError, error, info, log_assert
 
 # Flags of the JAX CLI whose paths arrive in later slices of the port.
-_LATER_FLAGS = ('mesh', 'layers', 'scenarios', 'save', 'record_matlab_data')
+_LATER_FLAGS = ('mesh', 'scenarios', 'save', 'record_matlab_data')
 
 
 def generate_parser() -> argparse.ArgumentParser:
@@ -43,6 +43,12 @@ def generate_parser() -> argparse.ArgumentParser:
                         help="Number of validation samples or 'all'")
     parser.add_argument('--hidden', default=10, type=int,
                         help='Number of hidden neurons in the LSTM')
+    parser.add_argument('--layers', default=1, type=int,
+                        help='LSTM depth: >= 2 trains the stacked ADMM '
+                             'variant')
+    parser.add_argument('--hidden2', default=0, type=int,
+                        help='Width of layers above the first '
+                             '(default: same as --hidden)')
     parser.add_argument('--version', '-v', action='version',
                         version=f'%(prog)s {__version__}')
     parser.add_argument('--seed', '-s', default=-1, type=int,
@@ -107,7 +113,7 @@ def generate_parser() -> argparse.ArgumentParser:
     for flag in ('save', 'record_matlab_data'):
         later.add_argument(f'--{flag}', action='store_true',
                            help=argparse.SUPPRESS)
-    for flag in ('mesh', 'layers', 'scenarios'):
+    for flag in ('mesh', 'scenarios'):
         later.add_argument(f'--{flag}', default=None, type=int,
                            help=argparse.SUPPRESS)
     return parser
@@ -124,6 +130,25 @@ def parse_num_samples(value: str) -> Optional[int]:
     return n
 
 
+def _train_stacked(args, seed, train_x, train_y, val_x, val_y, device):
+    """--layers >= 2 (the JAX CLI's stacked branch): the stacked variant
+    with the 'Stacked' tuning and the variant's plain config, hiddens
+    [hidden] + [hidden2 or hidden] * (layers - 1); --preset best runs
+    api.train_best_stacked.  Returns (parameter set, result)."""
+    from admm_lstm_torch.params import parameter_set
+    ps = parameter_set('Stacked')
+    cfg = ADMMConfig(variant=args.variant, with_dual_y=args.with_dual_y,
+                     epochs=args.epoch, hidden_size=args.hidden, seed=seed)
+    hiddens = [args.hidden] + [args.hidden2 or args.hidden] * (args.layers - 1)
+    if args.preset:
+        from admm_lstm_torch.api import train_best_stacked
+        return ps, train_best_stacked(train_x, train_y, val_x, val_y, ps, cfg,
+                                      hiddens=hiddens, device=device)
+    from admm_lstm_torch.variants.stacked import train_stacked
+    return ps, train_stacked(train_x, train_y, val_x, val_y, ps, cfg,
+                             hiddens=hiddens, log_every=1, device=device)
+
+
 def main(argv=None) -> int:
     from admm_lstm_torch.data import load_dataset, supported_datasets
     args = generate_parser().parse_args(argv)
@@ -132,6 +157,8 @@ def main(argv=None) -> int:
             if getattr(args, flag) not in (None, False):
                 error(f'--{flag} is not ported to admm_lstm_torch yet; it '
                       f'arrives in {LATER}.')
+        if args.layers >= 2 and args.variant not in ('fast', 'no_dual_y'):
+            error('--layers >= 2 supports the fast/no_dual_y variants only')
         if args.variant in ('admm_l', 'admm_s'):
             error(f'--variant {args.variant} is not ported to admm_lstm_torch '
                   f'yet; it arrives in {LATER}.')
@@ -180,42 +207,48 @@ def main(argv=None) -> int:
                 return 0
 
         from admm_lstm_torch.api import train
-        cfg = ADMMConfig(variant=args.variant, with_dual_y=args.with_dual_y,
-                         epochs=args.epoch, hidden_size=args.hidden,
-                         seed=seed, adaptive_rho=args.adaptive_rho,
-                         adapt_stop_epoch=args.adapt_stop_epoch,
-                         exact_weight_solve=args.exact_weight_solve,
-                         dtype=args.dtype)
-        # The JAX CLI's compositions: --auto is ADMMConfig.auto() (an
-        # explicit --adapt_stop_epoch wins), --turbo ADMMConfig.turbo().
-        if args.auto:
-            cfg = cfg.replace(**dict(
-                AUTO_FIELDS, adapt_stop_epoch=(
-                    args.adapt_stop_epoch
-                    or AUTO_FIELDS['adapt_stop_epoch'])))
-        elif args.turbo:
-            cfg = cfg.replace(sweep_mode='jacobi', exact_weight_solve=True,
-                              matmul_precision='default')
-        if args.tune_rho:
-            from admm_lstm_torch.tune import refine_rho
-            tuned = refine_rho(train_x, train_y, val_x, val_y, ps,
-                               config=cfg, epochs=min(30, args.epoch),
-                               rounds=args.tune_rho, device=device)
-            ps = tuned['best_parameter_set']
-            info(f'rho search ({args.tune_rho} rounds): best val '
-                 f'{tuned["best_val_loss"]:.8f} with rho {ps.rho}')
-        results = train(train_x, train_y, val_x, val_y, ps, cfg,
-                        record_residuals=args.residuals,
-                        checkpoint_dir=args.checkpoint_dir,
-                        checkpoint_every=args.checkpoint_every,
-                        resume_from=(args.checkpoint_dir if args.resume
-                                     else None),
-                        stop_tol=args.stop_tol,
-                        stop_divergence=args.stop_divergence,
-                        track_best=args.track_best, preset=args.preset,
-                        device=device)
+        if args.layers >= 2:
+            ps, results = _train_stacked(args, seed, train_x, train_y, val_x,
+                                         val_y, device)
+        else:
+            cfg = ADMMConfig(variant=args.variant,
+                             with_dual_y=args.with_dual_y,
+                             epochs=args.epoch, hidden_size=args.hidden,
+                             seed=seed, adaptive_rho=args.adaptive_rho,
+                             adapt_stop_epoch=args.adapt_stop_epoch,
+                             exact_weight_solve=args.exact_weight_solve,
+                             dtype=args.dtype)
+            # The JAX CLI's compositions: --auto is ADMMConfig.auto() (an
+            # explicit --adapt_stop_epoch wins), --turbo ADMMConfig.turbo().
+            if args.auto:
+                cfg = cfg.replace(**dict(
+                    AUTO_FIELDS, adapt_stop_epoch=(
+                        args.adapt_stop_epoch
+                        or AUTO_FIELDS['adapt_stop_epoch'])))
+            elif args.turbo:
+                cfg = cfg.replace(sweep_mode='jacobi', exact_weight_solve=True,
+                                  matmul_precision='default')
+            if args.tune_rho:
+                from admm_lstm_torch.tune import refine_rho
+                tuned = refine_rho(train_x, train_y, val_x, val_y, ps,
+                                   config=cfg, epochs=min(30, args.epoch),
+                                   rounds=args.tune_rho, device=device)
+                ps = tuned['best_parameter_set']
+                info(f'rho search ({args.tune_rho} rounds): best val '
+                     f'{tuned["best_val_loss"]:.8f} with rho {ps.rho}')
+            results = train(train_x, train_y, val_x, val_y, ps, cfg,
+                            record_residuals=args.residuals,
+                            checkpoint_dir=args.checkpoint_dir,
+                            checkpoint_every=args.checkpoint_every,
+                            resume_from=(args.checkpoint_dir if args.resume
+                                         else None),
+                            stop_tol=args.stop_tol,
+                            stop_divergence=args.stop_divergence,
+                            track_best=args.track_best, preset=args.preset,
+                            device=device)
         if args.residuals:
-            for epoch, res in enumerate(results['residuals'], start=1):
+            for epoch, res in enumerate(results.get('residuals', ()),
+                                        start=1):
                 info(f'Epoch {epoch} residuals: '
                      + ' '.join(f'{k} {v:.3e}' for k, v in res.items()))
 

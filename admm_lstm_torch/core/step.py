@@ -38,7 +38,8 @@ import torch
 
 from admm_lstm_torch.core.residuals import (admm_residuals_im, balanced_rho,
                                             dual_residuals)
-from admm_lstm_torch.core.state import ADMMState, DualSlabs, GateSlabs
+from admm_lstm_torch.core.state import (ADMMState, DualSlabs, GateSlabs,
+                                        Penalties)
 from admm_lstm_torch.kernels import gate_sweep
 from admm_lstm_torch.models.lstm import LSTMParams, train_val_mse_im
 from admm_lstm_torch.solvers import closed_form as cf
@@ -47,8 +48,22 @@ from admm_lstm_torch.solvers.prox_linear import (h_final_update,
                                                  weight_stage_update_wide)
 from admm_lstm_torch.utils.config import ADMMConfig, unsupported_reason
 
-# Gate order i,f,g,o; only g uses tanh.
-_IS_TANH = (False, False, True, False)
+
+def gate_is_tanh(n: int, per_gate: int, device) -> torch.Tensor:
+    """The (n,) mask of the tanh gate in i, f, g, o order (only g), each
+    gate repeated `per_gate` times.  Made on the device: a tensor made on
+    the host would be a copy that waits for the stream."""
+    return torch.arange(n, device=device) // per_gate == 2
+
+
+def wide_targets(gates: GateSlabs, duals: DualSlabs,
+                 rho: Penalties) -> torch.Tensor:
+    """The weight stages' gate targets dual/rho + gate (admm.py:309-310),
+    rows t = 1..T, gate-folded: (T, 4H, B)."""
+    return torch.cat(
+        [d[1:] / r + g[1:] for g, d, r in
+         ((gates.i, duals.i, rho.i), (gates.f, duals.f, rho.f),
+          (gates.g, duals.g, rho.g), (gates.o, duals.o, rho.o))], dim=1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +91,10 @@ class StepRules:
     adapt_tau: float = 2.0
     # Freeze the adaptation once the epoch count passes this (0 = never).
     adapt_stop_epoch: int = 0
+    # Geometric dual damping of the stacked variant only: every stacked
+    # dual ascent becomes lam <- decay * (lam + rho * resid); 1.0 is
+    # exact ADMM (variants/stacked.py).
+    stacked_dual_decay: float = 1.0
     # True / False / 'auto': True and 'auto' run the CUDA sweep kernels on
     # CUDA tensors whenever T > 1.
     use_pallas_sweep: object = 'auto'
@@ -113,6 +132,7 @@ def rules_for(config: ADMMConfig) -> StepRules:
         adapt_mu=config.adapt_mu,
         adapt_tau=config.adapt_tau,
         adapt_stop_epoch=config.adapt_stop_epoch,
+        stacked_dual_decay=config.stacked_dual_decay,
     )
     if config.variant == 'no_dual_y':
         return StepRules(with_dual_y=False, wy_theta=0.005, wy_beta_factor=2.0,
@@ -166,13 +186,8 @@ def _weight_phase(state: ADMMState, x_im: torch.Tensor,
     h_hist = gates.h[:-1]          # (T, H, B) stale history incl. zero row
     rho_g = rho.stacked_ifgo()
 
-    # target = dual/rho + gate per gate (admm.py:309-310), rows t=1..T.
-    target_w = torch.cat(
-        [d[1:] / r + g[1:] for g, d, r in
-         ((gates.i, duals.i, rho.i), (gates.f, duals.f, rho.f),
-          (gates.g, duals.g, rho.g), (gates.o, duals.o, rho.o))], dim=1)
-    tanh_cols = torch.tensor(_IS_TANH, device=x_im.device).repeat_interleave(
-        hidden)
+    target_w = wide_targets(gates, duals, rho)
+    tanh_cols = gate_is_tanh(4 * hidden, hidden, x_im.device)
 
     wx_w, wh_w = _to_wide(state.params.wx), _to_wide(state.params.wh)
     xproj = torch.einsum('tdb,dk->tkb', x_im, wx_w)

@@ -3,6 +3,7 @@
     python -m admm_lstm_torch.profile_epoch [--epochs 10] [--hidden H]
         [--config default|turbo|auto]
         [--data googlestock|yahoofinance|dna1|smsspam|gefcom2012wind|har]
+        [--layers N [--hidden2 H2]]
 
 Trains on the CUDA card with the chosen configuration (the default
 fast-ADMM run, ADMMConfig.turbo() or ADMMConfig.auto(); 3 warm-up epochs,
@@ -13,8 +14,16 @@ H 128, exact_solve_max_dim 1024), and
 prints one JSON line: the wall ms per epoch (host clock, synchronized;
 with and without the profiler), the device-busy ms per epoch (sum of CUDA
 kernel and memcpy/memset times), the device's idle share of the profiled
-wall time, the device operations per epoch, and the device ms per epoch
-of the ten costliest kernels.  It needs a CUDA card.
+wall time, the device operations per epoch, the host syncs per epoch
+(`cudaStreamSynchronize` calls in the profiler's trace: a tensor read as
+a Python number or bool, and a copy from pageable host memory such as
+`torch.tensor(..., device='cuda')`, wait for the stream), the reads
+(`aten::_local_scalar_dense`) and host-to-device copies
+(`cudaMemcpyAsync`) among them, and the device ms per epoch of the ten
+costliest kernels.  `--layers N` (N >= 2) profiles the stacked variant's epoch
+instead (variants/stacked.py, ParameterSet 'Stacked', hiddens
+[H] + [H2 or H] * (N - 1), the default config; --config and --data har
+do not apply).  It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -39,7 +48,12 @@ def main(argv=None) -> int:
                         choices=['default', 'turbo', 'auto'])
     parser.add_argument('--data', default='googlestock',
                         choices=[*_DATASETS, 'har'])
+    parser.add_argument('--layers', type=int, default=1)
+    parser.add_argument('--hidden2', type=int, default=0)
     args = parser.parse_args(argv)
+    if args.layers >= 2 and (args.config != 'default' or args.data == 'har'):
+        parser.error('--layers >= 2 takes the default config and a bundled '
+                     'dataset')
     if not torch.cuda.is_available():
         raise SystemExit('profile_epoch needs a CUDA card')
 
@@ -72,13 +86,33 @@ def main(argv=None) -> int:
     dev = torch.device('cuda')
     f = lambda a: torch.from_numpy(a).to(dev)
     x_im, y_im, xall, vy_im = batch_minor(f(tx), f(ty), f(vx), f(vy))
-    params = init_lstm_params(torch.Generator().manual_seed(0), tx.shape[2],
-                              args.hidden, ty.shape[1], device=dev)
-    state = init_admm_state(params, f(tx), ps, cfg)
+    if args.layers >= 2:
+        from admm_lstm_torch.variants import stacked
+        hiddens = [args.hidden] + [args.hidden2 or args.hidden] * (
+            args.layers - 1)
+        ps = parameter_set('Stacked')
+        state = stacked.init_stacked_state(
+            stacked.init_stacked(torch.Generator().manual_seed(0),
+                                 tx.shape[2], hiddens, ty.shape[1],
+                                 device=dev), f(tx), ps, cfg)
+
+        def epoch(state):
+            state = stacked.stacked_admm_step_im(state, x_im, y_im, rules)
+            stacked.stacked_train_val_mse_im(state.params, xall, y_im, vy_im)
+            return state
+    else:
+        hiddens = [args.hidden]
+        params = init_lstm_params(torch.Generator().manual_seed(0),
+                                  tx.shape[2], args.hidden, ty.shape[1],
+                                  device=dev)
+        state = init_admm_state(params, f(tx), ps, cfg)
+
+        def epoch(state):
+            return epoch_step(state, x_im, y_im, xall, vy_im, rules)[0]
 
     def run(state, n):
         for _ in range(n):
-            state, _ = epoch_step(state, x_im, y_im, xall, vy_im, rules)
+            state = epoch(state)
         torch.cuda.synchronize()
         return state
 
@@ -94,8 +128,12 @@ def main(argv=None) -> int:
 
     kernels = {}
     busy_us, launches = 0.0, 0
+    host = {'cudaStreamSynchronize': 0, 'aten::_local_scalar_dense': 0,
+            'cudaMemcpyAsync': 0}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            if evt.name in host:
+                host[evt.name] += 1
             continue
         dur = evt.time_range.elapsed_us()
         busy_us += dur
@@ -107,12 +145,15 @@ def main(argv=None) -> int:
     print(json.dumps({
         'device': torch.cuda.get_device_name(0),
         'config': args.config, 'data': args.data, 'epochs': args.epochs,
-        'hidden': args.hidden,
+        'hidden': args.hidden, 'hiddens': hiddens,
         'wall_ms_per_epoch': plain_wall_ms,
         'wall_ms_per_epoch_profiled': wall_ms,
         'device_busy_ms_per_epoch': busy_ms,
         'device_idle_share': max(0.0, 1.0 - busy_ms / wall_ms),
         'device_ops_per_epoch': launches / args.epochs,
+        'host_syncs_per_epoch': host['cudaStreamSynchronize'] / args.epochs,
+        'reads_per_epoch': host['aten::_local_scalar_dense'] / args.epochs,
+        'memcpy_calls_per_epoch': host['cudaMemcpyAsync'] / args.epochs,
         'top_kernels_ms_per_epoch': {k: v / 1e3 / args.epochs
                                      for k, v in top},
     }))

@@ -60,6 +60,18 @@ def a_update(train_y, hw, rho_y, lam_y, batch_size: int, with_dual_y: bool):
     return num / (2.0 + batch_size * rho_y)
 
 
+def wy_update(wy, h_last, a, rho_y, beta_wy, lam_y, with_dual_y: bool):
+    """Readout update with the constant theta = 1/2 (admm.py:246-280),
+    batch-minor: h_last (H, B), a and lam_y (O, B).  The stacked variant
+    uses it for every solver variant (JAX closed_form.wy_update)."""
+    resid = torch.einsum('hb,ho->ob', h_last, wy) - a
+    if with_dual_y:
+        resid = resid - lam_y / rho_y
+    gradient = rho_y * torch.einsum('hb,ob->ho', h_last, resid)
+    theta = 0.5
+    return (theta * wy - gradient) / (theta + beta_wy)
+
+
 def dual_ifgo_update(lam, rho, gate_new, act):
     """lam += rho * (gate - act(x_t Wx + h_{t-1} Wh))  (admm.py:512-522)."""
     return lam + rho * (gate_new - act)

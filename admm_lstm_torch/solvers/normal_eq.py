@@ -193,15 +193,14 @@ def gauss_newton_ridge_update_wide(m_inputs: torch.Tensor, pre: torch.Tensor,
     dim = m_inputs.shape[1]
     tanh_b = tanh_cols[:, None]                            # (4H, 1)
 
-    def const(v):
-        return torch.tensor(v, dtype=dtype, device=device)
-
     # sigmoid(x) = (1 + tanh(x/2)) / 2: act = a + b*u, act' = c*(1 - u^2)
-    # with u = tanh(s*x) and per-column constants.
-    s_cols = torch.where(tanh_b, const(1.0), const(0.5))
+    # with u = tanh(s*x) and per-column constants.  The constants are
+    # Python scalars: a tensor made on the host would be a copy that
+    # waits for the stream.
+    s_cols = torch.where(tanh_b, 1.0, 0.5).to(dtype)
     u = torch.tanh(s_cols * pre)
-    act = torch.where(tanh_b, const(0.0), const(0.5)) + s_cols * u
-    d_act = torch.where(tanh_b, const(1.0), const(0.25)) * (1.0 - u * u)
+    act = torch.where(tanh_b, 0.0, 0.5).to(dtype) + s_cols * u
+    d_act = torch.where(tanh_b, 1.0, 0.25).to(dtype) * (1.0 - u * u)
 
     resid = act - target_w
     s2 = d_act * d_act

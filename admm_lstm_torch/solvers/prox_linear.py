@@ -199,7 +199,7 @@ def h_final_update(h_old, o_new, tanh_c_new, lam_h, rho_h, wy, a_old,
     # theta doubles exactly in f32, so the host keeps its own f32 copy and
     # the stop test needs no sync.
     theta_host = np.float32(theta0)
-    theta = torch.tensor(theta_host, dtype=dtype, device=h_old.device)
+    theta = h_old.new_full((), float(theta_host))   # a fill, not a copy
     k = 0
     while k < max_iters and accept_fails(theta):
         theta_host = np.float32(theta_host * 2)

@@ -1,21 +1,23 @@
 """Rho search: train a grid of penalty tunings and rank them.
 
 Counterpart of `admm_lstm_tpu/tune.py` (`candidate_grid`, `search_rho`,
-`refine_rho`).  The reference tunes its 7 penalty coefficients by hand,
-editing source between runs (README.md:79-83).  Here every candidate
-trains from the same initial weights and the same initial ADMM state,
-differing only in rho, and the candidates are ranked by their final
-validation loss (a non-finite loss ranks last).
+`refine_rho`, and for the stacked variant `search_rho_stacked` and
+`refine_rho_stacked`).  The reference tunes its 7 penalty coefficients
+by hand, editing source between runs (README.md:79-83).  Here every
+candidate trains from the same initial weights and the same initial
+ADMM state, differing only in rho, and the candidates are ranked by
+their final validation loss (a non-finite loss ranks last).
 
 The JAX package trains the whole grid as one vmapped program.  The
 port's kernels take no candidate axis and its line searches sync the
 host, so the port trains the candidates one after another through the
-same epoch code as `api.train` (`core/step.admm_step_im`), with the CUDA
-kernels on CUDA tensors.  Each candidate's numbers are those of a run
-alone, as the JAX package's masked line searches make them.  With one
-candidate at a time there is no group to halve when the card runs out of
-memory (the JAX package's `_run_in_groups`), so a CUDA out-of-memory
-error propagates, naming the candidate that raised it.
+same epoch code as `api.train` (`core/step.admm_step_im`, or
+`variants/stacked.stacked_admm_step_im`), with the CUDA kernels on CUDA
+tensors.  Each candidate's numbers are those of a run alone, as the JAX
+package's masked line searches make them.  With one candidate at a time
+there is no group to halve when the card runs out of memory (the JAX
+package's `_run_in_groups`), so a CUDA out-of-memory error propagates,
+naming the candidate that raised it.
 """
 
 from __future__ import annotations
@@ -89,24 +91,44 @@ def search_rho(train_x, train_y, val_x, val_y, base: ParameterSet,
                                      config)
         x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x,
                                                  val_y)
-        losses = []
-        for n, cand in enumerate(candidates):
-            # The step never writes its input state, so every candidate
-            # starts from the same base_state.
-            state = base_state._replace(rho=Penalties(*(
-                torch.tensor(v, dtype=torch.float32, device=device)
-                for v in cand)))
-            try:
-                for _ in range(epochs):
-                    state = admm_step_im(state, x_im, y_im, rules)
-                losses.append(torch.stack(train_val_mse_im(
-                    state.params, xall_im, y_im, vy_im)))
-            except torch.cuda.OutOfMemoryError as e:
-                e.add_note(f'search_rho: rho candidate {n} of '
-                           f'{len(candidates)} ({cand.tolist()}) ran out '
-                           f'of device memory')
-                raise
-        losses = torch.stack(losses).cpu().numpy()
+        # The step never writes its input state, so every candidate
+        # starts from the same base_state.
+        losses = _train_candidates(
+            'search_rho', candidates,
+            lambda n, cand: base_state._replace(rho=_penalties(cand,
+                                                               device)),
+            lambda state: admm_step_im(state, x_im, y_im, rules),
+            lambda p: train_val_mse_im(p, xall_im, y_im, vy_im), epochs)
+    return _ranked(candidates, losses, base)
+
+
+def _penalties(cand, device) -> Penalties:
+    return Penalties(*(torch.tensor(v, dtype=torch.float32, device=device)
+                       for v in cand))
+
+
+def _train_candidates(name, candidates, make_state, step, losses, epochs):
+    """Trains each candidate in turn: `make_state(n, cand)`, `epochs`
+    calls of `step`, then `losses(params)` -> (train, val).  Returns the
+    (N, 2) losses on the host; a CUDA out-of-memory error propagates with
+    a note naming the candidate."""
+    out = []
+    for n, cand in enumerate(candidates):
+        try:
+            state = make_state(n, cand)
+            for _ in range(epochs):
+                state = step(state)
+            out.append(torch.stack(losses(state.params)))
+        except torch.cuda.OutOfMemoryError as e:
+            e.add_note(f'{name}: rho candidate {n} of {len(candidates)} '
+                       f'({cand.tolist()}) ran out of device memory')
+            raise
+    return torch.stack(out).cpu().numpy()
+
+
+def _ranked(candidates, losses, base: ParameterSet) -> Dict[str, object]:
+    """The search's result: candidates ranked by validation loss (a
+    non-finite loss ranks last)."""
     train_losses, val_losses = losses[:, 0], losses[:, 1]
     val_rank = np.where(np.isfinite(val_losses), val_losses, np.inf)
     order = np.argsort(val_rank)
@@ -124,17 +146,84 @@ def search_rho(train_x, train_y, val_x, val_y, base: ParameterSet,
     }
 
 
+def search_rho_stacked(train_x, train_y, val_x, val_y, base: ParameterSet,
+                       hiddens, config: ADMMConfig = ADMMConfig(),
+                       candidates: Optional[np.ndarray] = None,
+                       epochs: int = 30,
+                       z_candidates: Optional[np.ndarray] = None,
+                       params=None, device='cuda') -> Dict[str, object]:
+    """`search_rho` for the stacked N-layer variant (JAX tune.py:127-160):
+    every candidate trains `epochs` stacked epochs from the same initial
+    weights and state.
+
+    z_candidates: optional (N,) values of the stacked variant's rho_z,
+    one per candidate; the winner's is folded back into
+    'best_parameter_set' and 'best_rho' (and given as 'best_z').
+    params: the initial StackedParams (default: `init_stacked` from
+    `torch.Generator().manual_seed(config.seed)`).
+    """
+    from admm_lstm_torch.variants.stacked import (init_stacked,
+                                                  init_stacked_state,
+                                                  stacked_admm_step_im,
+                                                  stacked_train_val_mse_im)
+    if isinstance(base, dict):
+        base = ParameterSet.from_dict(base)
+    rules = rules_for(config)
+    device = resolve_device(device)
+    if candidates is None:
+        candidates = candidate_grid(base)
+    candidates = np.asarray(candidates, np.float32)
+    if z_candidates is not None:
+        z_candidates = np.asarray(z_candidates, np.float32)
+    with matmul_precision(config.matmul_precision):
+        train_x, train_y = (_as_tensor(train_x, device),
+                            _as_tensor(train_y, device))
+        val_x, val_y = _as_tensor(val_x, device), _as_tensor(val_y, device)
+        if params is None:
+            params = init_stacked(torch.Generator().manual_seed(config.seed),
+                                  train_x.shape[2], tuple(hiddens),
+                                  train_y.shape[1], device=device)
+        base_state = init_stacked_state(params.to(device), train_x, base,
+                                        config)
+        x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x,
+                                                 val_y)
+
+        def make_state(n, cand):
+            state = base_state._replace(rho=_penalties(cand, device))
+            if z_candidates is not None:
+                state = state._replace(rho_z=torch.tensor(
+                    z_candidates[n], dtype=torch.float32, device=device))
+            return state
+
+        losses = _train_candidates(
+            'search_rho_stacked', candidates, make_state,
+            lambda state: stacked_admm_step_im(state, x_im, y_im, rules),
+            lambda p: stacked_train_val_mse_im(p, xall_im, y_im, vy_im),
+            epochs)
+    out = _ranked(candidates, losses, base)
+    if z_candidates is not None:
+        out['best_z'] = float(z_candidates[out['order'][0]])
+        ps = out['best_parameter_set']
+        out['best_parameter_set'] = ParameterSet(
+            rho={**ps.rho, 'z': out['best_z']}, beta=dict(ps.beta))
+        out['best_rho']['z'] = out['best_z']
+    return out
+
+
 def _refine_loop(search_call, base: ParameterSet, rounds: int,
-                 keys: Sequence[str], span: float) -> Dict[str, object]:
-    """Successive-halving recentering: each round trains a 5-point-per-key
-    log-grid of candidates via `search_call(center, candidates)`,
-    recenters on the winner, and narrows the per-key span by a square
-    root."""
+                 keys: Sequence[str], span: float,
+                 points_per_key: int = 5) -> Dict[str, object]:
+    """Successive-halving recentering: each round trains a log-grid of
+    `points_per_key` (5 or 3) points per key via `search_call(center,
+    candidates)`, recenters on the winner, and narrows the per-key span
+    by a square root.  The stacked search takes 3 (JAX tune.py:195-223,
+    where 5^3 vmapped stacked states did not fit the TPU's memory)."""
     best = base
     result: Dict[str, object] = {}
     history = []
     for r in range(rounds):
-        mult = (1.0 / span, span ** -0.5, 1.0, span ** 0.5, span)
+        mult = ((1.0 / span, span ** -0.5, 1.0, span ** 0.5, span)
+                if points_per_key == 5 else (1.0 / span, 1.0, span))
         cands = candidate_grid(best, multipliers=mult, keys=keys)
         result = search_call(best, cands)
         best = result['best_parameter_set']
@@ -160,3 +249,28 @@ def refine_rho(train_x, train_y, val_x, val_y, base: ParameterSet,
                                        candidates=cands, epochs=epochs,
                                        params=params, device=device),
         base, rounds, keys, span)
+
+
+def refine_rho_stacked(train_x, train_y, val_x, val_y, base: ParameterSet,
+                       hiddens, config: ADMMConfig = ADMMConfig(),
+                       epochs: int = 30, rounds: int = 2,
+                       keys: Sequence[str] = ('c', 'h', 'y'),
+                       span: float = 10.0, params=None,
+                       device='cuda') -> Dict[str, object]:
+    """`refine_rho` for the stacked variant (JAX tune.py:241-267): a
+    3-point-per-key grid (27 candidates for c, h, y) each round; the
+    base tuning's rho_z is re-attached to every round's winner, so the
+    returned set trains as the best candidate did."""
+    def search_call(best, cands):
+        result = search_rho_stacked(train_x, train_y, val_x, val_y, best,
+                                    hiddens, config=config,
+                                    candidates=cands, epochs=epochs,
+                                    params=params, device=device)
+        ps = result['best_parameter_set']
+        if 'z' in base.rho and 'z' not in ps.rho:
+            result['best_parameter_set'] = ParameterSet(
+                rho={**ps.rho, 'z': base.rho['z']}, beta=dict(ps.beta))
+        return result
+
+    return _refine_loop(search_call, base, rounds, keys, span,
+                        points_per_key=3)

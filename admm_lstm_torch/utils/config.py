@@ -114,7 +114,8 @@ class ADMMConfig:
     adapt_mu: float = 10.0
     adapt_tau: float = 2.0
     adapt_stop_epoch: int = 0
-    # Stacked-variant dual damping.  Not ported yet.
+    # Stacked-variant dual damping (core/step.StepRules.stacked_dual_decay):
+    # lam <- decay * (lam + rho * resid) in every stacked dual ascent.
     stacked_dual_decay: float = 1.0
 
     def __post_init__(self) -> None:

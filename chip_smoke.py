@@ -46,7 +46,18 @@ Phases, each fatal on failure:
                and the search's wall seconds;
   5. resume  - YahooFinance 10 epochs straight against 5 checkpointed
                (async) and resumed from the directory to 10: losses,
-               weights and the whole final state equal bit for bit.
+               weights and the whole final state equal bit for bit;
+  6. stacked - the stacked N-layer variant on GoogleStock at the JAX
+               bench's width (hiddens (8, 8), ParameterSet 'Stacked'),
+               from the JAX package's seed-0 initial weights
+               (tests/golden/torch_stacked_init_*.npz): train_stacked at
+               (8, 8) for 30 epochs and (8, 8, 8) for 10, held to the JAX
+               package's trajectories, two chol_solve launches an epoch;
+               train_best_stacked (60 epochs, 30-epoch probes, one search
+               round of 27 candidates) making the JAX package's choice
+               with its tuned rho; one (8, 8) epoch with the kernels
+               against the same epoch with the plain versions; a
+               save_model/load_model round trip of the result, bit-equal.
 Then it prints the card's name and power limit, one JSON line describing
 every kernel, and as the last line {"ok": true, "device": {...}}.
 It exits non-zero, printing no result line, without a CUDA card.
@@ -99,7 +110,9 @@ SWEEP_SHAPES = [(9, 10, 4224), (13, 5, 1000), (31, 130, 512),
                 (59, 10, 1360), (56, 10, 85), (24, 10, 487), (23, 10, 10522)]
 JACOBI_SHAPES = [(9, 10, 4224), (9, 128, 2048), (13, 5, 1000),
                  (5, 7, 1001)]     # H * B odd: the V = 1 instance
-SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128), (37, 100)]
+SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128), (37, 100),
+                # the stacked (8, 8) layer-0 solves: wx (D = I) and wh
+                (32, 1), (32, 8)]
 INVERSE_SHAPES = [(512, 64), (16, 128), (7, 33)]
 # Gate (ii) at the shapes of Path A and Path B.
 ILL_SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128)]
@@ -212,6 +225,63 @@ TUNE_BEST_RHO = {'i': 1.0, 'f': 1.0, 'g': 1.0, 'o': 1.0,
 # rest resumed; equal bit for bit.
 RESUME_EPOCHS = 10
 RESUME_AT = 5
+
+# The stacked phase: GoogleStock, ParameterSet 'Stacked', the default
+# ADMMConfig, from the JAX package's init_stacked(PRNGKey(0), 1, hiddens,
+# 1) written by its save_model.  The JAX package's train_stacked losses
+# on the CPU (tests/test_torch_chip_reference.py recomputes them).
+STACKED_RUNS = {(8, 8): 30, (8, 8, 8): 10}
+STACKED_REF = {
+    (8, 8): {
+        'train': [
+            0.10706058144569397, 0.1070604994893074, 0.10015132278203964,
+            0.09359440207481384, 0.08748684823513031, 0.08179011195898056,
+            0.07648826390504837, 0.07155147194862366, 0.0669587254524231,
+            0.06268303841352463, 0.058696918189525604, 0.05497422441840172,
+            0.0514916367828846, 0.04822932183742523, 0.045170705765485764,
+            0.04230232164263725, 0.03961293399333954, 0.0370929129421711,
+            0.03473351150751114, 0.032526347786188126, 0.030463147908449173,
+            0.028535518795251846, 0.02673514187335968, 0.02505369670689106,
+            0.023483116179704666, 0.022015679627656937, 0.020644158124923706,
+            0.0193618293851614, 0.01816256158053875, 0.017040742561221123,
+            0.015991242602467537],
+        'val': [
+            0.9721859693527222, 0.9721853733062744, 0.9202564358711243,
+            0.8706773519515991, 0.8241967558860779, 0.7805615067481995,
+            0.7396746277809143, 0.7013418674468994, 0.6654263138771057,
+            0.6317467093467712, 0.6001145243644714, 0.5703485012054443,
+            0.5422863364219666, 0.5157903432846069, 0.4907470941543579,
+            0.4670657813549042, 0.4446724057197571, 0.4235052168369293,
+            0.40350836515426636, 0.3846287429332733, 0.3668125569820404,
+            0.3500048518180847, 0.33414947986602783, 0.31918978691101074,
+            0.30506980419158936, 0.29173552989959717, 0.27913621068000793,
+            0.26722440123558044, 0.25595682859420776, 0.24529391527175903,
+            0.23519982397556305]},
+    (8, 8, 8): {
+        'train': [
+            0.08657856285572052, 0.08657851815223694, 0.08324644714593887,
+            0.08001305907964706, 0.07690317183732986, 0.07391607761383057,
+            0.0710688978433609, 0.0683407261967659, 0.06572727113962173,
+            0.06322450190782547, 0.06082547828555107],
+        'val': [
+            0.8336588740348816, 0.8336585164070129, 0.8077966570854187,
+            0.7825925946235657, 0.7582501769065857, 0.7347723245620728,
+            0.7123061418533325, 0.6906901001930237, 0.669895350933075,
+            0.6498956084251404, 0.6306410431861877]},
+}
+# train_best_stacked at (8, 8): epochs, probe_epochs, search_rounds; the
+# JAX package's choice, tuned rho (z re-attached), probe losses and the
+# committed run's best validation loss.
+STACKED_BEST_ARGS = dict(epochs=60, probe_epochs=30, search_rounds=1)
+STACKED_BEST_CHOICE = 'tuned'
+STACKED_BEST_RHO = {'i': 1.0, 'f': 1.0, 'g': 1.0, 'o': 1.0, 'c': 1.0,
+                    'h': 20.0, 'y': 0.30000001192092896, 'z': 1.0}
+STACKED_BEST_PROBE_VAL = {'shipped': 0.23519982397556305,
+                          'tuned': 0.23450247943401337}
+STACKED_BEST_VAL = 0.08602779358625412
+# One (8, 8) epoch with the Cholesky kernel against its plain version,
+# each leaf within STACKED_RTOL of its scale (as Path B's).
+STACKED_RTOL = 1e-5
 
 
 def log(msg):
@@ -966,6 +1036,149 @@ def phase_resume():
         'bit')
 
 
+def _stacked_epoch_vs_plain(tx, ty, ps, params):
+    """One (8, 8) epoch with use_pallas_chol True against False at
+    'highest': each leaf within STACKED_RTOL of its scale (max |x|; for a
+    dual, max |lambda| + rho max |its primal|)."""
+    from admm_lstm_torch.utils.config import ADMMConfig
+    from admm_lstm_torch.utils.device import matmul_precision
+    from admm_lstm_torch.variants import stacked
+    x, y = torch.from_numpy(tx).cuda(), torch.from_numpy(ty).cuda()
+    states = {}
+    for flag in (True, False):
+        cfg = ADMMConfig(hidden_size=8, use_pallas_chol=flag)
+        with matmul_precision('highest'):
+            st = stacked.init_stacked_state(params, x, ps, cfg)
+            states[flag] = stacked.make_stacked_step(cfg)(st, x, y)
+            torch.cuda.synchronize()
+    got, ref = states[True], states[False]
+    amax = lambda t: float(t.abs().max())
+    leaves = [('head wy', got.params.wy, ref.params.wy, amax(ref.params.wy))]
+    for k in range(len(ref.gates)):
+        leaves += [(f'layer {k} {f}', getattr(got.params.layers[k], f),
+                    getattr(ref.params.layers[k], f),
+                    amax(getattr(ref.params.layers[k], f)))
+                   for f in ('wx', 'wh')]
+        leaves += [(f'layer {k} gate {f}', getattr(got.gates[k], f),
+                    getattr(ref.gates[k], f), amax(getattr(ref.gates[k], f)))
+                   for f in 'ifgocha']
+        leaves += [(f'layer {k} dual {f}', getattr(got.duals[k], f),
+                    getattr(ref.duals[k], f),
+                    amax(getattr(ref.duals[k], f)) + float(getattr(
+                        ref.rho, f)) * amax(getattr(ref.gates[k], f)))
+                   for f in 'ifgoch']
+    for k in range(len(ref.zs)):
+        leaves += [(f'z {k + 1}', got.zs[k], ref.zs[k], amax(ref.zs[k])),
+                   (f'z dual {k + 1}', got.zduals[k], ref.zduals[k],
+                    amax(ref.zduals[k])
+                    + float(ref.rho_z) * amax(ref.zs[k]))]
+    errs = {name: (float((a - b).abs().max()), STACKED_RTOL * scale)
+            for name, a, b, scale in leaves}
+    worst = max(e[0] / e[1] for e in errs.values() if e[1] > 0)
+    log(f'[stacked] one (8, 8) epoch, kernels vs plain: largest error '
+        f'{worst:.3g} of its tolerance; (max abs diff, tolerance) per leaf '
+        f'{errs}')
+    bad = {name: e for name, e in errs.items() if not e[0] <= e[1]}
+    if bad:
+        raise AssertionError(f'stacked: the kernel epoch differs from the '
+                             f'plain epoch beyond tolerance at {bad}')
+
+
+def phase_stacked():
+    """The stacked variant through admm_lstm_torch's public functions at
+    the JAX bench's GoogleStock width, from the JAX package's seed-0
+    weights, held to its numbers.  Returns the (8, 8) run's launches and
+    the preset's wall seconds."""
+    import shutil
+    import tempfile
+
+    from admm_lstm_torch import api
+    from admm_lstm_torch.ckpt.checkpoint import load_model, save_model
+    from admm_lstm_torch.data import load_dataset
+    from admm_lstm_torch.params import parameter_set
+    from admm_lstm_torch.utils.config import ADMMConfig
+    from admm_lstm_torch.variants.stacked import train_stacked
+    (tx, ty, vx, vy), _, _ = load_dataset('GoogleStock')
+    ps = parameter_set('Stacked')
+    init = {h: load_model(os.path.join(
+        ROOT, 'tests', 'golden',
+        f'torch_stacked_init_{"x".join(map(str, h))}.npz'), device='cuda')
+        for h in STACKED_RUNS}
+    launches = None
+    for hiddens, epochs in STACKED_RUNS.items():
+        label = f'stacked {hiddens} GoogleStock, {epochs} epochs'
+        _, train_l, val_l, counts = run_counted(label, lambda: train_stacked(
+            tx, ty, vx, vy, ps, ADMMConfig(epochs=epochs, hidden_size=8),
+            params=init[hiddens], log_every=0, device='cuda'), epochs)
+        ref = STACKED_REF[hiddens]
+        gap = max(float(np.max(np.abs(got - np.asarray(want))
+                               / np.abs(want)))
+                  for got, want in ((train_l, ref['train']),
+                                    (val_l, ref['val'])))
+        log(f'[stacked] {hiddens} train/val trajectories '
+            + json.dumps([[float(v) for v in train_l],
+                          [float(v) for v in val_l]])
+            + f'; largest relative gap to the JAX package {gap:.3g}')
+        _hold_to(label, train_l, val_l, ref['train'], ref['val'])
+        if counts['chol_solve'] != 2 * epochs:
+            raise AssertionError(f'{label}: chol_solve launched '
+                                 f'{counts["chol_solve"]} times, expected '
+                                 f'{2 * epochs}')
+        others = {k: v for k, v in counts.items() if k != 'chol_solve' and v}
+        if others:
+            raise AssertionError(f'{label}: unexpected launches {others}')
+        if hiddens == (8, 8):
+            launches = counts
+
+    kernels = _kernels()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    best = api.train_best_stacked(
+        tx, ty, vx, vy, ps, ADMMConfig(epochs=STACKED_BEST_ARGS['epochs'],
+                                       hidden_size=8),
+        probe_epochs=STACKED_BEST_ARGS['probe_epochs'],
+        search_rounds=STACKED_BEST_ARGS['search_rounds'], log_every=0,
+        params=init[(8, 8)], device='cuda')
+    seconds = time.perf_counter() - t0
+    best_launches = {name: k.launches for name, k in kernels.items()}
+    best_val = float(np.nanmin(best['val_loss']))
+    log(f'[stacked] train_best_stacked (8, 8) {STACKED_BEST_ARGS}: '
+        f'{seconds:.3f} s wall (host clock), chose {best["preset_choice"]} '
+        f'(JAX package: {STACKED_BEST_CHOICE}), probe {best["probe_val"]} '
+        f'(JAX: {STACKED_BEST_PROBE_VAL}), tuned rho '
+        f'{best["candidate_rho"].get("tuned")} (JAX: {STACKED_BEST_RHO}), '
+        f'best val {best_val!r} at epoch {best["best_epoch"]} (JAX: '
+        f'{STACKED_BEST_VAL!r}), launches {best_launches}')
+    if best['preset_choice'] != STACKED_BEST_CHOICE:
+        raise AssertionError(f'train_best_stacked chose '
+                             f'{best["preset_choice"]}')
+    if best['candidate_rho'].get('tuned') != STACKED_BEST_RHO:
+        raise AssertionError(f'train_best_stacked tuned rho '
+                             f'{best["candidate_rho"].get("tuned")}')
+    for name, want in STACKED_BEST_PROBE_VAL.items():
+        np.testing.assert_allclose(best['probe_val'][name], want, rtol=0.05,
+                                   atol=1e-4, err_msg=f'probe_val {name}')
+    np.testing.assert_allclose(best_val, STACKED_BEST_VAL, rtol=0.05,
+                               atol=1e-4, err_msg='train_best_stacked val')
+
+    _stacked_epoch_vs_plain(tx, ty, ps, init[(8, 8)])
+
+    out = tempfile.mkdtemp(prefix='.chip_smoke_ckpt_', dir=ROOT)
+    try:
+        loaded = load_model(save_model('stacked', best['params'],
+                                       save_dir=out), device='cuda')
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    same = [torch.equal(a, b) for a, b in zip(loaded.tensors(),
+                                              best['params'].tensors())]
+    if not (all(same) and len(same) == len(best['params'].tensors())):
+        raise AssertionError('stacked save_model/load_model: not bit-equal')
+    log('[stacked] save_model/load_model of the committed (8, 8) result: '
+        'bit-equal')
+    return launches, best_launches, seconds
+
+
 def card_name_and_power():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -1000,6 +1213,8 @@ def main() -> int:
     launches.update(phase_datasets())
     launches['tune'], tune_seconds = phase_tune(tx, ty, vx, vy, ps, weights)
     phase_resume()
+    (launches['stacked'], launches['stacked_best'],
+     stacked_seconds) = phase_stacked()
 
     card = card_name_and_power()
     log(f'[card] {card}')
@@ -1038,6 +1253,8 @@ def main() -> int:
         kernels[-1]['launches_by_path'] = {
             path: counts[name] for path, counts in launches.items()}
     log(f'[tune] search_rho wall seconds {tune_seconds!r} on {card}')
+    log(f'[stacked] train_best_stacked wall seconds {stacked_seconds!r} on '
+        f'{card}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

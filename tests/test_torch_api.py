@@ -226,7 +226,7 @@ def test_torch_cli_without_card_or_cpu_fails(tmp_path):
     assert 'no CUDA device was found' in proc.stdout
 
 
-@pytest.mark.parametrize('flag', [['--mesh', '2'], ['--layers', '2'],
+@pytest.mark.parametrize('flag', [['--mesh', '2'], ['--scenarios', '2'],
                                   ['--variant', 'admm_l']])
 def test_torch_cli_later_slice_flags_fail(flag):
     from admm_lstm_torch.cli import main

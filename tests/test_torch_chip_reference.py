@@ -113,3 +113,66 @@ def test_torch_chip_smoke_needs_a_card():
                           cwd=os.path.dirname(chip_smoke.__file__))
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize('hiddens', sorted(chip_smoke.STACKED_RUNS))
+def test_torch_chip_reference_stacked_inits(hiddens):
+    """The committed golden inits are the JAX package's
+    init_stacked(PRNGKey(0), 1, hiddens, 1), written by its save_model."""
+    import jax
+    from admm_lstm_tpu.ckpt.checkpoint import load_model
+    from admm_lstm_tpu.variants.stacked import init_stacked
+    name = 'x'.join(map(str, hiddens))
+    got = load_model(os.path.join(os.path.dirname(chip_smoke.GOLDEN),
+                                  f'torch_stacked_init_{name}.npz'))
+    want = init_stacked(jax.random.PRNGKey(0), 1, hiddens, 1)
+    got_leaves = jax.tree_util.tree_leaves(got)
+    want_leaves = jax.tree_util.tree_leaves(want)
+    assert len(got_leaves) == len(want_leaves) == 3 * len(hiddens) + 1
+    for a, b in zip(got_leaves, want_leaves):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize('hiddens', sorted(chip_smoke.STACKED_RUNS))
+def test_torch_chip_reference_stacked_trajectories(hiddens):
+    """train_stacked on GoogleStock from the seed-0 init."""
+    from admm_lstm_tpu.params import parameter_set
+    from admm_lstm_tpu.variants.stacked import train_stacked
+    (tx, ty, vx, vy), _, _ = load_dataset('GoogleStock')
+    res = train_stacked(tx, ty, vx, vy, parameter_set('Stacked'),
+                        JConfig(epochs=chip_smoke.STACKED_RUNS[hiddens],
+                                hidden_size=8),
+                        hiddens=hiddens, log_every=0)
+    ref = chip_smoke.STACKED_REF[hiddens]
+    np.testing.assert_allclose(res['train_loss'], ref['train'], rtol=RTOL)
+    np.testing.assert_allclose(res['val_loss'], ref['val'], rtol=RTOL)
+
+
+def test_torch_chip_reference_stacked_preset(monkeypatch):
+    """train_best_stacked at (8, 8): the choice, the tuned rho (from the
+    search it runs), the probe losses and the best validation loss
+    (about 45 s and 6 GB on the CPU: the 27 candidates train as one
+    vmapped program)."""
+    from admm_lstm_tpu.params import parameter_set
+    searched = []
+    real = j_tune.refine_rho_stacked
+
+    def refine(*args, **kw):
+        searched.append(real(*args, **kw))
+        return searched[-1]
+
+    monkeypatch.setattr(j_tune, 'refine_rho_stacked', refine)
+    (tx, ty, vx, vy), _, _ = load_dataset('GoogleStock')
+    args = chip_smoke.STACKED_BEST_ARGS
+    res = j_api.train_best_stacked(
+        tx, ty, vx, vy, parameter_set('Stacked'),
+        JConfig(epochs=args['epochs'], hidden_size=8), hiddens=(8, 8),
+        probe_epochs=args['probe_epochs'],
+        search_rounds=args['search_rounds'], log_every=0)
+    assert res['preset_choice'] == chip_smoke.STACKED_BEST_CHOICE
+    assert searched[0]['best_parameter_set'].rho == \
+        chip_smoke.STACKED_BEST_RHO
+    for k, v in chip_smoke.STACKED_BEST_PROBE_VAL.items():
+        np.testing.assert_allclose(res['probe_val'][k], v, rtol=RTOL)
+    np.testing.assert_allclose(np.nanmin(res['val_loss']),
+                               chip_smoke.STACKED_BEST_VAL, rtol=RTOL)

@@ -171,8 +171,11 @@ def test_torch_model_npz_passes_between_packages(tmp_path):
 
 
 def test_torch_load_model_of_stacked_file_raises(tmp_path):
+    """A stacked file loads as StackedParams now
+    (tests/test_torch_stacked.py); one missing a layer's block raises,
+    naming the key."""
     path = str(tmp_path / 'stacked.npz')
     np.savez(path, l0_x2i=np.zeros((1, 2), np.float32),
              wy=np.zeros((2, 1), np.float32))
-    with pytest.raises(NotImplementedError, match='later slice'):
+    with pytest.raises(KeyError, match='x2f'):
         load_model(path, device='cpu')

@@ -341,3 +341,38 @@ def test_torch_cuda_turbo_step_kernels_match_plain(cuda, input_size):
         np.testing.assert_allclose(
             getattr(states[True].params, field).cpu().numpy(),
             getattr(states[False].params, field).cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize('hiddens', [(6, 5), (6, 5, 4)])
+def test_torch_cuda_stacked_step_kernels_match_plain(cuda, hiddens):
+    """Three stacked epochs with chol_solve and with its plain version on
+    the card, at 'highest': two launches an epoch (layer 0's x and h
+    stages), the states within 1e-4."""
+    from admm_lstm_torch.variants import stacked
+    tx, ty, _, _ = synth(batch=300, seq_len=6, input_size=2, val_batch=4)
+    x, y = torch.from_numpy(tx).to(cuda), torch.from_numpy(ty).to(cuda)
+    params = stacked.init_stacked(torch.Generator().manual_seed(0), 2,
+                                  hiddens, 1, device=cuda)
+    ps = parameter_set('Stacked')
+    states = {}
+    for flag in (True, False):
+        cfg = ADMMConfig(use_pallas_chol=flag)
+        st = stacked.init_stacked_state(params, x, ps, cfg)
+        step = stacked.make_stacked_step(cfg)
+        before = chol_solve.launches
+        for _ in range(3):
+            st = step(st, x, y)
+        assert chol_solve.launches - before == (6 if flag else 0)
+        states[flag] = st
+    got, ref = states[True], states[False]
+    for a, b in zip(got.params.tensors(), ref.params.tensors()):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=1e-4)
+    for k in range(len(hiddens)):
+        for f in ('i', 'f', 'g', 'o', 'c', 'h', 'a'):
+            np.testing.assert_allclose(
+                getattr(got.gates[k], f).cpu().numpy(),
+                getattr(ref.gates[k], f).cpu().numpy(), atol=1e-4)
+    for a, b in zip(got.zs, ref.zs):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=1e-4)

@@ -50,9 +50,11 @@ def test_torch_port_sources_exist():
 @pytest.mark.parametrize('module', ['kernels/cholesky.py',
                                     'kernels/gate_sweep.py',
                                     'solvers/blocked_chol.py',
-                                    'solvers/normal_eq.py'])
+                                    'solvers/normal_eq.py',
+                                    'variants/stacked.py'])
 def test_torch_turbo_leg_modules_are_guarded(module):
-    """The slice-2 modules are among the sources the guard walks."""
+    """The slice-2 modules and the stacked variant are among the sources
+    the guard walks."""
     path = os.path.join(ROOT, 'admm_lstm_torch', module)
     assert path in _sources()
     assert _bad_imports(path) == []
