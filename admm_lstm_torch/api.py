@@ -284,7 +284,8 @@ def train(train_x, train_y, val_x, val_y,
     for bit where the uninterrupted one does.
 
     Not in this slice of the port (NotImplementedError): configs that
-    need a mesh or ADMM-L/-S.
+    need a mesh.  ADMM-L and ADMM-S train through their own demos
+    (variants/admm_l.py, variants/admm_s.py) or train_best.
     """
     if preset is not None:
         if preset != 'best':
@@ -401,6 +402,52 @@ def derive_auto_config(config: ADMMConfig) -> ADMMConfig:
     return config.replace(**AUTO_FIELDS)
 
 
+def _train_best_legacy(train_x, train_y, val_x, val_y, config: ADMMConfig,
+                       probe_epochs: int, log_every: int,
+                       device='cuda') -> Dict[str, object]:
+    """preset='best' for ADMM-L and ADMM-S (JAX api.py:397-442): probe a
+    small per-variant candidate set of their own rule constants for
+    min(probe_epochs, epochs) epochs, each from the variant's seeded init,
+    rank them by their probe's best validation loss and commit to the
+    winner for the full budget.  ADMM-L's candidates move the output-fit
+    penalty rho11, ADMM-S's the h-update damping r_h (the knobs that moved
+    each on GoogleStock, per the JAX package).
+
+    Returns the committed demo run's result, with 'preset_choice' and
+    'probe_val'."""
+    if config.variant == 'admm_l':
+        from admm_lstm_torch.variants.admm_l import ADMMLRules, admm_l_demo
+        candidates = {'reference': ADMMLRules(),
+                      'rho11_1e-3': ADMMLRules(rho11=1e-3),
+                      'rho11_1e-5': ADMMLRules(rho11=1e-5)}
+        demo = admm_l_demo
+    else:
+        from admm_lstm_torch.variants.admm_s import ADMMSRules, admm_s_demo
+        candidates = {'reference': ADMMSRules(),
+                      'r_h_25': ADMMSRules(r_h=25.0),
+                      'r_h_10': ADMMSRules(r_h=10.0)}
+        demo = admm_s_demo
+
+    def runner(epochs, rules, log_every):
+        return demo(epochs, config.hidden_size, train_x, train_y, val_x,
+                    val_y, seed=config.seed, rules=rules,
+                    log_every=log_every, device=device)
+
+    n_probe = max(1, min(probe_epochs, config.epochs))
+    probe_val: Dict[str, float] = {}
+    for name, rules in candidates.items():
+        res = runner(n_probe, rules, 0)
+        probe_val[name] = float(min(res['val_loss']))
+    winner = min(probe_val, key=probe_val.get)
+    info(f"preset='best' [{config.variant}]: probe {n_probe} epochs -> "
+         + ', '.join(f'{k} {v:.6g}' for k, v in probe_val.items())
+         + f'; committing to {winner}.')
+    result = runner(config.epochs, candidates[winner], log_every)
+    result['preset_choice'] = winner
+    result['probe_val'] = probe_val
+    return result
+
+
 def train_best(train_x, train_y, val_x, val_y,
                parameter_set: ParameterSet | Dict,
                config: ADMMConfig = ADMMConfig(),
@@ -429,12 +476,20 @@ def train_best(train_x, train_y, val_x, val_y,
     winning candidate's name) and 'probe_val' (each candidate's probe best
     validation loss).
 
-    The legacy variants' candidate sets arrive in a later slice.
+    For the legacy variants (config.variant 'admm_l' or 'admm_s') it runs
+    `_train_best_legacy` instead; they keep no checkpoints, so
+    checkpoint arguments raise ValueError there.
     """
     if config.variant in ('admm_l', 'admm_s'):
-        raise NotImplementedError(
-            f"preset='best' for variant {config.variant!r} arrives in "
-            f'{LATER}')
+        # The legacy re-derivations have their own rule constants and
+        # training loops; the probe-and-commit recipe carries over, the
+        # candidates are per variant.
+        if train_kw.get('resume_from') or train_kw.get('checkpoint_dir'):
+            raise ValueError("preset='best' checkpointing is a "
+                             'fast/no_dual_y feature; the legacy variants '
+                             'do not persist optimizer state')
+        return _train_best_legacy(train_x, train_y, val_x, val_y, config,
+                                  probe_epochs, log_every, device)
     if train_kw.get('resume_from'):
         raise ValueError(
             "resume_from is incompatible with preset='best': the probe "

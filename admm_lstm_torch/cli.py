@@ -109,6 +109,15 @@ def generate_parser() -> argparse.ArgumentParser:
                              'refinement before training and use the winner')
     parser.add_argument('--plot', action='store_true', default=True)
     parser.add_argument('--no-plot', dest='plot', action='store_false')
+    # The comparison harness's knobs (python -m admm_lstm_torch.comparison).
+    parser.add_argument('--comp_sgd', default=1.5, type=float)
+    parser.add_argument('--comp_adam', default=.2, type=float)
+    parser.add_argument('--comp_adagrad', default=1.0, type=float)
+    parser.add_argument('--comp_skip_fast', action='store_true', default=False)
+    parser.add_argument('--comp_admm_s_cache', default=None, type=str,
+                        help='Path to a recorded ADMM-LSTM-S trajectory in '
+                             'either reference format (admm_s/results.py or '
+                             'ADMM-LSTM.<dataset>) to overlay')
     later = parser.add_argument_group('not ported yet (exit non-zero)')
     for flag in ('save', 'record_matlab_data'):
         later.add_argument(f'--{flag}', action='store_true',
@@ -149,6 +158,25 @@ def _train_stacked(args, seed, train_x, train_y, val_x, val_y, device):
                              hiddens=hiddens, log_every=1, device=device)
 
 
+def _train_legacy(args, seed, train_x, train_y, val_x, val_y, ps, device):
+    """--variant admm_l|admm_s (the JAX CLI's legacy branch): the
+    variant's demo run, or api.train_best's probe-and-commit over its own
+    rule constants with --preset best."""
+    if args.preset:
+        from admm_lstm_torch.api import train_best
+        cfg = ADMMConfig(variant=args.variant, epochs=args.epoch,
+                         hidden_size=args.hidden, seed=seed)
+        return train_best(train_x, train_y, val_x, val_y, ps, config=cfg,
+                          device=device)
+    if args.variant == 'admm_l':
+        from admm_lstm_torch.variants.admm_l import admm_l_demo
+        return admm_l_demo(args.epoch, args.hidden, train_x, train_y, val_x,
+                           val_y, seed=seed, device=device)
+    from admm_lstm_torch.variants.admm_s import admm_s_demo
+    return admm_s_demo(args.epoch, args.hidden, train_x, train_y, val_x,
+                       val_y, seed=seed, device=device)
+
+
 def main(argv=None) -> int:
     from admm_lstm_torch.data import load_dataset, supported_datasets
     args = generate_parser().parse_args(argv)
@@ -159,9 +187,6 @@ def main(argv=None) -> int:
                       f'arrives in {LATER}.')
         if args.layers >= 2 and args.variant not in ('fast', 'no_dual_y'):
             error('--layers >= 2 supports the fast/no_dual_y variants only')
-        if args.variant in ('admm_l', 'admm_s'):
-            error(f'--variant {args.variant} is not ported to admm_lstm_torch '
-                  f'yet; it arrives in {LATER}.')
         try:
             device = resolve_device('cpu' if args.cpu else 'cuda')
         except NoCudaDeviceError as e:
@@ -210,6 +235,9 @@ def main(argv=None) -> int:
         if args.layers >= 2:
             ps, results = _train_stacked(args, seed, train_x, train_y, val_x,
                                          val_y, device)
+        elif args.variant in ('admm_l', 'admm_s'):
+            results = _train_legacy(args, seed, train_x, train_y, val_x,
+                                    val_y, ps, device)
         else:
             cfg = ADMMConfig(variant=args.variant,
                              with_dual_y=args.with_dual_y,

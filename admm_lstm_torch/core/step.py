@@ -138,7 +138,10 @@ def rules_for(config: ADMMConfig) -> StepRules:
         return StepRules(with_dual_y=False, wy_theta=0.005, wy_beta_factor=2.0,
                          h_grad_uses_rho_h=True, h_probe_grad_over_theta=True,
                          **common)
-    return StepRules(with_dual_y=config.with_dual_y, **common)
+    if config.variant == 'fast':
+        return StepRules(with_dual_y=config.with_dual_y, **common)
+    raise ValueError(f'core.step handles fast/no_dual_y; {config.variant} '
+                     f'lives in admm_lstm_torch.variants')
 
 
 def _sweep_uses_kernel(rules: StepRules, seq_len: int,

@@ -4,6 +4,7 @@
         [--config default|turbo|auto]
         [--data googlestock|yahoofinance|dna1|smsspam|gefcom2012wind|har]
         [--layers N [--hidden2 H2]]
+        [--variant fast|admm_l|admm_s|sgd|adam|adagrad]
 
 Trains on the CUDA card with the chosen configuration (the default
 fast-ADMM run, ADMMConfig.turbo() or ADMMConfig.auto(); 3 warm-up epochs,
@@ -23,7 +24,12 @@ a Python number or bool, and a copy from pageable host memory such as
 costliest kernels.  `--layers N` (N >= 2) profiles the stacked variant's epoch
 instead (variants/stacked.py, ParameterSet 'Stacked', hiddens
 [H] + [H2 or H] * (N - 1), the default config; --config and --data har
-do not apply).  It needs a CUDA card.
+do not apply).  `--variant admm_l|admm_s` profiles an ADMM-LSTM-L or -S
+epoch (variants/admm_l.py, admm_s.py: the step and the two losses, from
+the reference's seeded init, the default rules), `sgd|adam|adagrad` one
+full-batch step of a gradient baseline at its default learning rate with
+its two losses (variants/grad_based.py); --config, --layers and
+--data har do not apply to them.  It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ import torch
 _DATASETS = {'googlestock': 'GoogleStock', 'yahoofinance': 'YahooFinance',
              'dna1': 'DNA1', 'smsspam': 'SMSSpam',
              'gefcom2012wind': 'GEFCOM2012Wind'}
+# --variant names besides the fast ADMM epoch.
+LEGACY = ('admm_l', 'admm_s', 'sgd', 'adam', 'adagrad')
 
 
 def main(argv=None) -> int:
@@ -50,14 +58,18 @@ def main(argv=None) -> int:
                         choices=[*_DATASETS, 'har'])
     parser.add_argument('--layers', type=int, default=1)
     parser.add_argument('--hidden2', type=int, default=0)
+    parser.add_argument('--variant', default='fast',
+                        choices=['fast', *LEGACY])
     args = parser.parse_args(argv)
     if args.layers >= 2 and (args.config != 'default' or args.data == 'har'):
         parser.error('--layers >= 2 takes the default config and a bundled '
                      'dataset')
+    if args.variant != 'fast' and (args.config != 'default' or args.layers > 1
+                                   or args.data == 'har'):
+        parser.error('--variant admm_l|admm_s|sgd|adam|adagrad takes the '
+                     'default config, one layer and a bundled dataset')
     if not torch.cuda.is_available():
         raise SystemExit('profile_epoch needs a CUDA card')
-
-    from torch.profiler import ProfilerActivity, profile
 
     from admm_lstm_torch.api import batch_minor
     from admm_lstm_torch.core.init import init_admm_state
@@ -86,7 +98,11 @@ def main(argv=None) -> int:
     dev = torch.device('cuda')
     f = lambda a: torch.from_numpy(a).to(dev)
     x_im, y_im, xall, vy_im = batch_minor(f(tx), f(ty), f(vx), f(vy))
-    if args.layers >= 2:
+    if args.variant != 'fast':
+        hiddens = [args.hidden]
+        epoch, state = legacy_epoch(args.variant, args.hidden, f(tx), f(ty),
+                                    f(vx), f(vy))
+    elif args.layers >= 2:
         from admm_lstm_torch.variants import stacked
         hiddens = [args.hidden] + [args.hidden2 or args.hidden] * (
             args.layers - 1)
@@ -110,6 +126,56 @@ def main(argv=None) -> int:
         def epoch(state):
             return epoch_step(state, x_im, y_im, xall, vy_im, rules)[0]
 
+    print(json.dumps({
+        'device': torch.cuda.get_device_name(0),
+        'config': args.config, 'data': args.data, 'epochs': args.epochs,
+        'hidden': args.hidden, 'hiddens': hiddens, 'variant': args.variant,
+        **profile_epochs(epoch, state, args.epochs)}))
+    return 0
+
+
+def legacy_epoch(variant: str, hidden: int, tx, ty, vx, vy):
+    """(epoch, state) for a legacy variant or gradient baseline on
+    tensors (B, T, I), (B, O): `epoch(state)` runs one epoch with its two
+    losses and returns the next state (None for the baselines, whose
+    optimizer carries it)."""
+    from admm_lstm_torch.models.lstm import init_lstm_params
+    x_tm = tx.transpose(0, 1).contiguous()
+    if variant == 'admm_l':
+        from admm_lstm_torch.variants import admm_l
+        rules = admm_l.ADMMLRules()
+        state = admm_l.init_admm_l_state(*admm_l.init_weights_like_reference(
+            0, tx.shape[2], hidden, ty.shape[1], device=tx.device), x_tm)
+        return (lambda s: admm_l.epoch(s, x_tm, tx, ty, vx, vy, rules)[0],
+                state)
+    if variant == 'admm_s':
+        from admm_lstm_torch.variants import admm_s
+        rules = admm_s.ADMMSRules()
+        vx_tm = vx.transpose(0, 1).contiguous()
+        state = admm_s.init_admm_s_state(*admm_s.init_weights_like_reference(
+            0, tx.shape[2], hidden, ty.shape[1], device=tx.device),
+            batch=tx.shape[0])
+        return (lambda s: admm_s.epoch(s, x_tm, ty, vx_tm, vy, rules)[0],
+                state)
+    from admm_lstm_torch.variants.grad_based import make_grad_epoch
+    params = init_lstm_params(torch.Generator().manual_seed(0), tx.shape[2],
+                              hidden, ty.shape[1], device=tx.device)
+    _, step = make_grad_epoch(variant, params, tx, ty, vx, vy)
+
+    def epoch(state):
+        step()
+        return state
+    return epoch, None
+
+
+def profile_epochs(epoch, state, epochs: int) -> dict:
+    """3 warm-up epochs, `epochs` timed, `epochs` more under
+    torch.profiler: the wall ms per epoch (host clock, synchronized; with
+    and without the profiler), device-busy ms, idle share, device
+    operations, host syncs, reads and host-to-device copies per epoch, and
+    the ten costliest kernels' device ms per epoch."""
+    from torch.profiler import ProfilerActivity, profile
+
     def run(state, n):
         for _ in range(n):
             state = epoch(state)
@@ -118,19 +184,21 @@ def main(argv=None) -> int:
 
     state = run(state, 3)
     t0 = time.perf_counter()
-    state = run(state, args.epochs)
-    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / args.epochs
+    state = run(state, epochs)
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / epochs
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        state = run(state, args.epochs)
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.epochs
+        state = run(state, epochs)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / epochs
 
     kernels = {}
     busy_us, launches = 0.0, 0
     host = {'cudaStreamSynchronize': 0, 'aten::_local_scalar_dense': 0,
             'cudaMemcpyAsync': 0}
     for evt in prof.events():
+        if getattr(evt, 'is_user_annotation', False):
+            continue      # a range such as Optimizer.step, not device work
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             if evt.name in host:
                 host[evt.name] += 1
@@ -140,24 +208,19 @@ def main(argv=None) -> int:
         launches += 1
         name = evt.name[:100]
         kernels[name] = kernels.get(name, 0.0) + dur
-    busy_ms = busy_us / 1e3 / args.epochs
+    busy_ms = busy_us / 1e3 / epochs
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    print(json.dumps({
-        'device': torch.cuda.get_device_name(0),
-        'config': args.config, 'data': args.data, 'epochs': args.epochs,
-        'hidden': args.hidden, 'hiddens': hiddens,
+    return {
         'wall_ms_per_epoch': plain_wall_ms,
         'wall_ms_per_epoch_profiled': wall_ms,
         'device_busy_ms_per_epoch': busy_ms,
         'device_idle_share': max(0.0, 1.0 - busy_ms / wall_ms),
-        'device_ops_per_epoch': launches / args.epochs,
-        'host_syncs_per_epoch': host['cudaStreamSynchronize'] / args.epochs,
-        'reads_per_epoch': host['aten::_local_scalar_dense'] / args.epochs,
-        'memcpy_calls_per_epoch': host['cudaMemcpyAsync'] / args.epochs,
-        'top_kernels_ms_per_epoch': {k: v / 1e3 / args.epochs
-                                     for k, v in top},
-    }))
-    return 0
+        'device_ops_per_epoch': launches / epochs,
+        'host_syncs_per_epoch': host['cudaStreamSynchronize'] / epochs,
+        'reads_per_epoch': host['aten::_local_scalar_dense'] / epochs,
+        'memcpy_calls_per_epoch': host['cudaMemcpyAsync'] / epochs,
+        'top_kernels_ms_per_epoch': {k: v / 1e3 / epochs for k, v in top},
+    }
 
 
 if __name__ == '__main__':

@@ -10,10 +10,11 @@ families of the fast ADMM variant have data-dependent iteration counts:
 
 The JAX package runs both searches inside `lax.while_loop`s on the
 device.  PyTorch runs eagerly, so each loop predicate becomes a host sync:
-one per block of BLOCK_K candidates in the weight stage, one per doubling
-in the final-h search (at most a handful: theta runs from theta0 to
-theta_max by doublings).  These are the only host syncs inside an epoch.
-Every search is capped at `max_iters` doublings, with the same
+one per block of BLOCK_K candidates in the weight stage
+(`doubling_search`, which ADMM-LSTM-L's three searches use too), one per
+doubling in the final-h search (at most a handful: theta runs from theta0
+to theta_max by doublings).  These are the only host syncs inside an
+epoch.  Every search is capped at `max_iters` doublings, with the same
 first-acceptance and cap semantics as the JAX package.
 """
 
@@ -91,39 +92,19 @@ def weight_stage_update_wide(m_inputs: torch.Tensor, proj_self: torch.Tensor,
     grad_sq = per_gate(torch.sum(grad * grad, dim=0))
     est_coef = (1.0 + 0.5 * seq_len) * grad_sq
 
-    def accept_block(theta_base, k):
-        """(4, BLOCK_K) fails table for candidates theta_base * 2^j."""
-        fails = []
-        for j in range(BLOCK_K):
-            th = theta_base * (2.0 ** j)
+    def fails(cands):
+        """(K, 4) candidate thetas -> (K, 4) table of those that fail."""
+        out = []
+        for th in cands:
             th_cols = torch.repeat_interleave(th, hidden)[:, None]
             r = act(pre + grad_proj / th_cols) - target_w
             original = 0.5 * rho_g * per_gate(torch.sum(r * r, dim=(0, 2)))
-            fail = original > f_at_w + est_coef / th
-            # Candidates past the doubling cap are forced to "fail" so the
-            # capped sequential semantics survive blocking.
-            fails.append(fail | (k + j >= max_iters))
-        return torch.stack(fails, dim=1)
+            out.append(original > f_at_w + est_coef / th)
+        return torch.stack(out)
 
-    theta_base = torch.ones(4, dtype=dtype, device=weights_w.device)
-    theta_acc = torch.ones_like(theta_base)
-    done = torch.zeros(4, dtype=torch.bool, device=weights_w.device)
-    k = 0
-    while k < max_iters:
-        accepts = ~accept_block(theta_base, k)            # (4, BLOCK_K)
-        found = accepts.any(dim=1)
-        first = torch.argmax(accepts.to(torch.int8), dim=1)  # lowest j
-        theta_hit = theta_base * (2.0 ** first.to(dtype))
-        theta_acc = torch.where(~done & found, theta_hit, theta_acc)
-        done = done | found
-        # Unaccepted gates advance by one block, clipped to the doubling
-        # budget so a capped gate lands on the sequential loop's last theta.
-        step = float(min(BLOCK_K, max_iters - k))
-        theta_base = torch.where(done, theta_base, theta_base * (2.0 ** step))
-        k += BLOCK_K
-        if bool(done.all()):                              # the host sync
-            break
-    theta = torch.where(done, theta_acc, theta_base) / 2.0
+    theta, iters = doubling_search(
+        fails, torch.ones(4, dtype=dtype, device=weights_w.device), max_iters)
+    theta = theta / 2.0
 
     scale = 0.5 * rho_g * seq_len * theta                 # (4,)
     scale_cols = torch.repeat_interleave(scale, hidden)
@@ -132,7 +113,42 @@ def weight_stage_update_wide(m_inputs: torch.Tensor, proj_self: torch.Tensor,
     proj_new = ((scale_cols[:, None] * proj_self - grad_proj)
                 / denom_cols[:, None])
     return WideStageResult(weights=new_w, proj_new=proj_new, theta=theta,
-                           iters=k)
+                           iters=iters)
+
+
+def doubling_search(fails, theta0: torch.Tensor, max_iters: int):
+    """theta0 * 2^k for the first k in 0 .. max_iters - 1 at which
+    `fails` accepts, entry by entry of theta0 (the entries search
+    independently, as the JAX package's lockstep loops do); where none is
+    accepted, theta0 * 2^max_iters, untested.  That is what
+    `while fails(theta) and k < max_iters: theta *= 2` returns.
+
+    `fails(cands)` takes a (K, *theta0.shape) block of candidates and
+    returns the bool table of those that fail.  BLOCK_K candidates are
+    tested per host sync; every candidate is theta0 times a power of two
+    and so exact.  Returns (theta, iters), iters = BLOCK_K times the
+    blocks tested (the JAX package's blocked weight stage counts so).
+    """
+    view = (-1,) + (1,) * theta0.dim()
+    pow2 = theta0.new_full((BLOCK_K,), 2.0).cumprod(0) / 2.0   # 1, 2, 4...
+    base = theta0
+    theta = theta0 * (2.0 ** max_iters)
+    done = torch.zeros(theta0.shape, dtype=torch.bool, device=theta0.device)
+    k = 0
+    while k < max_iters:
+        n = min(BLOCK_K, max_iters - k)
+        cands = base * pow2[:n].view(view)
+        accepts = ~fails(cands)
+        found = accepts.any(dim=0)
+        first = torch.argmax(accepts.to(torch.int8), dim=0)   # lowest k
+        hit = cands.gather(0, first.unsqueeze(0)).squeeze(0)
+        theta = torch.where(~done & found, hit, theta)
+        done = done | found
+        k += BLOCK_K
+        if bool(done.all()):                                 # the host sync
+            break
+        base = base * (2.0 ** n)
+    return theta, k
 
 
 class HFinalResult(NamedTuple):

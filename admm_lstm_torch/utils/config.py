@@ -158,8 +158,6 @@ class ADMMConfig:
 
 def unsupported_reason(config: ADMMConfig) -> Optional[str]:
     """Why this slice of the port cannot train `config`, or None."""
-    if config.variant in ('admm_l', 'admm_s'):
-        return f'variant {config.variant!r} arrives in {LATER}'
     if config.mesh_shape is not None:
         return f'mesh_shape (data-parallel training) arrives in {LATER}'
     return None

@@ -1,16 +1,35 @@
-"""Loss-curve plotting (reference: data_plot.py:15-107).
+"""Loss-curve plotting (reference: data_plot.py:15-107, comparison.py:72-134).
 
-Counterpart of `admm_lstm_tpu/utils/plotting.py::LossCurvePlotter`.
-matplotlib is imported inside `plot`, never at import time: machines that
-train on the card may not have it, and only the drawing step needs it.
+Counterpart of `admm_lstm_tpu/utils/plotting.py`'s `LossCurvePlotter` and
+`plot_comparison`.  matplotlib is imported inside the drawing functions,
+never at import time: machines that train on the card may not have it, and
+only the drawing step needs it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from admm_lstm_torch.utils.logging import info
+
+color_list = [
+    'b', 'g', 'r', 'c', 'm', 'y', 'k',
+    '#FF5733', '#33FF57', '#3357FF', '#8A2BE2', '#D2691E', '#FF1493',
+]
+
+
+def _pyplot():
+    """matplotlib.pyplot on the Agg backend; ImportError naming --no-plot
+    when matplotlib is missing."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError('plotting needs matplotlib, which is not '
+                          'installed; rerun with --no-plot') from e
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+    return plt
 
 
 class LossCurvePlotter:
@@ -39,13 +58,7 @@ class LossCurvePlotter:
 
         Raises ImportError naming the CLI's --no-plot when matplotlib is
         missing."""
-        try:
-            import matplotlib
-        except ImportError as e:
-            raise ImportError('plotting needs matplotlib, which is not '
-                              'installed; rerun with --no-plot') from e
-        matplotlib.use('Agg')
-        import matplotlib.pyplot as plt
+        plt = _pyplot()
 
         fig, ax = plt.subplots(figsize=(10, 6))
         plt.subplots_adjust(right=0.75)
@@ -85,3 +98,36 @@ class LossCurvePlotter:
                 i += 1
             path = f'{stem}_{i}.{ext}'
         return path
+
+
+def plot_comparison(loss_list: Sequence[Dict], num_epochs: int,
+                    save_dir: str = 'plots', with_initial: bool = False,
+                    symlog_linthresh: float = 0.01) -> List[str]:
+    """Overlay the train and validation loss curves of several optimizers
+    (reference: comparison.py:72-134; a symlog y-axis, one figure per
+    split).  Returns the two saved paths."""
+    plt = _pyplot()
+    os.makedirs(save_dir, exist_ok=True)
+    epochs = list(range(num_epochs + 1))
+    paths = []
+    for split, fname in (('train_loss', 'ComparisonTrainingLoss.png'),
+                         ('val_loss', 'ComparisonValidationLoss.png')):
+        fig = plt.figure(figsize=(20, 5))
+        xs = epochs if with_initial else epochs[1:]
+        for i, method in enumerate(loss_list):
+            ys = method[split] if with_initial else method[split][1:]
+            plt.plot(xs, ys, color=color_list[i % len(color_list)],
+                     linestyle='-', marker='o', label=method['name'])
+        plt.xlabel('Epochs')
+        plt.ylabel('Loss')
+        plt.legend(loc='upper right', frameon=True, edgecolor='black',
+                   facecolor='white', framealpha=1.0, fancybox=True)
+        plt.grid(True)
+        plt.yscale('symlog', linthresh=symlog_linthresh)
+        plt.xlim([0 if with_initial else 1, num_epochs])
+        path = os.path.join(save_dir, fname)
+        plt.savefig(path, dpi=150, bbox_inches='tight')
+        plt.close(fig)
+        info(f'Comparison plot saved to {path}')
+        paths.append(path)
+    return paths

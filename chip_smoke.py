@@ -57,7 +57,20 @@ Phases, each fatal on failure:
                round of 27 candidates) making the JAX package's choice
                with its tuned rho; one (8, 8) epoch with the kernels
                against the same epoch with the plain versions; a
-               save_model/load_model round trip of the result, bit-equal.
+               save_model/load_model round trip of the result, bit-equal;
+  7. legacy  - ADMM-LSTM-L, ADMM-LSTM-S, the gradient baselines and the
+               comparison harness on GoogleStock at the CLI's width (H 10,
+               seed 0), none of which launches a kernel but the harness's
+               Fast run: admm_l_demo for 30 epochs on the JAX package's
+               trajectory and on the admm_l_small golden; admm_s_demo for
+               5 epochs on its golden; train_best for both (60 epochs,
+               15-epoch probes) making JAX's choice; SGD, Adam and Adagrad
+               for 100 epochs from the reference's seed-0 weights on the
+               JAX package's losses; run_comparison for 30 epochs, its six
+               curves equal to the runs alone and 30 interior_sweep
+               launches; one epoch of each ADMM variant on the card
+               against the CPU; and each variant's and baseline's ms per
+               epoch, host syncs and device operations per epoch.
 Then it prints the card's name and power limit, one JSON line describing
 every kernel, and as the last line {"ok": true, "device": {...}}.
 It exits non-zero, printing no result line, without a CUDA card.
@@ -282,6 +295,27 @@ STACKED_BEST_VAL = 0.08602779358625412
 # One (8, 8) epoch with the Cholesky kernel against its plain version,
 # each leaf within STACKED_RTOL of its scale (as Path B's).
 STACKED_RTOL = 1e-5
+
+# The legacy phase: ADMM-LSTM-L and -S, the gradient baselines and the
+# comparison harness on GoogleStock at the CLI's width (H 10, seed 0).
+# The JAX package's numbers on the CPU (admm_l_demo's LEGACY_EPOCHS-epoch
+# losses, train_best's choice and probe losses with LEGACY_BEST_ARGS, the
+# baselines' GRAD_EPOCHS-epoch losses from the golden seed-0 weights) are
+# in LEGACY_REF, which tests/test_torch_chip_reference_legacy.py
+# recomputes with the JAX package and holds equal.
+LEGACY_REF = os.path.join(ROOT, 'tests', 'golden',
+                          'torch_legacy_reference.npz')
+LEGACY_EPOCHS = 30
+LEGACY_BEST_ARGS = dict(epochs=60, probe_epochs=15)
+GRAD_EPOCHS = 100
+ADMM_L_GOLDEN = os.path.join(ROOT, 'tests', 'golden', 'admm_l_small.npz')
+ADMM_S_GOLDEN = os.path.join(ROOT, 'tests', 'golden',
+                             'admm_s_googlestock.npz')
+# run_comparison's curves against the same runs alone, relative.
+COMPARISON_RTOL = 1e-6
+# One legacy epoch on the card against the same epoch on the CPU: each
+# leaf within LEGACY_RTOL of its scale (as Path B's).
+LEGACY_RTOL = 1e-5
 
 
 def log(msg):
@@ -681,12 +715,18 @@ def _kernels():
                 chol_solve=chol_solve, chol_inverse=chol_inverse)
 
 
-def run_counted(label, fn, epochs):
-    """Zeroes every kernel's launch count, runs `fn` (an api.train call),
-    reads the counts, and logs the run."""
+def _zero_launches():
+    """Every kernel's wrapper, with its launch count set to 0."""
     kernels = _kernels()
     for k in kernels.values():
         k.launches = 0
+    return kernels
+
+
+def run_counted(label, fn, epochs):
+    """Zeroes every kernel's launch count, runs `fn` (an api.train call),
+    reads the counts, and logs the run."""
+    kernels = _zero_launches()
     res = fn()
     launches = {name: k.launches for name, k in kernels.items()}
     train_l, val_l = np.asarray(res['train_loss']), np.asarray(res['val_loss'])
@@ -949,9 +989,7 @@ def phase_tune(tx, ty, vx, vy, ps, weights):
     from admm_lstm_torch import tune
     from admm_lstm_torch.models.lstm import params_from_dict
     from admm_lstm_torch.utils.config import ADMMConfig
-    kernels = _kernels()
-    for k in kernels.values():
-        k.launches = 0
+    kernels = _zero_launches()
     t0 = time.perf_counter()
     res = tune.search_rho(tx, ty, vx, vy, ps, ADMMConfig(hidden_size=10),
                           epochs=EPOCHS, params=params_from_dict(weights),
@@ -1130,9 +1168,7 @@ def phase_stacked():
         if hiddens == (8, 8):
             launches = counts
 
-    kernels = _kernels()
-    for k in kernels.values():
-        k.launches = 0
+    kernels = _zero_launches()
     t0 = time.perf_counter()
     best = api.train_best_stacked(
         tx, ty, vx, vy, ps, ADMMConfig(epochs=STACKED_BEST_ARGS['epochs'],
@@ -1179,6 +1215,253 @@ def phase_stacked():
     return launches, best_launches, seconds
 
 
+def _no_launches(label, fn):
+    """Runs `fn` with the launch counts zeroed; raises if any kernel
+    launched (the legacy variants and the baselines use none)."""
+    kernels = _zero_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    seconds = time.perf_counter() - t0
+    launched = {name: k.launches for name, k in kernels.items() if k.launches}
+    if launched:
+        raise AssertionError(f'{label}: unexpected kernel launches '
+                             f'{launched}')
+    train_l, val_l = np.asarray(res['train_loss']), np.asarray(res['val_loss'])
+    if not (np.all(np.isfinite(train_l)) and np.all(np.isfinite(val_l))):
+        raise AssertionError(f'{label}: non-finite losses')
+    log(f'[legacy] {label}: {seconds:.3f} s wall (host clock), final train '
+        f'{train_l[-1]:.6f} val {val_l[-1]:.6f}, no kernel launches')
+    return res, train_l, val_l
+
+
+def _gap(got, want):
+    """Largest relative gap of a trajectory to its reference."""
+    want = np.asarray(want, np.float64)
+    return float(np.max(np.abs(np.asarray(got) - want) / np.abs(want)))
+
+
+def _legacy_epoch_vs_cpu(tx, ty):
+    """One ADMM-L and one ADMM-S epoch on the card against the same epoch
+    on the CPU, from the state two card epochs reach: each leaf within
+    LEGACY_RTOL of its scale (max |x|; for a dual, max |lambda| + rho max
+    |its primal|, the primal at T-1 for ADMM-S from a forward pass with
+    the new weights)."""
+    from admm_lstm_torch.variants import admm_l, admm_s
+    x, y = torch.from_numpy(tx), torch.from_numpy(ty)
+    x_tm = x.transpose(0, 1).contiguous()
+    amax = lambda t: float(t.abs().max())
+    worst = 0.0
+    for name, mod, rules, demo, step, duals in (
+            ('ADMM-L', admm_l, admm_l.ADMMLRules(), admm_l.admm_l_demo,
+             admm_l.admm_l_step,
+             {'lam_z': ('z', 'rho_singular'), 'lam_g': ('gate', 'rho_plural'),
+              'lam9': ('c', 'rho9'), 'lam10': ('h', 'rho10'),
+              'lam11': ('a', 'rho11')}),
+            ('ADMM-S', admm_s, admm_s.ADMMSRules(), admm_s.admm_s_demo,
+             admm_s.admm_s_step,
+             {'lam_z': ('z', 'rho_z'), 'lam_g': ('gate', 'rho_g'),
+              'lam9': ('c', 'rho9'), 'lam10': ('h', 'rho10'),
+              'lam11': ('y', 'rho11')})):
+        start = demo(2, 10, tx, ty, tx[:8], ty[:8], log_every=0,
+                     device='cuda')['state']
+        host = start._replace(**{f: getattr(start, f).cpu() for f in
+                                 start._fields if f != 'epoch'})
+        with torch.no_grad():
+            got = step(start, x_tm.cuda(), y.cuda(), rules)
+            ref = step(host, x_tm, y, rules)
+        torch.cuda.synchronize()
+        primal = ref._asdict()
+        if mod is admm_s:
+            z, gate, c, h, yp = admm_s._forward(ref, x_tm)
+            primal = {'z': z[:, -1], 'gate': gate[:, -1], 'c': c[-1],
+                      'h': h[-1], 'y': yp}
+        errs = {}
+        for f in ref._fields:
+            if f == 'epoch':
+                continue
+            scale = amax(getattr(ref, f))
+            if f in duals:
+                p, rho = duals[f]
+                scale += getattr(rules, rho) * amax(primal[p])
+            errs[f] = (amax(getattr(got, f).cpu() - getattr(ref, f)),
+                       LEGACY_RTOL * scale)
+        ratio = max(e[0] / e[1] for e in errs.values() if e[1] > 0)
+        worst = max(worst, ratio)
+        log(f'[legacy] {name} one epoch, card vs CPU: largest error '
+            f'{ratio:.3g} of its tolerance; (max abs diff, tolerance) per '
+            f'leaf {errs}')
+        bad = {f: e for f, e in errs.items() if not e[0] <= e[1]}
+        if bad:
+            raise AssertionError(f'{name}: the card epoch differs from the '
+                                 f'CPU epoch beyond tolerance at {bad}')
+    return worst
+
+
+def _legacy_speed(tx, ty, vx, vy, epochs=10):
+    """ms per epoch (host clock, synchronized after every epoch, the
+    median of the epochs after the first), and from torch.profiler the
+    host syncs, device operations and device-busy ms per epoch, of each
+    legacy variant and baseline (profile_epoch.legacy_epoch: the epoch
+    and its two losses)."""
+    from admm_lstm_torch.profile_epoch import legacy_epoch, profile_epochs
+    f = lambda a: torch.from_numpy(a).cuda()
+    out = {}
+    for variant in ('admm_l', 'admm_s', 'sgd', 'adam', 'adagrad'):
+        epoch, state = legacy_epoch(variant, 10, f(tx), f(ty), f(vx), f(vy))
+        times = []
+        for _ in range(epochs):
+            t0 = time.perf_counter()
+            state = epoch(state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        prof = profile_epochs(epoch, state, 3)
+        out[variant] = dict(
+            ms_per_epoch=float(np.median(times[1:])),
+            host_syncs_per_epoch=prof['host_syncs_per_epoch'],
+            device_ops_per_epoch=prof['device_ops_per_epoch'],
+            device_busy_ms_per_epoch=prof['device_busy_ms_per_epoch'],
+            device_idle_share=prof['device_idle_share'])
+        log(f'[legacy] speed {variant} GoogleStock H=10: '
+            f'{json.dumps(out[variant])}')
+    return out
+
+
+def phase_legacy(tx, ty, vx, vy, ps, weights):
+    """ADMM-LSTM-L and -S, the gradient baselines and the comparison
+    harness on GoogleStock at the CLI's width, through their public entry
+    points, held to the JAX package's numbers and the goldens.  Returns
+    the comparison run's launches."""
+    from admm_lstm_torch import api
+    from admm_lstm_torch.comparison import run_comparison
+    from admm_lstm_torch.models.lstm import params_from_dict
+    from admm_lstm_torch.utils.config import ADMMConfig
+    from admm_lstm_torch.variants.admm_l import ADMMLRules, admm_l_demo
+    from admm_lstm_torch.variants.admm_s import admm_s_demo
+    from admm_lstm_torch.variants.grad_based import train_grad_based
+    ref = np.load(LEGACY_REF)
+    n = LEGACY_EPOCHS
+
+    # 1. ADMM-L on the JAX trajectory; the golden small problem with the
+    # reference's 4224 divisor.
+    admm_l_res, train_l, val_l = _no_launches(
+        f'admm_l_demo GoogleStock H=10, {n} epochs', lambda: admm_l_demo(
+            n, 10, tx, ty, vx, vy, seed=0, log_every=0, device='cuda'))
+    log(f'[legacy] admm_l val trajectory {json.dumps(val_l.tolist())}; '
+        f'largest relative gap to the JAX package '
+        f'{max(_gap(train_l, ref["admm_l_train"]), _gap(val_l, ref["admm_l_val"])):.3g}')
+    _hold_to('admm_l_demo', train_l, val_l, ref['admm_l_train'],
+             ref['admm_l_val'])
+    g = np.load(ADMM_L_GOLDEN)
+    _, train_l, val_l = _no_launches(
+        'admm_l_demo admm_l_small golden (a_batch_scale 4224)',
+        lambda: admm_l_demo(len(g['train_loss']) - 1, 4, g['x'], g['y'],
+                            g['test_x'], g['test_y'], seed=0,
+                            rules=ADMMLRules(a_batch_scale=4224),
+                            log_every=0, device='cuda'))
+    np.testing.assert_allclose(train_l, g['train_loss'], rtol=1e-4,
+                               atol=1e-7, err_msg='admm_l_small train')
+    np.testing.assert_allclose(val_l, g['val_loss'], rtol=1e-4, atol=1e-7,
+                               err_msg='admm_l_small val')
+
+    # 2. ADMM-S on its golden.
+    g = np.load(ADMM_S_GOLDEN)
+    _, train_l, val_l = _no_launches(
+        f'admm_s_demo GoogleStock H=10, {int(g["epochs"])} epochs',
+        lambda: admm_s_demo(int(g['epochs']), 10, tx, ty, vx, vy, seed=0,
+                            log_every=0, device='cuda'))
+    log(f'[legacy] admm_s val trajectory {json.dumps(val_l.tolist())}')
+    np.testing.assert_allclose(train_l, g['train_loss'], rtol=2e-4,
+                               atol=1e-6, err_msg='admm_s golden train')
+    np.testing.assert_allclose(val_l, g['val_loss'], rtol=2e-4, atol=1e-6,
+                               err_msg='admm_s golden val')
+
+    # 3. The legacy preset.  Its choice must be JAX's.  ADMM-L's probes
+    # are held to JAX's at the trajectory tolerance; so is ADMM-S's
+    # 'reference' probe, but its r_h 25 and 10 probes are not: those
+    # trajectories are unstable (the port on the CPU and the JAX package
+    # part by 17% and 115% at epoch 15 though one epoch agrees at 1e-5),
+    # so they are held only to rank below 'reference' as JAX's do.
+    args = LEGACY_BEST_ARGS
+    for variant in ('admm_l', 'admm_s'):
+        t0 = time.perf_counter()
+        best, _, _ = _no_launches(
+            f'train_best {variant} {args}', lambda: api.train_best(
+                tx, ty, vx, vy, ps, ADMMConfig(variant=variant, hidden_size=10,
+                                               epochs=args['epochs']),
+                probe_epochs=args['probe_epochs'], log_every=0,
+                device='cuda'))
+        seconds = time.perf_counter() - t0
+        names = ref[f'best_{variant}_probe_names'].tolist()
+        want = dict(zip(names, ref[f'best_{variant}_probe_val'].tolist()))
+        choice = str(ref[f'best_{variant}_choice'])
+        log(f'[legacy] train_best {variant}: {seconds:.3f} s wall, chose '
+            f'{best["preset_choice"]} (JAX package: {choice}), probe '
+            f'{best["probe_val"]} (JAX: {want})')
+        if best['preset_choice'] != choice:
+            raise AssertionError(f'train_best {variant} chose '
+                                 f'{best["preset_choice"]}, JAX {choice}')
+        for name, v in want.items():
+            got = best['probe_val'][name]
+            if variant == 'admm_l' or name == 'reference':
+                np.testing.assert_allclose(got, v, rtol=0.05, atol=1e-4,
+                                           err_msg=f'{variant} probe {name}')
+            elif not got < best['probe_val']['reference']:
+                raise AssertionError(f'train_best admm_s: probe {name} '
+                                     f'{got} not below reference')
+
+    # 4. The baselines from the reference's seed-0 weights.
+    grad = {}
+    for method in ('sgd', 'adam', 'adagrad'):
+        res, train_l, val_l = _no_launches(
+            f'{method} {GRAD_EPOCHS} epochs', lambda: train_grad_based(
+                method, tx, ty, vx, vy, GRAD_EPOCHS,
+                params=params_from_dict(weights), device='cuda'))
+        gap = max(_gap(train_l, ref[f'{method}_train']),
+                  _gap(val_l, ref[f'{method}_val']))
+        log(f'[legacy] {method} final train {float(train_l[-1])!r} val '
+            f'{float(val_l[-1])!r} (JAX {float(ref[f"{method}_val"][-1])!r});'
+            f' largest relative gap to the JAX package {gap:.3g}')
+        _hold_to(method, train_l, val_l, ref[f'{method}_train'],
+                 ref[f'{method}_val'])
+        grad[res['name']] = res
+
+    # 5. The comparison harness: six curves, each its method's run alone
+    # (the baselines' first n + 1 epochs of their runs above); the Fast
+    # run's interior_sweep once an epoch and no other launch.
+    alone = {'Fast ADMM-LSTM': api.train(
+        tx, ty, vx, vy, ps, ADMMConfig(epochs=n, hidden_size=10),
+        params=params_from_dict(weights), log_every=0, device='cuda'),
+        'ADMM-LSTM-L': admm_l_res,
+        'ADMM-LSTM-S': admm_s_demo(n, 10, tx, ty, vx, vy, seed=0,
+                                   log_every=0, device='cuda'), **grad}
+    kernels = _zero_launches()
+    t0 = time.perf_counter()
+    results = run_comparison(n, 10, tx, ty, vx, vy, ps, include_admm_l=True,
+                             include_admm_s=True,
+                             params=params_from_dict(weights), device='cuda')
+    seconds = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    names = [r['name'] for r in results]
+    log(f'[legacy] run_comparison {n} epochs: {seconds:.3f} s wall, '
+        f'{names}, launches {launches}')
+    if names != ['Fast ADMM-LSTM', 'ADMM-LSTM-L', 'ADMM-LSTM-S', 'SGD',
+                 'Adam', 'Adagrad']:
+        raise AssertionError(f'run_comparison returned {names}')
+    for r in results:
+        for key in ('train_loss', 'val_loss'):
+            np.testing.assert_allclose(
+                r[key], alone[r['name']][key][:n + 1], rtol=COMPARISON_RTOL,
+                err_msg=f'run_comparison {r["name"]} {key}')
+    if launches != dict(interior_sweep=n, jacobi_sweep=0, chol_solve=0,
+                        chol_inverse=0):
+        raise AssertionError(f'run_comparison launches {launches}')
+
+    # 6. One epoch of each variant on the card against the CPU.
+    _legacy_epoch_vs_cpu(tx, ty)
+    _legacy_speed(tx, ty, vx, vy)
+    return launches
+
+
 def card_name_and_power():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -1215,6 +1498,7 @@ def main() -> int:
     phase_resume()
     (launches['stacked'], launches['stacked_best'],
      stacked_seconds) = phase_stacked()
+    launches['legacy'] = phase_legacy(tx, ty, vx, vy, ps, weights)
 
     card = card_name_and_power()
     log(f'[card] {card}')

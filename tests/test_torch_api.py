@@ -165,14 +165,10 @@ def test_torch_train_preset_best_matches_jax(cfgkw):
 
 
 def test_torch_train_best_unported_legs_raise():
-    """The legacy variants' candidate sets still raise, and resume_from
-    stays refused (train_best(search_rounds > 0) runs now:
-    tests/test_torch_tune.py)."""
+    """resume_from stays refused, and so does an unknown preset
+    (train_best(search_rounds > 0) runs: tests/test_torch_tune.py; the
+    legacy variants' candidate sets: tests/test_torch_comparison.py)."""
     (tx, ty, vx, vy), ps, _ = load_dataset('Synthetic', batch=8, val_batch=4)
-    with pytest.raises(NotImplementedError, match='admm_l'):
-        api.train_best(tx, ty, vx, vy, ps, ADMMConfig(variant='admm_l',
-                                                      epochs=1),
-                       device='cpu')
     with pytest.raises(ValueError, match='resume_from'):
         api.train_best(tx, ty, vx, vy, ps, ADMMConfig(epochs=1),
                        resume_from='ckpt', device='cpu')
@@ -227,7 +223,7 @@ def test_torch_cli_without_card_or_cpu_fails(tmp_path):
 
 
 @pytest.mark.parametrize('flag', [['--mesh', '2'], ['--scenarios', '2'],
-                                  ['--variant', 'admm_l']])
+                                  ['--save']])
 def test_torch_cli_later_slice_flags_fail(flag):
     from admm_lstm_torch.cli import main
     assert main(['--cpu', '-y', '-e', '1', '--no-plot', *flag]) != 0

@@ -1,6 +1,6 @@
 """Tests of the port's CUDA kernels (the Gauss-Seidel and Jacobi sweeps,
-the batched Cholesky solve and inverse); they need a CUDA card and skip
-without one.  This file imports no JAX, so it also runs where JAX is not
+the batched Cholesky solve and inverse) and of the legacy variants' epochs
+on the card; they need a CUDA card and skip without one.  This file imports no JAX, so it also runs where JAX is not
 installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -376,3 +376,13 @@ def test_torch_cuda_stacked_step_kernels_match_plain(cuda, hiddens):
     for a, b in zip(got.zs, ref.zs):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    atol=1e-4)
+
+
+def test_torch_cuda_legacy_epochs_match_cpu(cuda):
+    """One ADMM-LSTM-L and one ADMM-LSTM-S epoch on the card against the
+    same epoch of the CPU port, from the state two card epochs reach:
+    each leaf within chip_smoke.LEGACY_RTOL of its scale (chip_smoke.py's
+    legacy item 6, on a small synthetic problem)."""
+    tx, ty, _, _ = synth(batch=256, seq_len=6, input_size=2, output_size=1,
+                         val_batch=8)
+    assert chip_smoke._legacy_epoch_vs_cpu(tx, ty) <= 1.0

@@ -51,9 +51,15 @@ def test_torch_port_sources_exist():
                                     'kernels/gate_sweep.py',
                                     'solvers/blocked_chol.py',
                                     'solvers/normal_eq.py',
-                                    'variants/stacked.py'])
+                                    'variants/stacked.py',
+                                    'variants/admm_l.py',
+                                    'variants/admm_s.py',
+                                    'variants/grad_based.py',
+                                    'comparison.py',
+                                    'data/admm_s_cache.py'])
 def test_torch_turbo_leg_modules_are_guarded(module):
-    """The slice-2 modules and the stacked variant are among the sources
+    """The slice-2 modules, the stacked variant, the legacy variants, the
+    gradient baselines and the comparison harness are among the sources
     the guard walks."""
     path = os.path.join(ROOT, 'admm_lstm_torch', module)
     assert path in _sources()

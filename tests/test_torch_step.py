@@ -206,13 +206,15 @@ def test_torch_kernel_route_matches_scan_loop(monkeypatch, input_size):
                                    atol=1e-6)
 
 
-@pytest.mark.parametrize('cfgkw,match', [
-    (dict(mesh_shape=(2,)), 'mesh_shape'),
-    (dict(variant='admm_l'), 'admm_l'),
-    (dict(variant='admm_s'), 'admm_s'),
+@pytest.mark.parametrize('cfgkw,exc,match', [
+    (dict(mesh_shape=(2,)), NotImplementedError, 'mesh_shape'),
+    # The legacy variants train through admm_lstm_torch.variants, not the
+    # core epoch (as in the JAX package's core/step.rules_for).
+    (dict(variant='admm_l'), ValueError, 'admm_l'),
+    (dict(variant='admm_s'), ValueError, 'admm_s'),
 ])
-def test_torch_step_unported_configs_raise(cfgkw, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_torch_step_unported_configs_raise(cfgkw, exc, match):
+    with pytest.raises(exc, match=match):
         make_admm_step(ADMMConfig(**cfgkw))
 
 
