@@ -12,10 +12,20 @@ Entry points take `device` (default 'cuda') and raise when the card is
 missing unless the caller asked for the CPU.  They set the process-wide
 TF32 flags from `ADMMConfig.matmul_precision` for the work they run and
 restore them afterwards.
+
+`train_sharded` is data-parallel consensus ADMM over `torch.distributed`
+(parallel/): one process per rank, each holding a contiguous block of
+the batch, the weights replicated.  Every batch sum of the epoch (the
+weight and readout gradients, the line searches' objectives, the exact
+stage's Gram systems, the residuals and the training loss) is
+all-reduced inside the epoch, and the `a` update scales by the global
+batch, so every rank follows the single-process trajectory up to the
+order of the reductions.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -24,10 +34,10 @@ import torch
 from admm_lstm_torch.core.init import init_admm_state
 from admm_lstm_torch.core.residuals import admm_residuals
 from admm_lstm_torch.core.state import ADMMState
-from admm_lstm_torch.core.step import epoch_step, make_admm_step, rules_for
+from admm_lstm_torch.core.step import make_admm_step, rules_for, run_epochs
 from admm_lstm_torch.models.lstm import (LSTMParams, init_lstm_params,
                                          train_val_mse_im)
-from admm_lstm_torch.utils.config import (AUTO_FIELDS, LATER, ADMMConfig,
+from admm_lstm_torch.utils.config import (AUTO_FIELDS, ADMMConfig,
                                           ParameterSet)
 from admm_lstm_torch.utils.device import matmul_precision, resolve_device
 from admm_lstm_torch.utils.logging import info, log_assert, warning
@@ -105,15 +115,24 @@ class ADMMBasedOptimizer:
 
 def _open_checkpointing(state: ADMMState, resume_from: Optional[str],
                         checkpoint_dir: Optional[str], checkpoint_every: int,
-                        async_checkpoint: bool, device):
+                        async_checkpoint: bool, device, mesh=None):
     """Resume and checkpoint bring-up (JAX api.py:79-108).  Returns
-    (manager or None, state, start_epoch)."""
-    from admm_lstm_torch.ckpt.checkpoint import CheckpointManager
+    (manager or None, state, start_epoch).  With a `mesh`, the managers
+    are ShardedCheckpointManagers: rank 0 writes the whole state, and
+    every rank resumes its own block."""
+    from admm_lstm_torch.ckpt.checkpoint import (CheckpointManager,
+                                                 ShardedCheckpointManager)
+
+    def open_manager(directory):
+        if mesh is None:
+            return CheckpointManager(directory, async_save=async_checkpoint)
+        return ShardedCheckpointManager(directory, mesh,
+                                        async_save=async_checkpoint)
+
     ckpt_mgr = None
     start_epoch = 0
     if resume_from or (checkpoint_dir and checkpoint_every):
-        ckpt_mgr = CheckpointManager(resume_from or checkpoint_dir,
-                                     async_save=async_checkpoint)
+        ckpt_mgr = open_manager(resume_from or checkpoint_dir)
     if resume_from:
         if ckpt_mgr.latest_step() is None:
             info(f'No checkpoint found under {resume_from}; '
@@ -126,8 +145,7 @@ def _open_checkpointing(state: ADMMState, resume_from: Optional[str],
             ckpt_mgr.close()
             ckpt_mgr = None
             if checkpoint_dir and checkpoint_every:
-                ckpt_mgr = CheckpointManager(checkpoint_dir,
-                                             async_save=async_checkpoint)
+                ckpt_mgr = open_manager(checkpoint_dir)
     return ckpt_mgr, state, start_epoch
 
 
@@ -283,8 +301,10 @@ def train(train_x, train_y, val_x, val_y,
     the restored epoch, the loss lists start there, and the run ends bit
     for bit where the uninterrupted one does.
 
-    Not in this slice of the port (NotImplementedError): configs that
-    need a mesh.  ADMM-L and ADMM-S train through their own demos
+    `config.mesh_shape` is ignored here, as in the JAX package: a 1-D
+    mesh trains data-parallel through `train_sharded`, and a 2-D (data,
+    model) mesh raises NotImplementedError (tensor parallelism is not
+    ported yet).  ADMM-L and ADMM-S train through their own demos
     (variants/admm_l.py, variants/admm_s.py) or train_best.
     """
     if preset is not None:
@@ -312,10 +332,18 @@ def train(train_x, train_y, val_x, val_y,
 def _train(train_x, train_y, val_x, val_y, parameter_set, config, rules,
            params, log_every, record_residuals, checkpoint_dir,
            checkpoint_every, resume_from, async_checkpoint, stop_tol,
-           stop_divergence, track_best, device):
+           stop_divergence, track_best, device, mesh=None):
+    """`train`'s loop; with a `mesh` (train_sharded), on this rank's block
+    of the padded batch, with `rules` carrying the mesh's consensus."""
     if isinstance(parameter_set, dict):
         parameter_set = ParameterSet.from_dict(parameter_set)
-    train_x, train_y = _as_tensor(train_x, device), _as_tensor(train_y, device)
+    if mesh is None:
+        train_x, train_y = (_as_tensor(train_x, device),
+                            _as_tensor(train_y, device))
+    else:
+        from admm_lstm_torch.parallel.sharding import pad_batch, shard_batch
+        train_x, train_y = shard_batch(
+            *pad_batch(train_x, train_y, mesh.world), mesh)
     val_x, val_y = _as_tensor(val_x, device), _as_tensor(val_y, device)
     if params is None:
         gen = torch.Generator().manual_seed(config.seed)
@@ -325,15 +353,21 @@ def _train(train_x, train_y, val_x, val_y, parameter_set, config, rules,
     state = init_admm_state(params.to(device), train_x, parameter_set, config)
     ckpt_mgr, state, start_epoch = _open_checkpointing(
         state, resume_from, checkpoint_dir, checkpoint_every,
-        async_checkpoint, device)
+        async_checkpoint, device, mesh)
+    if state.batch_size != train_x.shape[0]:
+        raise ValueError(f'the checkpoint under {resume_from} holds a batch '
+                         f'of {state.batch_size} (per rank), the run '
+                         f'{train_x.shape[0]}')
 
     # The initial losses come from the epochs' one forward, so a resumed
     # run's first losses equal the uninterrupted run's at that epoch bit
     # for bit.
     x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x, val_y)
     initial = tuple(map(float, train_val_mse_im(state.params, xall_im, y_im,
-                                                vy_im)))
-    info(f'Training has started on {device}. Initial loss: train '
+                                                vy_im, rules.consensus)))
+    where = (device if mesh is None else
+             f'{mesh.world} ranks ({mesh.backend}; this one on {device})')
+    info(f'Training has started on {where}. Initial loss: train '
          f'{initial[0]:.8f} | val {initial[1]:.8f}')
 
     if stop_tol is not None or stop_divergence is not None:
@@ -346,20 +380,8 @@ def _train(train_x, train_y, val_x, val_y, parameter_set, config, rules,
                 'params': state.params.clone()}
 
     def run_chunk(st, n):
-        hist = []
-        for _ in range(n):
-            st, metrics = epoch_step(st, x_im, y_im, xall_im, vy_im, rules,
-                                     with_residuals=record_residuals)
-            hist.append(metrics)
-            if track_best:
-                # NaN-safe on the device: NaN < best is False.
-                better = metrics['val_loss'] < best['val']
-                best['val'] = torch.where(better, metrics['val_loss'],
-                                          best['val'])
-                best['params'] = LSTMParams(*(
-                    torch.where(better, new, old)
-                    for new, old in zip(st.params, best['params'])))
-        return st, {k: torch.stack([m[k] for m in hist]) for k in hist[0]}
+        return run_epochs(st, n, x_im, y_im, xall_im, vy_im, rules,
+                          with_residuals=record_residuals, best=best)
 
     timer = Timer()
     try:
@@ -382,7 +404,7 @@ def _train(train_x, train_y, val_x, val_y, parameter_set, config, rules,
 
     info(f'Training has finished. Total time elapsed: '
          f'{timer.get_elapsed_time():.2f} seconds.')
-    return {
+    result = {
         'name': 'Fast ADMM-LSTM' if config.variant == 'fast' else config.variant,
         'train_loss': train_losses,
         'val_loss': val_losses,
@@ -393,6 +415,11 @@ def _train(train_x, train_y, val_x, val_y, parameter_set, config, rules,
         'state': state,
         'seconds': timer.get_elapsed_time(),
     }
+    if mesh is not None:
+        from admm_lstm_torch.parallel.sharding import gather_state
+        result['state'] = gather_state(state, mesh)
+        result['mesh'] = mesh.describe()
+    return result
 
 
 def derive_auto_config(config: ADMMConfig) -> ADMMConfig:
@@ -610,6 +637,76 @@ def train_best_stacked(train_x, train_y, val_x, val_y,
     return result
 
 
-def train_sharded(*args, **kwargs):
-    """Data-parallel training over several cards: not in this slice."""
-    raise NotImplementedError(f'train_sharded arrives in {LATER}')
+def train_sharded(train_x, train_y, val_x, val_y,
+                  parameter_set: ParameterSet | Dict,
+                  config: ADMMConfig = ADMMConfig(),
+                  params: Optional[LSTMParams] = None,
+                  log_every: int = 1, record_residuals: bool = False,
+                  checkpoint_dir: Optional[str] = None,
+                  checkpoint_every: int = 0,
+                  resume_from: Optional[str] = None,
+                  async_checkpoint: bool = True,
+                  stop_tol: Optional[float] = None,
+                  stop_divergence: Optional[float] = None,
+                  track_best: bool = False,
+                  device='cuda',
+                  backend: Optional[str] = None) -> Dict[str, object]:
+    """Data-parallel training over `config.mesh_shape` = (n,) ranks
+    (JAX api.py:677-791): `train`'s loop and result on each rank's block
+    of the batch, with every batch sum all-reduced inside the epoch.
+
+    The batch is padded to a multiple of n with duplicated tail samples
+    (JAX's index formula); rank r holds samples [r*B/n, (r+1)*B/n) and
+    the validation arrays whole.  The weights stay bit-equal across the
+    ranks, because every rank computes them from the same all-reduced
+    sums.  Checkpoints are `train`'s `step_<N>.pt` files of the whole
+    state, written by rank 0 (gathered through the host); a resume reads
+    them on every rank and takes its own block.
+
+    Two modes:
+      * inside an initialized process group (torchrun, or
+        `parallel.initialize_multihost`): this rank's part of the run,
+        SPMD, on `device` ('cuda': the card LOCAL_RANK, else the rank,
+        modulo the host's cards);
+      * outside one: it starts n local ranks (torch.multiprocessing) and
+        returns rank 0's result, with its tensors on the CPU.  `backend`
+        None takes NCCL on the card when each rank has a card of its
+        own, gloo on the CPU, and raises where ranks would share a card:
+        ask for 'gloo' there (parallel.mesh.backend_for).
+
+    Returns `train`'s keys, with 'state' the whole state gathered to the
+    host and 'mesh' a description of the ranks and this rank's
+    all-reduce counts.  A 2-D mesh raises NotImplementedError.
+    """
+    import torch.distributed as dist
+
+    from admm_lstm_torch.parallel.mesh import backend_for, make_mesh
+    rules = rules_for(config)        # raises for a 2-D mesh
+    if not dist.is_initialized():
+        from admm_lstm_torch.parallel.launch import spawn, train_cases
+        if config.mesh_shape is None:
+            raise ValueError('train_sharded outside a process group needs '
+                             'config.mesh_shape = (n,), the ranks to start')
+        world = config.mesh_shape[0]
+        backend = backend_for(device, world, backend)
+        arrays = [a.detach().cpu() if isinstance(a, torch.Tensor) else a
+                  for a in (train_x, train_y, val_x, val_y)]
+        case = dict(
+            zip(('train_x', 'train_y', 'val_x', 'val_y'), arrays),
+            parameter_set=parameter_set, config=config,
+            params=None if params is None else params.to('cpu'),
+            log_every=log_every, record_residuals=record_residuals,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            resume_from=resume_from, async_checkpoint=async_checkpoint,
+            stop_tol=stop_tol, stop_divergence=stop_divergence,
+            track_best=track_best, device=device)
+        return spawn(train_cases, world, args=([case],),
+                     backend=backend)[0][0]
+    mesh = make_mesh(config.mesh_shape, config.mesh_axes, device=device)
+    rules = dataclasses.replace(rules, consensus=mesh.consensus)
+    with matmul_precision(config.matmul_precision):
+        return _train(train_x, train_y, val_x, val_y, parameter_set, config,
+                      rules, params, log_every, record_residuals,
+                      checkpoint_dir, checkpoint_every, resume_from,
+                      async_checkpoint, stop_tol, stop_divergence,
+                      track_best, mesh.device, mesh)

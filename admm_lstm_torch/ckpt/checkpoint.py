@@ -12,6 +12,11 @@ one `torch.save` file per step, `step_<N>.pt`, holding a dict of host
 tensors and the epoch as an int, so `torch.load(..., weights_only=True)`
 reads it back.
 
+A data-parallel run (api.train_sharded) checkpoints through
+`ShardedCheckpointManager`: rank 0 writes the same `step_<N>.pt` files of
+the whole state, gathered through the host, and on resume every rank
+reads the file and takes its own block of the batch.
+
 `save_model`/`load_model` write and read final weights as `.npz` files
 with the JAX package's keys (`x2{g}`, `h2{g}`, `wy`; `l{k}_*` per layer
 of a stacked model), so a file written by either package loads in the
@@ -142,6 +147,46 @@ class CheckpointManager:
 
     def close(self) -> None:
         self.wait()
+
+
+class ShardedCheckpointManager(CheckpointManager):
+    """CheckpointManager for the ranks of a data-parallel run (`mesh`,
+    parallel/mesh.py); every rank calls each method, in the same order.
+
+    `save` gathers the whole state through the host (a collective), and
+    rank 0 writes it as `CheckpointManager` does, on a background thread
+    under `async_save`; every rank then waits on a barrier.  `restore`
+    reads the file on every rank and returns this rank's block on its
+    device.  The directory must be one that every rank sees.
+    """
+
+    def __init__(self, directory: str, mesh, max_to_keep: int = 3,
+                 async_save: bool = False) -> None:
+        super().__init__(directory, max_to_keep, async_save)
+        self.mesh = mesh
+
+    def save(self, state: ADMMState, step: Optional[int] = None) -> None:
+        from admm_lstm_torch.parallel.sharding import gather_state
+        whole = gather_state(state, self.mesh)
+        if self.mesh.rank == 0:
+            super().save(whole, step)
+        self.mesh.barrier()
+
+    def latest_step(self) -> Optional[int]:
+        self.wait()                 # rank 0's pending write, if any
+        self.mesh.barrier()
+        return super().latest_step()
+
+    def restore(self, step: Optional[int] = None,
+                device=None) -> ADMMState:
+        """This rank's block of the state saved at `step` (default: the
+        latest), on the rank's device (`device` is not used)."""
+        from admm_lstm_torch.parallel.sharding import shard_state
+        return shard_state(super().restore(step, device='cpu'), self.mesh)
+
+    def close(self) -> None:
+        super().close()
+        self.mesh.barrier()
 
 
 def save_model(name: str, params, save_dir: str = 'SAVED_MODELS') -> str:

@@ -23,7 +23,7 @@ from admm_lstm_torch.utils.device import NoCudaDeviceError, resolve_device
 from admm_lstm_torch.utils.logging import ADMMError, error, info, log_assert
 
 # Flags of the JAX CLI whose paths arrive in later slices of the port.
-_LATER_FLAGS = ('mesh', 'scenarios', 'save', 'record_matlab_data')
+_LATER_FLAGS = ('scenarios', 'save', 'record_matlab_data')
 
 
 def generate_parser() -> argparse.ArgumentParser:
@@ -107,6 +107,11 @@ def generate_parser() -> argparse.ArgumentParser:
     parser.add_argument('--tune_rho', default=0, type=int, metavar='ROUNDS',
                         help='Run ROUNDS of successive-halving rho '
                              'refinement before training and use the winner')
+    parser.add_argument('--mesh', default=0, type=int,
+                        help='Data-parallel training over this many ranks, '
+                             'one process each (0 = one process); NCCL '
+                             'when each rank has a card of its own, else '
+                             'gloo')
     parser.add_argument('--plot', action='store_true', default=True)
     parser.add_argument('--no-plot', dest='plot', action='store_false')
     # The comparison harness's knobs (python -m admm_lstm_torch.comparison).
@@ -122,9 +127,8 @@ def generate_parser() -> argparse.ArgumentParser:
     for flag in ('save', 'record_matlab_data'):
         later.add_argument(f'--{flag}', action='store_true',
                            help=argparse.SUPPRESS)
-    for flag in ('mesh', 'scenarios'):
-        later.add_argument(f'--{flag}', default=None, type=int,
-                           help=argparse.SUPPRESS)
+    later.add_argument('--scenarios', default=None, type=int,
+                       help=argparse.SUPPRESS)
     return parser
 
 
@@ -177,6 +181,22 @@ def _train_legacy(args, seed, train_x, train_y, val_x, val_y, ps, device):
                        val_y, seed=seed, device=device)
 
 
+def _mesh_backend(ranks: int, device) -> str:
+    """--mesh's backend (parallel.mesh.backend_for): NCCL when each rank
+    has a card of its own; gloo on the CPU and where ranks share a card,
+    which NCCL refuses.  Said in the log."""
+    from admm_lstm_torch.parallel.mesh import backend_for
+    if device.type != 'cuda':
+        info(f'--mesh {ranks}: backend gloo, {ranks} ranks on the CPU.')
+        return backend_for(device, ranks)
+    cards = torch.cuda.device_count()
+    backend = backend_for(device, ranks, 'gloo' if ranks > cards else None)
+    info(f'--mesh {ranks}: backend {backend}, {ranks} ranks on '
+         f'{min(ranks, cards)} card(s), up to {-(-ranks // cards)} ranks '
+         f'sharing a card.')
+    return backend
+
+
 def main(argv=None) -> int:
     from admm_lstm_torch.data import load_dataset, supported_datasets
     args = generate_parser().parse_args(argv)
@@ -187,6 +207,13 @@ def main(argv=None) -> int:
                       f'arrives in {LATER}.')
         if args.layers >= 2 and args.variant not in ('fast', 'no_dual_y'):
             error('--layers >= 2 supports the fast/no_dual_y variants only')
+        if args.mesh:
+            if args.preset:
+                error('--preset is a single-device loop feature '
+                      '(probe-and-commit); drop --mesh or --preset')
+            if args.layers >= 2 or args.variant in ('admm_l', 'admm_s'):
+                error('--mesh trains the one-layer fast/no_dual_y variants '
+                      'only')
         try:
             device = resolve_device('cpu' if args.cpu else 'cuda')
         except NoCudaDeviceError as e:
@@ -264,16 +291,23 @@ def main(argv=None) -> int:
                 ps = tuned['best_parameter_set']
                 info(f'rho search ({args.tune_rho} rounds): best val '
                      f'{tuned["best_val_loss"]:.8f} with rho {ps.rho}')
-            results = train(train_x, train_y, val_x, val_y, ps, cfg,
-                            record_residuals=args.residuals,
-                            checkpoint_dir=args.checkpoint_dir,
-                            checkpoint_every=args.checkpoint_every,
-                            resume_from=(args.checkpoint_dir if args.resume
-                                         else None),
-                            stop_tol=args.stop_tol,
-                            stop_divergence=args.stop_divergence,
-                            track_best=args.track_best, preset=args.preset,
-                            device=device)
+            kw = dict(record_residuals=args.residuals,
+                      checkpoint_dir=args.checkpoint_dir,
+                      checkpoint_every=args.checkpoint_every,
+                      resume_from=(args.checkpoint_dir if args.resume
+                                   else None),
+                      stop_tol=args.stop_tol,
+                      stop_divergence=args.stop_divergence,
+                      track_best=args.track_best, device=device)
+            if args.mesh:
+                from admm_lstm_torch.api import train_sharded
+                results = train_sharded(
+                    train_x, train_y, val_x, val_y, ps,
+                    cfg.replace(mesh_shape=(args.mesh,)),
+                    backend=_mesh_backend(args.mesh, device), **kw)
+            else:
+                results = train(train_x, train_y, val_x, val_y, ps, cfg,
+                                preset=args.preset, **kw)
         if args.residuals:
             for epoch, res in enumerate(results.get('residuals', ()),
                                         start=1):

@@ -7,6 +7,11 @@ Counterpart of `admm_lstm_tpu/core/residuals.py`:
     block between sweeps (Boyd et al. 2011, eq. 3.12);
   * `balanced_rho` - residual balancing (Boyd et al. 2011, section 3.4.1).
 All results are 0-d tensors on the state's device (no host sync).
+
+Under data parallelism (core/consensus.py) each mean square is a global
+one: every rank's means over its equal block of the batch are averaged in
+one all-reduce per call, so every rank sees the single-process residuals
+and adapts rho the same way.
 """
 
 from __future__ import annotations
@@ -15,14 +20,22 @@ from typing import Dict
 
 import torch
 
+from admm_lstm_torch.core.consensus import LOCAL, Consensus
 from admm_lstm_torch.core.state import ADMMState, GateSlabs, Penalties
 
 _FAMILIES = ('i', 'f', 'g', 'o', 'c', 'h', 'y')
 
 
-def _rms(x: torch.Tensor) -> torch.Tensor:
+def _mean_square(x: torch.Tensor) -> torch.Tensor:
     x = x.float()  # accumulate in f32 under bf16 slab storage
-    return torch.sqrt(torch.mean(x * x))
+    return torch.mean(x * x)
+
+
+def _rms(named: Dict[str, torch.Tensor],
+         consensus: Consensus) -> Dict[str, torch.Tensor]:
+    """{name: RMS of the tensor over the whole batch}, one all-reduce."""
+    means = consensus.means([_mean_square(x) for x in named.values()])
+    return {k: torch.sqrt(m) for k, m in zip(named, means)}
 
 
 def admm_residuals(state: ADMMState,
@@ -31,8 +44,9 @@ def admm_residuals(state: ADMMState,
     return admm_residuals_im(state, train_x.permute(1, 2, 0))
 
 
-def admm_residuals_im(state: ADMMState,
-                      x_im: torch.Tensor) -> Dict[str, torch.Tensor]:
+def admm_residuals_im(state: ADMMState, x_im: torch.Tensor,
+                      consensus: Consensus = LOCAL
+                      ) -> Dict[str, torch.Tensor]:
     """RMS primal residuals of each constraint family, on batch-minor
     (T, I, B) inputs.
 
@@ -49,26 +63,24 @@ def admm_residuals_im(state: ADMMState,
     acts = (torch.sigmoid(pre[0]), torch.sigmoid(pre[1]),
             torch.tanh(pre[2]), torch.sigmoid(pre[3]))
     gates_now = (g.i[1:], g.f[1:], g.g[1:], g.o[1:])
-    res = {}
-    for k, now, act in zip(('i', 'f', 'g', 'o'), gates_now, acts):
-        res[f'r_{k}'] = _rms(now - act)
-    res['r_c'] = _rms(g.c[1:] - (g.f[1:] * g.c[:-1] + g.i[1:] * g.g[1:]))
-    res['r_h'] = _rms(g.h[1:] - g.o[1:] * torch.tanh(g.c[1:]))
-    res['r_y'] = _rms(g.a - torch.einsum('hb,ho->ob', g.h[-1].to(p.wy.dtype),
-                                         p.wy))
-    return res
+    diffs = {f'r_{k}': now - act
+             for k, now, act in zip(('i', 'f', 'g', 'o'), gates_now, acts)}
+    diffs['r_c'] = g.c[1:] - (g.f[1:] * g.c[:-1] + g.i[1:] * g.g[1:])
+    diffs['r_h'] = g.h[1:] - g.o[1:] * torch.tanh(g.c[1:])
+    diffs['r_y'] = g.a - torch.einsum('hb,ho->ob', g.h[-1].to(p.wy.dtype),
+                                      p.wy)
+    return _rms(diffs, consensus)
 
 
-def dual_residuals(state: ADMMState,
-                   prev_gates: GateSlabs) -> Dict[str, torch.Tensor]:
+def dual_residuals(state: ADMMState, prev_gates: GateSlabs,
+                   consensus: Consensus = LOCAL) -> Dict[str, torch.Tensor]:
     """RMS dual residuals: rho_k * ||primal_k^new - primal_k^old||_RMS."""
     g, r = state.gates, state.rho
-    out = {}
-    for k in ('i', 'f', 'g', 'o', 'c', 'h'):
-        out[f's_{k}'] = getattr(r, k) * _rms(getattr(g, k)
-                                             - getattr(prev_gates, k))
-    out['s_y'] = r.y * _rms(g.a - prev_gates.a)
-    return out
+    diffs = {k: getattr(g, k) - getattr(prev_gates, k)
+             for k in ('i', 'f', 'g', 'o', 'c', 'h')}
+    diffs['y'] = g.a - prev_gates.a
+    rms = _rms(diffs, consensus)
+    return {f's_{k}': getattr(r, k) * rms[k] for k in _FAMILIES}
 
 
 def balanced_rho(rho: Penalties, primal: Dict[str, torch.Tensor],

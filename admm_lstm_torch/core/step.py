@@ -24,9 +24,20 @@ package's TPU rules for 'auto' (the Gauss-Seidel kernel only at T >= 16,
 the Jacobi kernel never) do not carry over.  Otherwise the Gauss-Seidel
 sweep runs the plain loop below, which mirrors the JAX package's
 `lax.scan` body, and the Jacobi sweep the kernel's plain version.  The
-JAX epoch-chunk programs become a plain Python loop in api.py; the only
-host syncs inside an epoch are the line searches of
+JAX epoch-chunk programs become a plain Python loop (`run_epochs`); the
+only host syncs inside an epoch are the line searches of
 solvers/prox_linear.py.
+
+Data parallelism (parallel/sharding.py) runs this epoch on each rank's
+block of the batch with `StepRules.consensus` set.  Every sum over the
+batch is then all-reduced: the readout gradient (with the Gram of h_T
+under the Lipschitz step), the weight stages' gradients, objectives and
+Gram systems (solvers/prox_linear.py, solvers/normal_eq.py), the final-h
+search's sums, the residuals of adaptive rho (core/residuals.py) and the
+training loss.  The `a` update scales by the global batch, the local
+block times the world.  Nothing else reduces over the batch: the gates,
+the duals and `a` are per sample, and the sweep kernels are independent
+per batch column, so they run unchanged on the local block.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from admm_lstm_torch.core.consensus import LOCAL, Consensus
 from admm_lstm_torch.core.residuals import (admm_residuals_im, balanced_rho,
                                             dual_residuals)
 from admm_lstm_torch.core.state import (ADMMState, DualSlabs, GateSlabs,
@@ -110,6 +122,9 @@ class StepRules:
     # Sets the bf16 rounding of the wide Gram operands (solvers/normal_eq);
     # every other product follows the process-wide matmul precision.
     matmul_precision: str = 'highest'
+    # The all-reduce of every batch sum under data parallelism; LOCAL (the
+    # identity) in a single process.
+    consensus: Consensus = LOCAL
 
 
 def rules_for(config: ADMMConfig) -> StepRules:
@@ -157,10 +172,15 @@ def _wy_update(state: ADMMState, rules: StepRules) -> torch.Tensor:
     resid = torch.einsum('hb,ho->ob', h_last, wy) - state.gates.a
     if rules.with_dual_y:
         resid = resid - state.duals.y / state.rho.y
-    grad = state.rho.y * torch.einsum('hb,ob->ho', h_last, resid)
+    grad_sum = torch.einsum('hb,ob->ho', h_last, resid)
+    if rules.wy_lipschitz:
+        grad_sum, gram = rules.consensus.all_sum_packed(grad_sum,
+                                                        h_last @ h_last.T)
+    else:
+        grad_sum = rules.consensus.all_sum(grad_sum)
+    grad = state.rho.y * grad_sum
     theta = torch.tensor(rules.wy_theta, dtype=wy.dtype, device=wy.device)
     if rules.wy_lipschitz:
-        gram = h_last @ h_last.T
         lip = state.rho.y * torch.linalg.eigvalsh(gram)[-1]
         theta = torch.maximum(theta, lip)
     denom = theta + rules.wy_beta_factor * state.beta.wy
@@ -205,13 +225,15 @@ def _weight_phase(state: ADMMState, x_im: torch.Tensor,
             new_w = gauss_newton_ridge_update_wide(
                 m_inputs, proj_self + proj_other, w_w, target_w, rho_g,
                 beta_g, tanh_cols, rules.matmul_precision,
-                use_pallas_chol=rules.use_pallas_chol)
+                use_pallas_chol=rules.use_pallas_chol,
+                consensus=rules.consensus)
             proj_new = (torch.einsum('tdb,dk->tkb', m_inputs, new_w)
                         if need_proj else None)
             return new_w, proj_new
         res = weight_stage_update_wide(m_inputs, proj_self, proj_other, w_w,
                                        target_w, rho_g, beta_g, tanh_cols,
-                                       seq_len, rules.max_backtrack)
+                                       seq_len, rules.max_backtrack,
+                                       consensus=rules.consensus)
         return res.weights, res.proj_new
 
     # Stage X: update x2{i,f,g,o}; hidden-side projection fixed at old wh.
@@ -331,10 +353,13 @@ def _sweep(state: ADMMState, x_im: torch.Tensor, params_new: LSTMParams,
         theta_max=rules.h_theta_max, max_iters=rules.max_backtrack,
         grad_uses_rho_h=rules.h_grad_uses_rho_h,
         probe_is_grad_over_theta=rules.h_probe_grad_over_theta,
-        to_out=to_out, from_out=from_out).h
+        to_out=to_out, from_out=from_out, consensus=rules.consensus).h
 
-    a_new = cf.a_update(y_im, to_out(h_T), rho.y, duals.y, batch,
-                        rules.with_dual_y)
+    # The a update scales by the whole (padded) batch, as the JAX package
+    # does under the mesh: the blocks are equal, so the local block times
+    # the world.
+    a_new = cf.a_update(y_im, to_out(h_T), rho.y, duals.y,
+                        batch * rules.consensus.world, rules.with_dual_y)
     lam_h_T = cf.dual_h_update(duals_T[5], rho.h, h_T, o_T, tanh_c_T)
 
     # --- Reassemble (T+1, H, B) slabs: zero row 0 | interior | final row. ---
@@ -406,8 +431,8 @@ def admm_step_im(state: ADMMState, x_im: torch.Tensor, y_im: torch.Tensor,
     live = (not rules.adapt_stop_epoch
             or new_state.epoch <= rules.adapt_stop_epoch)
     if rules.adaptive_rho and live:
-        primal = admm_residuals_im(new_state, x_im)
-        dual = dual_residuals(new_state, state.gates)
+        primal = admm_residuals_im(new_state, x_im, rules.consensus)
+        dual = dual_residuals(new_state, state.gates, rules.consensus)
         new_state = new_state._replace(rho=balanced_rho(
             new_state.rho, primal, dual, mu=rules.adapt_mu,
             tau=rules.adapt_tau))
@@ -423,12 +448,37 @@ def epoch_step(state: ADMMState, x_im: torch.Tensor, y_im: torch.Tensor,
     concatenated along the batch axis."""
     prev_gates = state.gates
     state = admm_step_im(state, x_im, y_im, rules)
-    train_l, val_l = train_val_mse_im(state.params, xall_im, y_im, vy_im)
+    train_l, val_l = train_val_mse_im(state.params, xall_im, y_im, vy_im,
+                                      rules.consensus)
     metrics = {'train_loss': train_l, 'val_loss': val_l}
     if with_residuals:
-        metrics.update(admm_residuals_im(state, x_im))
-        metrics.update(dual_residuals(state, prev_gates))
+        metrics.update(admm_residuals_im(state, x_im, rules.consensus))
+        metrics.update(dual_residuals(state, prev_gates, rules.consensus))
     return state, metrics
+
+
+def run_epochs(state: ADMMState, num_epochs: int, x_im: torch.Tensor,
+               y_im: torch.Tensor, xall_im: torch.Tensor, vy_im: torch.Tensor,
+               rules: StepRules, with_residuals: bool = False, best=None
+               ) -> Tuple[ADMMState, Dict[str, torch.Tensor]]:
+    """`num_epochs` epochs of `epoch_step`; returns the state and each
+    metric's (num_epochs,) trajectory, on the device.  `best`, a dict
+    {'val': 0-d tensor, 'params': LSTMParams}, is the best-validation
+    carry, updated in place on the device after every epoch."""
+    hist = []
+    for _ in range(num_epochs):
+        state, metrics = epoch_step(state, x_im, y_im, xall_im, vy_im, rules,
+                                    with_residuals=with_residuals)
+        hist.append(metrics)
+        if best is not None:
+            # NaN-safe on the device: NaN < best is False.
+            better = metrics['val_loss'] < best['val']
+            best['val'] = torch.where(better, metrics['val_loss'],
+                                      best['val'])
+            best['params'] = LSTMParams(*(
+                torch.where(better, new, old)
+                for new, old in zip(state.params, best['params'])))
+    return state, {k: torch.stack([m[k] for m in hist]) for k in hist[0]}
 
 
 def make_admm_step(config: ADMMConfig):

@@ -23,6 +23,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from admm_lstm_torch.core.consensus import LOCAL, Consensus
+
 # Gate order everywhere in this framework: i, f, g, o.
 GATE_ORDER = ('i', 'f', 'g', 'o')
 
@@ -160,14 +162,20 @@ def final_h_im(params: LSTMParams, x_im: torch.Tensor) -> torch.Tensor:
 
 
 def train_val_mse_im(params: LSTMParams, xall_im: torch.Tensor,
-                     y_im: torch.Tensor, vy_im: torch.Tensor):
+                     y_im: torch.Tensor, vy_im: torch.Tensor,
+                     consensus: Consensus = LOCAL):
     """Both epoch metrics from ONE forward over the train and validation
     inputs concatenated along the batch axis, (T, I, B + Bv).  Returns
-    0-d tensors on the inputs' device (no host sync)."""
+    0-d tensors on the inputs' device (no host sync).
+
+    Under data parallelism the train inputs are this rank's block of the
+    batch and the train loss is the global mean over `consensus`; the
+    validation inputs are whole on every rank (as the JAX package
+    replicates them), so the validation loss needs no reduction."""
     nb = y_im.shape[-1]
     h = final_h_im(params, xall_im)
     pred = torch.einsum('hb,ho->ob', h, params.wy)
-    train = torch.mean((pred[:, :nb] - y_im) ** 2)
+    train = consensus.mean(torch.mean((pred[:, :nb] - y_im) ** 2))
     val = torch.mean((pred[:, nb:] - vy_im) ** 2)
     return train, val
 

@@ -18,6 +18,14 @@ the wide, blocktri and pair Grams to bf16 and accumulates in f32
 back, and the product runs in f32: products of bf16 values are exact in
 f32 and in TF32, so the result matches the JAX package on the CPU and on
 the card.  Every other product follows the process-wide matmul precision.
+
+Under data parallelism (core/consensus.py) each rank builds the Gram stack
+and the first-order term from its block of the batch, and both are
+all-reduced in one packed call before the trace, the Levenberg-Marquardt
+anchor and the right-hand side; every rank then solves the same
+replicated systems.  The Gram strategy is picked from the global row
+count T * B, as the JAX package sees it, so that every rank takes the
+path (and, at 'default', the bf16 roundings) a single process takes.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from admm_lstm_torch.core.consensus import LOCAL, Consensus
 from admm_lstm_torch.kernels.cholesky import (MAX_DIM, chol_solve,
                                               chol_solve_plain)
 from admm_lstm_torch.solvers.blocked_chol import blocked_spd_solve
@@ -68,19 +77,20 @@ def _divisor_chunk(n_cols: int, budget: int) -> int:
 
 def _gram_bvec(s2: torch.Tensor, wres: torch.Tensor, m_inputs: torch.Tensor,
                matmul_precision: str = 'highest',
-               strategy: Optional[str] = None):
+               strategy: Optional[str] = None, world: int = 1):
     """Gram stack (K, D, D) and first-order term (K, D) from batch-minor
     slabs s2/wres (T, K, B) and design slab m_inputs (T, D, B):
 
       gram[k] = sum_{t,b} s2[t,k,b] * m[t,:,b] m[t,:,b]^T
       bvec[k] = sum_{t,b} wres[t,k,b] * m[t,:,b]
 
-    `strategy` forces one of GRAM_STRATEGIES; None picks by shape.
+    `strategy` forces one of GRAM_STRATEGIES; None picks by shape, with
+    the rows of all `world` ranks' equal blocks of the batch.
     """
     steps, n_cols, batch = s2.shape
     dim = m_inputs.shape[1]
     n_rows = steps * batch
-    strategy = strategy or _gram_strategy(n_cols, dim, n_rows)
+    strategy = strategy or _gram_strategy(n_cols, dim, n_rows * world)
     if strategy not in GRAM_STRATEGIES:
         raise ValueError(f'unknown Gram strategy {strategy!r}')
     if strategy == 'einsum':
@@ -170,7 +180,8 @@ def gauss_newton_ridge_update_wide(m_inputs: torch.Tensor, pre: torch.Tensor,
                                    tanh_cols: torch.Tensor,
                                    matmul_precision: str = 'highest',
                                    damping: float = 1e-6, prox: float = 0.25,
-                                   use_pallas_chol: object = 'auto'
+                                   use_pallas_chol: object = 'auto',
+                                   consensus: Consensus = LOCAL
                                    ) -> torch.Tensor:
     """The exact weight stage in the gate-folded, batch-minor layout.
 
@@ -204,7 +215,9 @@ def gauss_newton_ridge_update_wide(m_inputs: torch.Tensor, pre: torch.Tensor,
 
     resid = act - target_w
     s2 = d_act * d_act
-    gram, bvec = _gram_bvec(s2, d_act * resid, m_inputs, matmul_precision)
+    gram, bvec = consensus.all_sum_packed(*_gram_bvec(
+        s2, d_act * resid, m_inputs, matmul_precision,
+        world=consensus.world))
     eye = torch.eye(dim, dtype=dtype, device=device)
 
     trace = torch.einsum('kdd->k', gram) / dim             # (4H,)

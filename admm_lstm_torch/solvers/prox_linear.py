@@ -16,6 +16,13 @@ doubling in the final-h search (at most a handful: theta runs from theta0
 to theta_max by doublings).  These are the only host syncs inside an
 epoch.  Every search is capped at `max_iters` doublings, with the same
 first-acceptance and cap semantics as the JAX package.
+
+Under data parallelism (core/consensus.py) every objective sum of a line
+search is all-reduced before it is compared, so that every rank takes the
+same branch and makes the same number of host reads: in the weight stage
+the gradient and f(W) in one packed all-reduce, then each block's (K, 4)
+table of candidate objectives in one; in the final-h search f(h), then
+the three sums of each acceptance test in one packed all-reduce.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from admm_lstm_torch.core.consensus import LOCAL, Consensus
 
 # Candidate thetas evaluated per host sync of the weight-stage search.
 BLOCK_K = 8
@@ -40,7 +49,8 @@ def weight_stage_update_wide(m_inputs: torch.Tensor, proj_self: torch.Tensor,
                              proj_other: torch.Tensor, weights_w: torch.Tensor,
                              target_w: torch.Tensor, rho_g: torch.Tensor,
                              beta_g: torch.Tensor, tanh_cols: torch.Tensor,
-                             seq_len: int, max_iters: int) -> WideStageResult:
+                             seq_len: int, max_iters: int,
+                             consensus: Consensus = LOCAL) -> WideStageResult:
     """One side (input or hidden) of the gate-weight phase, all 4 gates at
     once, in the gate-folded batch-minor layout: slabs (T, 4H, B), weights
     (D, 4H) with columns ordered gate-major (k = g*H + h), design matrices
@@ -82,9 +92,12 @@ def weight_stage_update_wide(m_inputs: torch.Tensor, proj_self: torch.Tensor,
     u = torch.tanh(s_cols * pre)
     act_pre, dact_pre = a_cols + b_cols * u, c_cols * (1.0 - u * u)
     resid = act_pre - target_w
-    grad = rho_cols * torch.einsum('tdb,tkb->dk', m_inputs, resid * dact_pre)
+    grad_sum, sq_cols = consensus.all_sum_packed(
+        torch.einsum('tdb,tkb->dk', m_inputs, resid * dact_pre),
+        torch.sum(resid * resid, dim=(0, 2)))
+    grad = rho_cols * grad_sum
 
-    f_at_w = 0.5 * rho_g * per_gate(torch.sum(resid * resid, dim=(0, 2)))
+    f_at_w = 0.5 * rho_g * per_gate(sq_cols)
     grad_proj = torch.einsum('tdb,dk->tkb', m_inputs, grad)
 
     # <grad, diff> + T/2 * theta * |diff|^2 with diff = grad/theta
@@ -94,13 +107,13 @@ def weight_stage_update_wide(m_inputs: torch.Tensor, proj_self: torch.Tensor,
 
     def fails(cands):
         """(K, 4) candidate thetas -> (K, 4) table of those that fail."""
-        out = []
+        sums = []
         for th in cands:
             th_cols = torch.repeat_interleave(th, hidden)[:, None]
             r = act(pre + grad_proj / th_cols) - target_w
-            original = 0.5 * rho_g * per_gate(torch.sum(r * r, dim=(0, 2)))
-            out.append(original > f_at_w + est_coef / th)
-        return torch.stack(out)
+            sums.append(per_gate(torch.sum(r * r, dim=(0, 2))))
+        original = 0.5 * rho_g * consensus.all_sum(torch.stack(sums))
+        return original > f_at_w + est_coef / cands
 
     theta, iters = doubling_search(
         fails, torch.ones(4, dtype=dtype, device=weights_w.device), max_iters)
@@ -162,7 +175,8 @@ def h_final_update(h_old, o_new, tanh_c_new, lam_h, rho_h, wy, a_old,
                    theta_max: float, max_iters: int,
                    grad_uses_rho_h: bool = False,
                    probe_is_grad_over_theta: bool = False,
-                   to_out=None, from_out=None) -> HFinalResult:
+                   to_out=None, from_out=None,
+                   consensus: Consensus = LOCAL) -> HFinalResult:
     """Final-timestep h update: prox-linear on the output-fit term
     (admm.py:439-487; no-dual-y flavor admm.no_dual_y.py:414-449).
 
@@ -192,7 +206,7 @@ def h_final_update(h_old, o_new, tanh_c_new, lam_h, rho_h, wy, a_old,
     resid0 = hw0 - target
     grad = (rho_h if grad_uses_rho_h else rho_y) * from_out(resid0)
 
-    f_at_h = 0.5 * rho_y * torch.sum(resid0 * resid0)
+    f_at_h = 0.5 * rho_y * consensus.all_sum(torch.sum(resid0 * resid0))
     prox_num_fixed = rho_h * o_new * tanh_c_new - lam_h - grad
     # probe(theta) @ wy is affine in the hoisted products: the loop is
     # matmul-free.
@@ -206,10 +220,11 @@ def h_final_update(h_old, o_new, tanh_c_new, lam_h, rho_h, wy, a_old,
             beta = (theta * h_old + prox_num_fixed) / (theta + rho_h)
             beta_wy = (theta * hw0 + pnf_wy) / (theta + rho_h)
         r = beta_wy - target
-        original = 0.5 * rho_y * torch.sum(r * r)
         diff = beta - h_old
-        estimated = (f_at_h + torch.sum(grad * diff)
-                     + 0.5 * theta * torch.sum(diff * diff))
+        sq_r, cross, sq_diff = consensus.all_sum_packed(
+            torch.sum(r * r), torch.sum(grad * diff), torch.sum(diff * diff))
+        original = 0.5 * rho_y * sq_r
+        estimated = f_at_h + cross + 0.5 * theta * sq_diff
         return bool(original > estimated)                 # the host sync
 
     # theta doubles exactly in f32, so the host keeps its own f32 copy and

@@ -84,7 +84,9 @@ class ADMMConfig:
     # Final-timestep h line search bounds (reference: admm.py:447-449).
     h_theta0: float = 0.1
     h_theta_max: float = 1.0
-    # Mesh: axis names and sizes; None => single device.  Not ported yet.
+    # Mesh: axis names and sizes; None => single device.  A 1-D
+    # ('data',) mesh is data parallelism (api.train_sharded); a 2-D
+    # (data, model) mesh is not ported yet.
     mesh_shape: Optional[Tuple[int, ...]] = None
     mesh_axes: Tuple[str, ...] = ('data',)
     # Exact ridge/normal-equation weight solve (solvers/normal_eq.py) for
@@ -158,6 +160,9 @@ class ADMMConfig:
 
 def unsupported_reason(config: ADMMConfig) -> Optional[str]:
     """Why this slice of the port cannot train `config`, or None."""
-    if config.mesh_shape is not None:
-        return f'mesh_shape (data-parallel training) arrives in {LATER}'
+    if config.mesh_shape is not None and len(config.mesh_shape) > 1:
+        return (f'mesh_shape {tuple(config.mesh_shape)}: a 2-D (data, '
+                f'model) mesh is hidden-axis tensor parallelism, which '
+                f'arrives in {LATER}; data parallelism takes a 1-D mesh '
+                f'(n,)')
     return None

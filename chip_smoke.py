@@ -71,6 +71,21 @@ Phases, each fatal on failure:
                launches; one epoch of each ADMM variant on the card
                against the CPU; and each variant's and baseline's ms per
                epoch, host syncs and device operations per epoch.
+  8. sharded - data-parallel consensus ADMM (api.train_sharded and the
+               sharded epoch function) on GoogleStock at H 10 from the
+               reference's seed-0 weights, each rank a process of its own
+               (parallel/launch.spawn, a timeout on the rendezvous, every
+               collective and the join): two gloo ranks on the one card,
+               default config, 30 epochs, on slice 1's trajectory within
+               rtol 1e-4 and the reference's val30, the ranks' weights
+               bit-equal, 30 interior_sweep launches on each rank; the
+               same two ranks under auto() at 'highest' for 30 epochs,
+               rho equal to the single-process run after every epoch, val
+               within rtol 1e-4, at least 30 jacobi_sweep and 60
+               chol_solve launches on each rank; one NCCL rank, 5 epochs,
+               bit-equal to api.train.  It logs each run's ms per epoch
+               (two ranks on one card share it: not a scaling figure) and
+               the all-reduces and bytes all-reduced per epoch per rank.
 Then it prints the card's name and power limit, one JSON line describing
 every kernel, and as the last line {"ok": true, "device": {...}}.
 It exits non-zero, printing no result line, without a CUDA card.
@@ -316,6 +331,11 @@ COMPARISON_RTOL = 1e-6
 # One legacy epoch on the card against the same epoch on the CPU: each
 # leaf within LEGACY_RTOL of its scale (as Path B's).
 LEGACY_RTOL = 1e-5
+# The sharded phase: each rank a process; its runs are held to one
+# process's at this relative tolerance (the order of the all-reduced sums
+# differs), and every rendezvous, collective and join is bounded.
+SHARDED_RTOL = 1e-4
+SHARDED_TIMEOUT = 300
 
 
 def log(msg):
@@ -770,7 +790,7 @@ def phase_slice1(tx, ty, vx, vy, ps, weights):
     res2 = run()
     log(f'[train] slice 1 warm rerun: '
         f'{res2["seconds"] * 1e3 / EPOCHS:.3f} ms/epoch')
-    return launches
+    return launches, train_l, val_l
 
 
 def _auto_rho_run(tx, ty, ps, weights, cfg):
@@ -1462,6 +1482,191 @@ def phase_legacy(tx, ty, vx, vy, ps, weights):
     return launches
 
 
+def _sharded_rank(rank, world, job):
+    """One rank of the `sharded` phase (parallel/launch.spawn runs it in a
+    process of its own): `job['kind']` 'train' drives api.train_sharded
+    twice, the first run paying the new process's first-use costs (the
+    cuBLAS handle, the kernels' modules) and the second measured, then
+    times one all-reduce; 'epochs' drives the sharded epoch function one
+    epoch at a time, reading rho after each.  The launch counts are
+    zeroed just before the measured run and read just after, in this
+    process."""
+    from admm_lstm_torch import api
+    from admm_lstm_torch.core.init import init_admm_state
+    from admm_lstm_torch.models.lstm import params_from_dict
+    from admm_lstm_torch.parallel import (make_mesh, make_sharded_epoch_fn,
+                                          pad_batch, shard_batch)
+    from admm_lstm_torch.utils.device import matmul_precision
+    from admm_lstm_torch.utils.logging import set_console_enabled
+    set_console_enabled(False)
+    tx, ty, vx, vy = job['data']
+    cfg, ps = job['config'], job['ps']
+    params = params_from_dict(job['weights'])
+    if job['kind'] == 'train':
+        run = lambda: api.train_sharded(tx, ty, vx, vy, ps, cfg,
+                                        params=params, log_every=0,
+                                        device='cuda')
+        cold = run()
+        kernels = _zero_launches()
+        res = run()
+        res['launches'] = {n: k.launches for n, k in kernels.items()}
+        res['cold_seconds'] = cold['seconds']
+        res['all_reduce_ms'] = _all_reduce_ms()
+        return res
+    mesh = make_mesh(cfg.mesh_shape, device='cuda')
+    x, y = shard_batch(*pad_batch(tx, ty, world), mesh)
+    vx_t, vy_t = (torch.from_numpy(a).to(mesh.device) for a in (vx, vy))
+    epoch = make_sharded_epoch_fn(cfg, mesh)
+    rho, val = [], []
+    with matmul_precision(cfg.matmul_precision):
+        state = init_admm_state(params.to(mesh.device), x, ps, cfg)
+        kernels = _zero_launches()
+        torch.cuda.synchronize()
+        ends = [time.perf_counter()]
+        for _ in range(cfg.epochs):
+            state, metrics = epoch(state, x, y, vx_t, vy_t)
+            rho.append([float(getattr(state.rho, k)) for k in 'cfghioy'])
+            val.append(float(metrics['val_loss']))
+            ends.append(time.perf_counter())      # the reads synchronize
+    return {'rho': rho, 'val_loss': val, 'params': state.params,
+            'epoch_ms': float(np.median(np.diff(ends)[1:]) * 1e3),
+            'mesh': mesh.describe(),
+            'launches': {n: k.launches for n, k in kernels.items()}}
+
+
+def _all_reduce_ms(reps=200):
+    """Host-clock ms of one all-reduce of a 16-float CUDA tensor (an
+    epoch's typical size) over the process group, warm; None at world
+    1."""
+    import torch.distributed as dist
+    if dist.get_world_size() == 1:
+        return None
+    t = torch.zeros(16, device='cuda')
+    for _ in range(10):
+        dist.all_reduce(t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _per_epoch(mesh, epochs, first=1):
+    """All-reduces and bytes all-reduced per epoch on one rank, without
+    the `first` reductions made before the epochs (the initial losses)."""
+    calls = (mesh['all_reduces'] - first) / epochs
+    return calls, mesh['bytes_all_reduced'] / epochs
+
+
+def phase_sharded(tx, ty, vx, vy, ps, weights, slice1_train, slice1_val,
+                  card):
+    from admm_lstm_torch import api
+    from admm_lstm_torch.models.lstm import params_from_dict
+    from admm_lstm_torch.parallel.launch import spawn
+    from admm_lstm_torch.utils.config import ADMMConfig
+    data = (tx, ty, vx, vy)
+    job = lambda kind, cfg: dict(kind=kind, data=data, config=cfg, ps=ps,
+                                 weights=weights)
+    run = lambda world, backend, one_job: spawn(
+        _sharded_rank, world, args=(one_job,), backend=backend,
+        timeout=SHARDED_TIMEOUT)
+
+    # Two gloo ranks on the one card, the default config.
+    cfg = ADMMConfig(epochs=EPOCHS, hidden_size=10, mesh_shape=(2,))
+    ranks = run(2, 'gloo', job('train', cfg))
+    r0 = ranks[0]
+    train_l, val_l = np.asarray(r0['train_loss']), np.asarray(r0['val_loss'])
+    np.testing.assert_allclose(train_l, slice1_train, rtol=SHARDED_RTOL)
+    np.testing.assert_allclose(val_l, slice1_val, rtol=SHARDED_RTOL)
+    if not val_l[-1] <= REF_VAL_30 * 1.05:
+        raise AssertionError(f'sharded val30 {val_l[-1]} above the '
+                             f'reference {REF_VAL_30} x 1.05')
+    for a, b in zip(r0['params'], ranks[1]['params']):
+        if not torch.equal(a, b):
+            raise AssertionError('sharded: the ranks\' weights differ')
+    for rank, r in enumerate(ranks):
+        if r['launches']['interior_sweep'] != EPOCHS:
+            raise AssertionError(f'sharded rank {rank}: interior_sweep '
+                                 f'launched {r["launches"]}')
+    calls, nbytes = _per_epoch(r0['mesh'], EPOCHS)
+    log(f'[sharded] 2 gloo ranks on one card, default config: val30 '
+        f'{val_l[-1]:.6f}, largest gap to slice 1 '
+        f'{_gap(val_l, slice1_val):.3g}, weights bit-equal, launches per '
+        f'rank {[r["launches"] for r in ranks]}; '
+        f'{[r["seconds"] * 1e3 / EPOCHS for r in ranks]} ms/epoch per rank '
+        f'warm ({[r["cold_seconds"] * 1e3 / EPOCHS for r in ranks]} in '
+        f'the first run of the process; host clock, synchronized; two '
+        f'ranks share one card, not a scaling figure) on {card}; '
+        f'{calls!r} all-reduces and {nbytes!r} bytes all-reduced per epoch '
+        f'per rank; one all-reduce of 16 floats '
+        f'{[r["all_reduce_ms"] for r in ranks]} ms')
+    out = {'sharded': r0['launches']}
+
+    # The same two ranks under auto() at 'highest', rho after every epoch.
+    cfg = ADMMConfig.auto(epochs=EPOCHS, hidden_size=10,
+                          matmul_precision='highest', mesh_shape=(2,))
+    single = api.ADMMBasedOptimizer(params_from_dict(weights), (tx, ty), ps,
+                                    cfg.replace(mesh_shape=None),
+                                    device='cuda')
+    want_rho = []
+    for _ in range(EPOCHS):
+        single.step()
+        want_rho.append([float(getattr(single.state.rho, k))
+                         for k in 'cfghioy'])
+    want_val = api.train(tx, ty, vx, vy, ps, cfg.replace(mesh_shape=None),
+                         params=params_from_dict(weights), log_every=0,
+                         device='cuda')['val_loss'][1:]
+    ranks = run(2, 'gloo', job('epochs', cfg))
+    for rank, r in enumerate(ranks):
+        if r['rho'] != want_rho:
+            bad = [e + 1 for e in range(EPOCHS) if r['rho'][e] != want_rho[e]]
+            raise AssertionError(f'sharded auto rank {rank}: rho differs '
+                                 f'from the single-process run after '
+                                 f'epochs {bad}')
+        need(r['launches'], 'jacobi_sweep', EPOCHS, f'sharded auto {rank}')
+        need(r['launches'], 'chol_solve', 2 * EPOCHS, f'sharded auto {rank}')
+    np.testing.assert_allclose(ranks[0]['val_loss'], want_val,
+                               rtol=SHARDED_RTOL)
+    for a, b in zip(ranks[0]['params'], ranks[1]['params']):
+        if not torch.equal(a, b):
+            raise AssertionError('sharded auto: the ranks\' weights differ')
+    calls, nbytes = _per_epoch(ranks[0]['mesh'], EPOCHS, first=0)
+    log(f'[sharded] 2 gloo ranks on one card, auto() at highest: rho equal '
+        f'to the single-process run after every epoch, val30 '
+        f'{ranks[0]["val_loss"][-1]:.6f} (single process '
+        f'{want_val[-1]:.6f}), launches per rank '
+        f'{[r["launches"] for r in ranks]}; '
+        f'{[r["epoch_ms"] for r in ranks]} ms/epoch per rank (the median '
+        f'epoch after the first, host clock, a rho read an epoch; one card '
+        f'shared) on {card}; '
+        f'{calls!r} all-reduces and {nbytes!r} bytes all-reduced per epoch '
+        f'per rank')
+    out['sharded_auto'] = ranks[0]['launches']
+
+    # One NCCL rank: an all-reduce over one rank changes no sum.
+    cfg = ADMMConfig(epochs=5, hidden_size=10)
+    want = api.train(tx, ty, vx, vy, ps, cfg, params=params_from_dict(weights),
+                     log_every=0, device='cuda')
+    (got,) = run(1, 'nccl', job('train', cfg.replace(mesh_shape=(1,))))
+    if got['mesh']['backend'] != 'nccl':
+        raise AssertionError(f'NCCL rank ran on {got["mesh"]["backend"]}')
+    if (got['train_loss'] != want['train_loss']
+            or got['val_loss'] != want['val_loss']):
+        raise AssertionError('NCCL world 1 differs from api.train: '
+                             f'{got["val_loss"]} vs {want["val_loss"]}')
+    for a, b in zip(got['params'], want['params']):
+        if not torch.equal(a, b.cpu()):
+            raise AssertionError('NCCL world 1 weights differ from '
+                                 'api.train')
+    log(f'[sharded] 1 NCCL rank, 5 epochs: bit-equal to api.train; '
+        f'{got["seconds"] * 1e3 / 5!r} ms/epoch warm '
+        f'({got["cold_seconds"] * 1e3 / 5!r} in the first run of the '
+        f'process; api.train here {want["seconds"] * 1e3 / 5!r}) on '
+        f'{card}')
+    return out
+
+
 def card_name_and_power():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -1490,17 +1695,21 @@ def main() -> int:
     weights = {k[3:]: g[k] for k in g.files if k.startswith('w0_')}
     (tx, ty, vx, vy), ps, _ = load_dataset('GoogleStock')
     # Each kernel's launch count comes from the run of its own path.
-    launches = {'slice1': phase_slice1(tx, ty, vx, vy, ps, weights),
-                'path_a': phase_path_a(tx, ty, vx, vy, ps, weights),
-                'path_b': phase_path_b()}
+    launches = {}
+    launches['slice1'], slice1_train, slice1_val = phase_slice1(
+        tx, ty, vx, vy, ps, weights)
+    launches.update({'path_a': phase_path_a(tx, ty, vx, vy, ps, weights),
+                     'path_b': phase_path_b()})
     launches.update(phase_datasets())
     launches['tune'], tune_seconds = phase_tune(tx, ty, vx, vy, ps, weights)
     phase_resume()
     (launches['stacked'], launches['stacked_best'],
      stacked_seconds) = phase_stacked()
     launches['legacy'] = phase_legacy(tx, ty, vx, vy, ps, weights)
-
     card = card_name_and_power()
+    launches.update(phase_sharded(tx, ty, vx, vy, ps, weights, slice1_train,
+                                  slice1_val, card))
+
     log(f'[card] {card}')
     meta = {
         'interior_sweep': ('admm_lstm_torch/csrc/gate_sweep.cu',

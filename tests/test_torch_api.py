@@ -126,8 +126,9 @@ def test_torch_train_needs_a_card_unless_asked_for_cpu():
                                 dict(resume_from='ckpt')])
 def test_torch_train_unported_options_raise(kw, tmp_path):
     """The checkpoint options run now (a resume from an empty directory
-    starts from scratch, as in the JAX package); train_sharded still
-    raises."""
+    starts from scratch, as in the JAX package); train_sharded runs a 1-D
+    mesh (tests/test_torch_parallel*.py) and still raises for a 2-D one,
+    which is tensor parallelism."""
     (tx, ty, vx, vy), ps, _ = load_dataset('Synthetic', batch=8, val_batch=4)
     kw = {k: str(tmp_path / v) for k, v in kw.items()}
     res = api.train(tx, ty, vx, vy, ps, ADMMConfig(epochs=2), device='cpu',
@@ -136,8 +137,9 @@ def test_torch_train_unported_options_raise(kw, tmp_path):
     saved = sorted(os.listdir(tmp_path / 'ckpt'))
     assert saved == (['step_1.pt', 'step_2.pt'] if 'checkpoint_dir' in kw
                      else [])
-    with pytest.raises(NotImplementedError, match='train_sharded'):
-        api.train_sharded(tx, ty, vx, vy, ps, ADMMConfig(epochs=1))
+    with pytest.raises(NotImplementedError, match='tensor parallelism'):
+        api.train_sharded(tx, ty, vx, vy, ps,
+                          ADMMConfig(epochs=1, mesh_shape=(2, 2)))
 
 
 @pytest.mark.parametrize('cfgkw', [dict(epochs=8), dict(epochs=40)],
@@ -222,8 +224,8 @@ def test_torch_cli_without_card_or_cpu_fails(tmp_path):
     assert 'no CUDA device was found' in proc.stdout
 
 
-@pytest.mark.parametrize('flag', [['--mesh', '2'], ['--scenarios', '2'],
-                                  ['--save']])
+@pytest.mark.parametrize('flag', [['--record_matlab_data'],
+                                  ['--scenarios', '2'], ['--save']])
 def test_torch_cli_later_slice_flags_fail(flag):
     from admm_lstm_torch.cli import main
     assert main(['--cpu', '-y', '-e', '1', '--no-plot', *flag]) != 0

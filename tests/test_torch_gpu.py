@@ -1,5 +1,6 @@
 """Tests of the port's CUDA kernels (the Gauss-Seidel and Jacobi sweeps,
-the batched Cholesky solve and inverse) and of the legacy variants' epochs
+the batched Cholesky solve and inverse), of the legacy variants' epochs
+and of data-parallel ranks (gloo ranks sharing the card, one NCCL rank)
 on the card; they need a CUDA card and skip without one.  This file imports no JAX, so it also runs where JAX is not
 installed:
 
@@ -386,3 +387,83 @@ def test_torch_cuda_legacy_epochs_match_cpu(cuda):
     tx, ty, _, _ = synth(batch=256, seq_len=6, input_size=2, output_size=1,
                          val_batch=8)
     assert chip_smoke._legacy_epoch_vs_cpu(tx, ty) <= 1.0
+
+
+def _sharded_cases(cfg, tx, ty, vx, vy, params):
+    return [dict(train_x=tx, train_y=ty, val_x=vx, val_y=vy,
+                 parameter_set=parameter_set('Synthetic'), config=cfg,
+                 params=params, log_every=0, device='cuda')]
+
+
+@pytest.mark.parametrize('sweep_mode', ['gauss_seidel', 'jacobi'])
+def test_torch_cuda_gloo_ranks_sharing_the_card_match_one_process(
+        cuda, sweep_mode, tmp_path):
+    """Two gloo ranks on the one card, each running the sweep kernel on
+    its block of the batch, against the single-process kernel run (the
+    counterpart of test_sharding.py::test_dp_pallas_sweep_matches_
+    unsharded); the ranks' weights bit-equal."""
+    from admm_lstm_torch import api
+    from admm_lstm_torch.kernels import build
+    from admm_lstm_torch.parallel.launch import spawn, train_cases
+    build.build_all(['gate_sweep', 'cholesky'])   # once, before the ranks
+    tx, ty, vx, vy = synth(batch=256, seq_len=20, input_size=2,
+                           output_size=1, val_batch=32)
+    params = init_lstm_params(torch.Generator().manual_seed(0), 2, 8, 1)
+    cfg = ADMMConfig(hidden_size=8, epochs=3, use_pallas_sweep=True,
+                     sweep_mode=sweep_mode)
+    ref = api.train(tx, ty, vx, vy, parameter_set('Synthetic'), cfg,
+                    params=params, log_every=0, device='cuda')
+    r0, r1 = (r[0] for r in spawn(
+        train_cases, 2, args=(_sharded_cases(cfg.replace(mesh_shape=(2,)),
+                                             tx, ty, vx, vy, params),),
+        backend='gloo', timeout=300, workdir=str(tmp_path)))
+    for a, b, want in zip(r0['params'], r1['params'], ref['params']):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), want.cpu().numpy(), atol=ATOL)
+    np.testing.assert_allclose(r0['state'].gates.h.numpy(),
+                               ref['state'].gates.h.cpu().numpy(), atol=ATOL)
+    np.testing.assert_allclose(r0['val_loss'], ref['val_loss'], rtol=1e-5)
+
+
+def test_torch_cuda_nccl_one_rank_is_bit_equal_to_train(cuda, tmp_path):
+    """One NCCL rank: the consensus is the identity, so the run is
+    api.train's bit for bit."""
+    from admm_lstm_torch import api
+    from admm_lstm_torch.parallel.launch import spawn, train_cases
+    tx, ty, vx, vy = synth(batch=256, seq_len=10, input_size=2,
+                           output_size=1, val_batch=32)
+    params = init_lstm_params(torch.Generator().manual_seed(0), 2, 8, 1)
+    cfg = ADMMConfig(hidden_size=8, epochs=3)
+    ref = api.train(tx, ty, vx, vy, parameter_set('Synthetic'), cfg,
+                    params=params, log_every=0, device='cuda')
+    (got,), = spawn(train_cases, 1, args=(_sharded_cases(
+        cfg.replace(mesh_shape=(1,)), tx, ty, vx, vy, params),),
+        backend='nccl', timeout=300, workdir=str(tmp_path))
+    assert got['mesh']['backend'] == 'nccl'
+    assert got['val_loss'] == ref['val_loss']
+    assert got['train_loss'] == ref['train_loss']
+    for a, b in zip(got['params'], ref['params']):
+        assert torch.equal(a, b.cpu())
+
+
+def test_torch_cuda_nccl_refuses_ranks_sharing_a_card(cuda, tmp_path):
+    """The backend rule: NCCL only when each rank has a card of its own;
+    ranks that would share one must ask for gloo, and the error says so,
+    both before the ranks start (backend_for) and in a rank (make_mesh)."""
+    from admm_lstm_torch.parallel import backend_for
+    from admm_lstm_torch.parallel.launch import spawn, train_cases
+    cards = torch.cuda.device_count()
+    assert backend_for('cuda', cards) == 'nccl'
+    assert backend_for('cuda', cards + 1, 'gloo') == 'gloo'
+    with pytest.raises(ValueError, match='gloo'):
+        backend_for('cuda', cards + 1)
+    if cards > 1:
+        pytest.skip('the in-rank check needs ranks sharing one card')
+    tx, ty, vx, vy = synth(batch=16, seq_len=3, input_size=2, output_size=1,
+                           val_batch=4)
+    params = init_lstm_params(torch.Generator().manual_seed(0), 2, 4, 1)
+    cfg = ADMMConfig(hidden_size=4, epochs=1, mesh_shape=(2,))
+    with pytest.raises(RuntimeError, match='gloo'):
+        spawn(train_cases, 2, args=(_sharded_cases(cfg, tx, ty, vx, vy,
+                                                   params),),
+              backend='nccl', timeout=120, workdir=str(tmp_path))

@@ -56,11 +56,16 @@ def test_torch_port_sources_exist():
                                     'variants/admm_s.py',
                                     'variants/grad_based.py',
                                     'comparison.py',
-                                    'data/admm_s_cache.py'])
+                                    'data/admm_s_cache.py',
+                                    'core/consensus.py',
+                                    'parallel/__init__.py',
+                                    'parallel/mesh.py',
+                                    'parallel/sharding.py',
+                                    'parallel/launch.py'])
 def test_torch_turbo_leg_modules_are_guarded(module):
     """The slice-2 modules, the stacked variant, the legacy variants, the
-    gradient baselines and the comparison harness are among the sources
-    the guard walks."""
+    gradient baselines, the comparison harness and the data-parallel
+    modules are among the sources the guard walks."""
     path = os.path.join(ROOT, 'admm_lstm_torch', module)
     assert path in _sources()
     assert _bad_imports(path) == []
