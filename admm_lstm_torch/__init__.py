@@ -10,14 +10,17 @@ plain PyTorch version that the CPU path and the tests use.
 
 Layout:
   core/      ADMMState + the one-epoch `admm_step`
-  variants/  the stacked N-layer variant (`train_stacked`)
+  variants/  the stacked N-layer variant (`train_stacked`), ADMM-L,
+             ADMM-S, the gradient baselines
+  parallel/  data-parallel consensus over torch.distributed
   solvers/   closed-form / prox-linear / exact (normal-equation) solvers
   kernels/   CUDA kernels (ctypes-bound) with their plain versions
   models/    the LSTM-Linear model as plain functions
   data/      dataset loaders (numpy)
   ckpt/      checkpoint/resume of the full ADMM state, .npz models
   tune.py    the rho search
-  utils/     config, logging, timing, plotting, device policy
+  visualize.py  predictions of saved models against the test split
+  utils/     config, logging, timing, plotting, profiling, device policy
 """
 
 __version__ = '0.1.0'
@@ -29,12 +32,13 @@ from admm_lstm_torch.core.step import admm_step, make_admm_step
 from admm_lstm_torch.core.init import init_admm_state
 from admm_lstm_torch.models.lstm import (LSTMParams, init_lstm_params,
                                          lstm_forward, params_from_numpy)
-from admm_lstm_torch.api import ADMMBasedOptimizer, train
+from admm_lstm_torch.api import (ADMMBasedOptimizer, train, train_scenarios,
+                                 train_sharded)
 
 __all__ = [
     'ADMMConfig', 'ParameterSet', 'ADMMState',
     'admm_step', 'make_admm_step', 'init_admm_state',
     'LSTMParams', 'lstm_forward', 'init_lstm_params', 'params_from_numpy',
-    'ADMMBasedOptimizer', 'train',
+    'ADMMBasedOptimizer', 'train', 'train_sharded', 'train_scenarios',
     'example_parameter_dictionary', 'default_epoch',
 ]

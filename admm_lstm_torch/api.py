@@ -13,6 +13,10 @@ missing unless the caller asked for the CPU.  They set the process-wide
 TF32 flags from `ADMMConfig.matmul_precision` for the work they run and
 restore them afterwards.
 
+`train_scenarios` trains S independent problems (the multi-ticker
+scenario batch) one after another; the JAX package vmaps them into one
+program.
+
 `train_sharded` is data-parallel consensus ADMM over `torch.distributed`
 (parallel/): one process per rank, each holding a contiguous block of
 the batch, the weights replicated.  Every batch sum of the epoch (the
@@ -635,6 +639,87 @@ def train_best_stacked(train_x, train_y, val_x, val_y,
     result['candidate_rho'] = {name: dict(pset.rho)
                                for name, pset in candidates.items()}
     return result
+
+
+def scenario_generator(seed: int, scenario: int) -> torch.Generator:
+    """The generator of scenario `scenario`'s initial weights, seeded from
+    (seed, scenario) (JAX splits PRNGKey(seed), which torch cannot
+    reproduce)."""
+    state = np.random.SeedSequence((seed, scenario)).generate_state(1)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
+def train_scenarios(xs, ys, vxs, vys,
+                    parameter_set: ParameterSet | Dict,
+                    config: ADMMConfig = ADMMConfig(),
+                    params: Optional[LSTMParams] = None,
+                    device='cuda') -> Dict[str, object]:
+    """Train S independent ADMM instances (JAX api.py:616-674; BASELINE
+    config 3, the multi-ticker scenario batch).
+
+    xs (S,B,T,I), ys (S,B,O), vxs (S,Bv,T,I), vys (S,Bv,O): one training
+    problem per scenario.  `params`: the S initial weights as LSTMParams
+    whose leaves have a leading S axis (default: scenario s draws
+    `init_lstm_params` from `scenario_generator(config.seed, s)`).
+
+    The JAX package vmaps the S instances into one program, its line
+    searches masked per instance.  Here they train one after another on
+    `device`, each through `run_epochs` and its kernels, so each
+    scenario's numbers are those of a run alone, as JAX's are.  The
+    losses come from `train_val_mse_im`'s one forward (JAX calls
+    `mse_loss` twice; the values agree) and stay on the device until
+    every scenario has run.
+
+    Returns 'name', 'train_loss' and 'val_loss' (numpy (S, epochs+1)),
+    'params' (LSTMParams with a leading S axis), 'state' (the list of the
+    S final ADMMStates: `epoch` is a host int, so they do not stack) and
+    'seconds'.
+    """
+    rules = rules_for(config)
+    device = resolve_device(device)
+    if isinstance(parameter_set, dict):
+        parameter_set = ParameterSet.from_dict(parameter_set)
+    xs, ys, vxs, vys = (_as_tensor(a, device) for a in (xs, ys, vxs, vys))
+    n_scen = xs.shape[0]
+    if params is None:
+        inits = [init_lstm_params(scenario_generator(config.seed, s),
+                                  xs.shape[3], config.hidden_size,
+                                  ys.shape[2], device=device)
+                 for s in range(n_scen)]
+    else:
+        inits = [LSTMParams(*(w[s] for w in params)).to(device)
+                 for s in range(n_scen)]
+
+    timer = Timer()
+    states, train_traj, val_traj = [], [], []
+    with matmul_precision(config.matmul_precision):
+        timer.start()
+        for s in range(n_scen):
+            x_im, y_im, xall_im, vy_im = batch_minor(xs[s], ys[s], vxs[s],
+                                                     vys[s])
+            state = init_admm_state(inits[s], xs[s], parameter_set, config)
+            initial = train_val_mse_im(state.params, xall_im, y_im, vy_im)
+            state, hist = run_epochs(state, config.epochs, x_im, y_im,
+                                     xall_im, vy_im, rules)
+            states.append(state)
+            train_traj.append(torch.cat([initial[0][None],
+                                         hist['train_loss']]))
+            val_traj.append(torch.cat([initial[1][None], hist['val_loss']]))
+        train_np = torch.stack(train_traj).cpu().numpy()
+        val_np = torch.stack(val_traj).cpu().numpy()
+        timer.pause()
+    info(f'{n_scen} scenarios x {config.epochs} epochs, one after another: '
+         f'{timer.get_elapsed_time():.2f}s; final val '
+         f'{[round(float(v), 6) for v in val_np[:, -1]]}')
+    return {
+        'name': f'Scenario ADMM-LSTM [{config.variant}]',
+        'train_loss': train_np,
+        'val_loss': val_np,
+        'params': LSTMParams(*(torch.stack(leaves) for leaves in
+                               zip(*(st.params for st in states)))),
+        'state': states,
+        'seconds': timer.get_elapsed_time(),
+    }
 
 
 def train_sharded(train_x, train_y, val_x, val_y,

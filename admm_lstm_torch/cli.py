@@ -3,9 +3,10 @@
 Usage: python -m admm_lstm_torch.cli [-d GoogleStock] [-e 100] [--hidden 10] ...
 
 Runs on the CUDA card unless --cpu is given; with neither a card nor
---cpu it exits non-zero.  Flags of paths not ported yet are accepted by
-the parser so that they fail with a clear message instead of "unknown
-argument".
+--cpu it exits non-zero.  `--scenarios S` trains the YahooFinance scenario
+batch (api.train_scenarios); `--save` writes the final weights under
+SAVED_MODELS/ and `--record_matlab_data` the validation curve to
+ADMM_Val.mat, both in the working directory.
 """
 
 from __future__ import annotations
@@ -14,16 +15,14 @@ import argparse
 import sys
 from typing import Optional
 
+import numpy as np
 import torch
 
 from admm_lstm_torch import __version__
 from admm_lstm_torch.params import default_epoch
-from admm_lstm_torch.utils.config import AUTO_FIELDS, LATER, ADMMConfig
+from admm_lstm_torch.utils.config import AUTO_FIELDS, ADMMConfig
 from admm_lstm_torch.utils.device import NoCudaDeviceError, resolve_device
 from admm_lstm_torch.utils.logging import ADMMError, error, info, log_assert
-
-# Flags of the JAX CLI whose paths arrive in later slices of the port.
-_LATER_FLAGS = ('scenarios', 'save', 'record_matlab_data')
 
 
 def generate_parser() -> argparse.ArgumentParser:
@@ -57,6 +56,8 @@ def generate_parser() -> argparse.ArgumentParser:
                         help='Skip interactive confirmation')
     parser.add_argument('--cpu', action='store_true',
                         help='Run on the CPU (the default is the CUDA card)')
+    parser.add_argument('--save', action='store_true',
+                        help='Save the final model under SAVED_MODELS/')
     parser.add_argument('--variant', default='fast',
                         choices=['fast', 'no_dual_y', 'admm_l', 'admm_s'],
                         help='ADMM solver variant')
@@ -112,6 +113,12 @@ def generate_parser() -> argparse.ArgumentParser:
                              'one process each (0 = one process); NCCL '
                              'when each rank has a card of its own, else '
                              'gloo')
+    parser.add_argument('--scenarios', default=0, type=int, metavar='S',
+                        help='Train S independent scenario batches, one '
+                             'after another (YahooFinance multi-ticker '
+                             'config, api.train_scenarios)')
+    parser.add_argument('--record_matlab_data', action='store_true',
+                        help='Export validation losses as a .mat file')
     parser.add_argument('--plot', action='store_true', default=True)
     parser.add_argument('--no-plot', dest='plot', action='store_false')
     # The comparison harness's knobs (python -m admm_lstm_torch.comparison).
@@ -123,12 +130,6 @@ def generate_parser() -> argparse.ArgumentParser:
                         help='Path to a recorded ADMM-LSTM-S trajectory in '
                              'either reference format (admm_s/results.py or '
                              'ADMM-LSTM.<dataset>) to overlay')
-    later = parser.add_argument_group('not ported yet (exit non-zero)')
-    for flag in ('save', 'record_matlab_data'):
-        later.add_argument(f'--{flag}', action='store_true',
-                           help=argparse.SUPPRESS)
-    later.add_argument('--scenarios', default=None, type=int,
-                       help=argparse.SUPPRESS)
     return parser
 
 
@@ -181,6 +182,54 @@ def _train_legacy(args, seed, train_x, train_y, val_x, val_y, ps, device):
                        val_y, seed=seed, device=device)
 
 
+def _scenario_conflict(args) -> Optional[str]:
+    """The flag that --scenarios does not take, or None.  The JAX CLI's
+    scenario branch ignores these; the port refuses them."""
+    for given, flag in ((args.mesh, '--mesh'),
+                        (args.layers >= 2, '--layers >= 2'),
+                        (args.preset, '--preset'),
+                        (args.tune_rho, '--tune_rho'),
+                        (args.checkpoint_dir, '--checkpoint_dir'),
+                        (args.resume, '--resume'),
+                        (args.variant in ('admm_l', 'admm_s'),
+                         f'--variant {args.variant}')):
+        if given:
+            return flag
+    return None
+
+
+def _train_scenarios(args, seed, ps, device):
+    """--scenarios S (the JAX CLI's scenario branch): S disjoint folds of
+    the YahooFinance windows through api.train_scenarios with the
+    Lipschitz-safeguarded readout step; the result's train and validation
+    curves are the means over the scenarios."""
+    from admm_lstm_torch.api import train_scenarios
+    from admm_lstm_torch.data.yahoo_finance import load_scenarios
+    xs, ys, vxs, vys = load_scenarios(num_scenarios=args.scenarios, seed=seed)
+    cfg = ADMMConfig(variant=args.variant, with_dual_y=args.with_dual_y,
+                     epochs=args.epoch, hidden_size=args.hidden, seed=seed,
+                     wy_lipschitz=True)
+    results = train_scenarios(xs, ys, vxs, vys, ps, cfg, device=device)
+    return dict(results, train_loss=list(results['train_loss'].mean(0)),
+                val_loss=list(results['val_loss'].mean(0)))
+
+
+def _save(args, results) -> None:
+    """--save: the result's weights through ckpt.save_model, one file per
+    scenario under --scenarios; a result without weights (ADMM-S) saves
+    nothing, as in the JAX CLI."""
+    if 'params' not in results:
+        return
+    from admm_lstm_torch.ckpt import save_model
+    from admm_lstm_torch.models.lstm import LSTMParams
+    if args.scenarios:
+        for i in range(args.scenarios):
+            save_model(f"{results['name']} scenario {i}",
+                       LSTMParams(*(w[i] for w in results['params'])))
+    else:
+        save_model(results['name'], results['params'])
+
+
 def _mesh_backend(ranks: int, device) -> str:
     """--mesh's backend (parallel.mesh.backend_for): NCCL when each rank
     has a card of its own; gloo on the CPU and where ranks share a card,
@@ -201,10 +250,14 @@ def main(argv=None) -> int:
     from admm_lstm_torch.data import load_dataset, supported_datasets
     args = generate_parser().parse_args(argv)
     try:
-        for flag in _LATER_FLAGS:
-            if getattr(args, flag) not in (None, False):
-                error(f'--{flag} is not ported to admm_lstm_torch yet; it '
-                      f'arrives in {LATER}.')
+        if args.scenarios:
+            conflict = _scenario_conflict(args)
+            if conflict:
+                error(f'--scenarios trains the one-layer fast/no_dual_y '
+                      f'scenario batch; drop {conflict}')
+            if args.dataset != 'YahooFinance':
+                error('--scenarios currently builds scenario batches from '
+                      'the YahooFinance windows; use -d YahooFinance')
         if args.layers >= 2 and args.variant not in ('fast', 'no_dual_y'):
             error('--layers >= 2 supports the fast/no_dual_y variants only')
         if args.mesh:
@@ -259,7 +312,9 @@ def main(argv=None) -> int:
                 return 0
 
         from admm_lstm_torch.api import train
-        if args.layers >= 2:
+        if args.scenarios:
+            results = _train_scenarios(args, seed, ps, device)
+        elif args.layers >= 2:
             ps, results = _train_stacked(args, seed, train_x, train_y, val_x,
                                          val_y, device)
         elif args.variant in ('admm_l', 'admm_s'):
@@ -327,6 +382,16 @@ def main(argv=None) -> int:
                     plotter.plot(save_name=name)
                 except ImportError as e:
                     error(str(e))
+
+        if args.record_matlab_data:
+            import scipy.io as sio
+            sio.savemat('ADMM_Val.mat', {
+                'epoch': np.arange(len(results['val_loss'])),
+                'loss': np.asarray(results['val_loss']),
+            })
+            info('Validation losses exported to ADMM_Val.mat')
+        if args.save:
+            _save(args, results)
         return 0
     except ADMMError as e:
         return e.code

@@ -1,9 +1,10 @@
-"""Loss-curve plotting (reference: data_plot.py:15-107, comparison.py:72-134).
+"""Loss-curve and prediction plotting (reference: data_plot.py:15-107,
+comparison.py:72-134, visualization.py:57-123).
 
-Counterpart of `admm_lstm_tpu/utils/plotting.py`'s `LossCurvePlotter` and
-`plot_comparison`.  matplotlib is imported inside the drawing functions,
-never at import time: machines that train on the card may not have it, and
-only the drawing step needs it.
+Counterpart of `admm_lstm_tpu/utils/plotting.py`: `LossCurvePlotter`,
+`plot_comparison` and `plot_predictions`.  matplotlib is imported inside
+the drawing functions, never at import time: machines that train on the
+card may not have it, and only the drawing step needs it.
 """
 
 from __future__ import annotations
@@ -131,3 +132,30 @@ def plot_comparison(loss_list: Sequence[Dict], num_epochs: int,
         info(f'Comparison plot saved to {path}')
         paths.append(path)
     return paths
+
+
+def plot_predictions(named_predictions: Dict[str, 'object'], truth,
+                     save_dir: str = 'plots',
+                     save_name: str = 'Predictions.png') -> str:
+    """Overlay model predictions vs ground truth on the test set
+    (reference: visualization.py:57-123).  Returns the saved path.
+
+    Raises ImportError naming --no-plot when matplotlib is missing."""
+    import numpy as np
+    plt = _pyplot()
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, save_name)
+    fig = plt.figure(figsize=(16, 5))
+    truth = np.asarray(truth).reshape(-1)
+    plt.plot(truth, color='black', linewidth=2, label='Ground truth')
+    for i, (name, pred) in enumerate(named_predictions.items()):
+        plt.plot(np.asarray(pred).reshape(-1),
+                 color=color_list[i % len(color_list)], alpha=0.8, label=name)
+    plt.xlabel('Sample')
+    plt.ylabel('Value')
+    plt.legend(loc='upper right')
+    plt.grid(True, alpha=0.5)
+    plt.savefig(path, dpi=150, bbox_inches='tight')
+    plt.close(fig)
+    info(f'Prediction plot saved to {path}')
+    return path

@@ -86,6 +86,21 @@ Phases, each fatal on failure:
                bit-equal to api.train.  It logs each run's ms per epoch
                (two ranks on one card share it: not a scaling figure) and
                the all-reduces and bytes all-reduced per epoch per rank.
+  9. scenarios - api.train_scenarios on the CLI's --scenarios 4 config
+               (YahooFinance in 4 folds of 340, fast, H 10, wy_lipschitz)
+               for 30 epochs from the JAX package's seed-split inits
+               (tests/golden/torch_scenarios_init_s4.npz), held to the
+               JAX package's losses (SCEN_RTOL says how), 120
+               interior_sweep launches, and a TF32 run of the same that
+               the hold must refuse; the JAX bench's
+               yahoo_scenarios_loose (no_dual_y, 200 epochs a fold) timed,
+               with the profiler's busy ms, idle share and host syncs of
+               a scenario epoch with and without the Lipschitz step; the
+               CLI (--scenarios 4 -e 5 --save --record_matlab_data) and
+               visualize over its models, in a temporary directory, the
+               models' predictions on the card held to the CPU's; a
+               profile_trace of one scenario epoch naming the kernel and
+               the annotate() region.
 Then it prints the card's name and power limit, one JSON line describing
 every kernel, and as the last line {"ok": true, "device": {...}}.
 It exits non-zero, printing no result line, without a CUDA card.
@@ -135,7 +150,9 @@ SPIN_CYCLES = 1_000_000        # ~0.5 ms at the H100's ~2 GHz SM clock
 SWEEP_SHAPES = [(9, 10, 4224), (13, 5, 1000), (31, 130, 512),
                 (9, 100, 4224), (127, 16, 512),
                 # YahooFinance, DNA1, SMSSpam, GEFCOM2012Wind at H = 10
-                (59, 10, 1360), (56, 10, 85), (24, 10, 487), (23, 10, 10522)]
+                (59, 10, 1360), (56, 10, 85), (24, 10, 487), (23, 10, 10522),
+                # a YahooFinance scenario (4 folds of 340)
+                (59, 10, 340)]
 JACOBI_SHAPES = [(9, 10, 4224), (9, 128, 2048), (13, 5, 1000),
                  (5, 7, 1001)]     # H * B odd: the V = 1 instance
 SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128), (37, 100),
@@ -336,6 +353,105 @@ LEGACY_RTOL = 1e-5
 # differs), and every rendezvous, collective and join is bounded.
 SHARDED_RTOL = 1e-4
 SHARDED_TIMEOUT = 300
+
+# The scenarios phase: the CLI's --scenarios 4 config on YahooFinance
+# (load_scenarios(4, seed=0): 4 x 340 train, 4 x 85 val windows, T 60),
+# fast, H 10, wy_lipschitz, from the JAX package's seed-split inits
+# (tests/golden/torch_scenarios_init_s4.npz, jax.vmap(init_lstm_params)
+# over jax.random.split(PRNGKey(0), 4)).  SCEN_TRAIN and SCEN_VAL are the
+# JAX package's train_scenarios losses on the CPU, which
+# tests/test_torch_scenarios.py recomputes and holds equal.
+SCEN_INIT = os.path.join(ROOT, 'tests', 'golden',
+                         'torch_scenarios_init_s4.npz')
+SCEN_COUNT = 4
+SCEN_EPOCHS = 30
+SCEN_TRAIN = [
+    [0.196306616, 0.196306661, 0.0805211514, 0.033461526, 0.0142689748,
+     0.0064078914, 0.00317116594, 0.0018308193, 0.00127229188, 0.00103793759,
+     0.000939529738, 0.000897268765, 0.000878218794, 0.000868317496,
+     0.000861498702, 0.000855261285, 0.000848847209, 0.000842487905,
+     0.000837092404, 0.000834175968, 0.000835969986, 0.000845763483,
+     0.000868576404, 0.000912349322, 0.00138103031, 0.00144296105,
+     0.00135697168, 0.00124020362, 0.00109819847, 0.000940299826,
+     0.000780815142],
+    [0.0867725313, 0.0867725313, 0.0619360209, 0.0453863628, 0.0341552198,
+     0.0263796113, 0.0208114255, 0.0166282337, 0.0133051537, 0.0105372649,
+     0.0081714429, 0.00614568871, 0.00444202917, 0.00305553083,
+     0.00197729794, 0.00118738937, 0.000653940486, 0.000335824618,
+     0.000186933365, 0.000160695839, 0.000213958308, 0.000309725467,
+     0.000418648531, 0.000519395864, 0.000598171493, 0.000647704641,
+     0.000665971718, 0.000654878328, 0.000619020429, 0.000564598187,
+     0.000498503738],
+    [0.254044533, 0.254044533, 0.13373515, 0.0716121718, 0.039200861,
+     0.0221489109, 0.0130227963, 0.00799376797, 0.00510757742, 0.00337615609,
+     0.00230042613, 0.00162276474, 0.00120174175, 0.000950320857,
+     0.000808207958, 0.000730128551, 0.000682997168, 0.000646928384,
+     0.000617399754, 0.000606660906, 0.000643186679, 0.00076854619,
+     0.00103158131, 0.00148031593, 0.00215268461, 0.00306794886,
+     0.00422133133, 0.942177892, 0.553848624, 0.216870636, 0.268112421],
+    [0.342788756, 0.342788756, 0.142918304, 0.0600814223, 0.0255444143,
+     0.0110664573, 0.00495523447, 0.00235020183, 0.00122434238,
+     0.000730005268, 0.000510563492, 0.000413719885, 0.000372584211,
+     0.00035631904, 0.000352495816, 0.000353524869, 0.000355582277,
+     0.000356873556, 0.000356796663, 0.000355457771, 0.000353336742,
+     0.000351028604, 0.000350051792, 0.000349727459, 0.000350133429,
+     0.000351371185, 0.000353383628, 0.000356323639, 0.000360535836,
+     0.000366545835, 0.000374986208],
+]
+SCEN_VAL = [
+    [0.218268707, 0.218268722, 0.0906208232, 0.038417425, 0.0169225316,
+     0.0079882713, 0.00422654208, 0.0026153822, 0.00190939626, 0.00159046834,
+     0.0014416246, 0.00136799924, 0.00132901326, 0.00130650343,
+     0.00129214243, 0.00128214061, 0.00127498177, 0.00127043191,
+     0.00126911898, 0.00127242215, 0.00128257868, 0.00130306429,
+     0.00133933104, 0.00140011974, 0.00199196348, 0.00206194702,
+     0.00194499537, 0.00178958953, 0.00160224969, 0.00139404356,
+     0.00118155626],
+    [0.0841195658, 0.0841195658, 0.0600960478, 0.0440807305, 0.033206936,
+     0.0256751776, 0.0202789512, 0.0162228085, 0.0129987625, 0.0103115086,
+     0.00801264308, 0.0060420502, 0.00438235234, 0.00302890618,
+     0.00197332911, 0.00119661109, 0.000668241002, 0.000348743313,
+     0.000193800079, 0.000158599345, 0.000201576346, 0.000287058792,
+     0.000386708067, 0.000479883107, 0.000553184829, 0.000599486055,
+     0.000616710924, 0.000606563233, 0.000573341444, 0.00052289298,
+     0.000461732125],
+    [0.260691494, 0.260691494, 0.13714917, 0.0733709335, 0.0401057079,
+     0.0226110015, 0.0132524511, 0.00809859205, 0.00514324615, 0.00337240915,
+     0.00227408763, 0.00158407004, 0.00115730357, 0.00090446457,
+     0.000763572869, 0.000687961234, 0.000643367413, 0.000608947244,
+     0.000579463376, 0.000566678238, 0.000598739542, 0.000716938346,
+     0.000969798188, 0.00140499603, 0.00206026924, 0.00295513426,
+     0.00408576149, 0.960106552, 0.527527034, 0.233650982, 0.285014898],
+    [0.363435149, 0.363435119, 0.151115268, 0.0632290989, 0.0266564433,
+     0.0113696046, 0.00494549051, 0.0022255145, 0.00106205838,
+     0.000559368753, 0.000341982697, 0.000250348792, 0.000214820684,
+     0.000203711941, 0.000204192722, 0.000208547062, 0.00021293707,
+     0.000215626336, 0.000216117434, 0.000214656538, 0.000211885752,
+     0.000208569807, 0.000206581375, 0.000205277553, 0.000204792537,
+     0.000205094155, 0.000206294702, 0.000208553989, 0.000212203275,
+     0.000217734501, 0.000225717973],
+]
+# How the card's trajectories are held to SCEN_*.  These runs amplify f32
+# rounding: on the CPU the port and the JAX package agree within 2.7e-6
+# (val) over one epoch from the same state, yet their 30-epoch runs part by
+# up to 9.0e-4 relative before a jump (scenario 0; on the card 1.74e-3),
+# and the JAX package's own vmapped and one-scenario programs
+# part by 2.6% after scenario 2's jump.  So epochs 0..SCEN_STRICT_EPOCHS
+# are held at SCEN_RTOL and every epoch before a jump at SCEN_HELD_RTOL
+# (no absolute term: the late losses are 1e-4..1e-3); a scenario whose JAX
+# validation loss jumps above SCEN_JUMP at an epoch >= SCEN_JUMP_FROM
+# (scenario 2, at 27) must jump there too, its values after the jump not
+# held.  The same run with TF32 matmuls (matmul_precision='high') must
+# fail the hold.
+SCEN_RTOL = 1e-4
+SCEN_STRICT_EPOCHS = 10
+SCEN_HELD_RTOL = 1e-2
+SCEN_JUMP = 0.1
+SCEN_JUMP_FROM = 27
+# The JAX bench's yahoo_scenarios_loose (bench.py:316-370): 4 unshuffled
+# folds of the YahooFinance training windows (340 each), no_dual_y,
+# wy_lipschitz, 200 epochs.
+SCEN_SPEED_EPOCHS = 200
 
 
 def log(msg):
@@ -1482,6 +1598,279 @@ def phase_legacy(tx, ty, vx, vy, ps, weights):
     return launches
 
 
+def _scenario_inits():
+    """The golden seed-split inits as LSTMParams with a leading scenario
+    axis, on the card."""
+    from admm_lstm_torch.models.lstm import params_from_numpy
+    g = np.load(SCEN_INIT)
+    gates = lambda side: np.stack([g[f'w0_{side}2{q}'] for q in 'ifgo'], 1)
+    return params_from_numpy(gates('x'), gates('h'), g['w0_wy'],
+                             device='cuda')
+
+
+def _scenario_report(train, val):
+    """Each scenario's largest relative gap to SCEN_* (over all epochs and
+    before a jump), first epoch past SCEN_RTOL (None if none), and whether
+    JAX's validation loss jumps."""
+    report = []
+    for s in range(SCEN_COUNT):
+        ref_t, ref_v = np.asarray(SCEN_TRAIN[s]), np.asarray(SCEN_VAL[s])
+        gap = np.maximum(np.abs(train[s] - ref_t) / np.abs(ref_t),
+                         np.abs(val[s] - ref_v) / np.abs(ref_v))
+        past = np.nonzero(gap > SCEN_RTOL)[0]
+        jump = bool(np.any(ref_v[SCEN_JUMP_FROM:] > SCEN_JUMP))
+        held = SCEN_JUMP_FROM if jump else SCEN_EPOCHS + 1
+        report.append(dict(scenario=s, largest_gap=float(gap.max()),
+                           largest_gap_held=float(gap[:held].max()),
+                           first_epoch_past_rtol=int(past[0])
+                           if len(past) else None,
+                           jax_jump=jump))
+    return report
+
+
+def _hold_scenarios(train, val):
+    """SCEN_TRAIN/SCEN_VAL gates (see SCEN_RTOL); returns
+    _scenario_report."""
+    report = _scenario_report(train, val)
+    for s, r in enumerate(report):
+        ref_t, ref_v = np.asarray(SCEN_TRAIN[s]), np.asarray(SCEN_VAL[s])
+        held = SCEN_JUMP_FROM if r['jax_jump'] else SCEN_EPOCHS + 1
+        k = SCEN_STRICT_EPOCHS + 1
+        np.testing.assert_allclose(train[s][:k], ref_t[:k], rtol=SCEN_RTOL,
+                                   err_msg=f'scenario {s} train, strict')
+        np.testing.assert_allclose(val[s][:k], ref_v[:k], rtol=SCEN_RTOL,
+                                   err_msg=f'scenario {s} val, strict')
+        np.testing.assert_allclose(train[s][:held], ref_t[:held],
+                                   rtol=SCEN_HELD_RTOL,
+                                   err_msg=f'scenario {s} train')
+        np.testing.assert_allclose(val[s][:held], ref_v[:held],
+                                   rtol=SCEN_HELD_RTOL,
+                                   err_msg=f'scenario {s} val')
+        if r['jax_jump'] and not np.any(val[s][SCEN_JUMP_FROM:] > SCEN_JUMP):
+            raise AssertionError(
+                f'scenario {s}: the JAX package\'s validation loss jumps '
+                f'above {SCEN_JUMP} from epoch {SCEN_JUMP_FROM}, the card\'s '
+                f'does not: {val[s][SCEN_JUMP_FROM:].tolist()}')
+    return report
+
+
+def _wy_safeguard(states, theta):
+    """Per final state: rho_y * lambda_max(h_T h_T^T), the Lipschitz
+    bound of the readout step, and whether it exceeds the variant's fixed
+    theta (the safeguard binds)."""
+    out = []
+    for st in states:
+        h = st.gates.h[-1]
+        lip = float(st.rho.y * torch.linalg.eigvalsh(h @ h.T)[-1])
+        out.append(dict(lip=lip, binds=lip > theta))
+    return out
+
+
+def _scenario_speed(card):
+    """The JAX bench's yahoo_scenarios_loose through train_scenarios on
+    the card, and torch.profiler's view of one scenario epoch (epoch_step:
+    the epoch and its losses) with and without the Lipschitz step."""
+    from admm_lstm_torch import api
+    from admm_lstm_torch.core.init import init_admm_state
+    from admm_lstm_torch.core.step import epoch_step, rules_for
+    from admm_lstm_torch.data import load_dataset
+    from admm_lstm_torch.models.lstm import init_lstm_params
+    from admm_lstm_torch.profile_epoch import profile_epochs
+    from admm_lstm_torch.utils.config import ADMMConfig
+    (tx, ty, vx, vy), ps, _ = load_dataset('YahooFinance')
+    fold, vfold = len(tx) // SCEN_COUNT, len(vx) // SCEN_COUNT
+    folds = lambda a, n: np.stack([a[i * n:(i + 1) * n]
+                                   for i in range(SCEN_COUNT)])
+    data = (folds(tx, fold), folds(ty, fold), folds(vx, vfold),
+            folds(vy, vfold))
+    cfg = ADMMConfig(variant='no_dual_y', hidden_size=10,
+                     epochs=SCEN_SPEED_EPOCHS, wy_lipschitz=True)
+    kernels = _zero_launches()
+    res = api.train_scenarios(*data, ps, cfg, device='cuda')
+    launches = {name: k.launches for name, k in kernels.items()}
+    n = SCEN_COUNT * SCEN_SPEED_EPOCHS
+    if not np.all(np.isfinite(res['train_loss'])):
+        raise AssertionError('scenario speed run: non-finite losses')
+    if launches['interior_sweep'] != n:
+        raise AssertionError(f'scenario speed run: launches {launches}')
+    speed = dict(fold_batch=fold, epochs=SCEN_SPEED_EPOCHS,
+                 seconds=res['seconds'],
+                 scenario_epochs_per_s=n / res['seconds'],
+                 ms_per_scenario_epoch=res['seconds'] * 1e3 / n,
+                 final_train_loss=res['train_loss'][:, -1].tolist(),
+                 wy_safeguard=_wy_safeguard(res['state'],
+                                            rules_for(cfg).wy_theta))
+    f = lambda a: torch.from_numpy(a[0]).cuda()
+    x, y, vx0, vy0 = map(f, data)
+    x_im, y_im, xall_im, vy_im = api.batch_minor(x, y, vx0, vy0)
+    for name, c in (('no_dual_y', cfg),
+                    ('fast', cfg.replace(variant='fast')),
+                    ('fast_no_lipschitz', cfg.replace(variant='fast',
+                                                      wy_lipschitz=False))):
+        rules = rules_for(c)
+        state = init_admm_state(init_lstm_params(
+            torch.Generator().manual_seed(0), 1, 10, 1, device='cuda'), x,
+            ps, c)
+        prof = profile_epochs(
+            lambda st: epoch_step(st, x_im, y_im, xall_im, vy_im, rules)[0],
+            state, 10)
+        speed[f'profile_{name}'] = {k: v for k, v in prof.items()
+                                    if k != 'top_kernels_ms_per_epoch'}
+    log(f'[scenarios] speed (yahoo_scenarios_loose, {SCEN_COUNT} folds of '
+        f'{fold}, {SCEN_SPEED_EPOCHS} epochs, no_dual_y + wy_lipschitz) on '
+        f'{card}: {json.dumps(speed)}; launches {launches}')
+    return launches
+
+
+def _scenario_cli_and_visualize():
+    """The CLI (--scenarios 4 --save --record_matlab_data) and then
+    visualize over its SAVED_MODELS/, each a process of its own in a
+    temporary directory; the saved models' predictions on the card held
+    to the CPU's.  visualize runs with --no-plot, and plots too where
+    matplotlib is installed (else it must exit 1 naming matplotlib)."""
+    import importlib.util
+    import scipy.io as sio
+    import tempfile
+    from admm_lstm_torch import visualize
+    from admm_lstm_torch.data import load_dataset
+    env = dict(os.environ, PYTHONPATH=ROOT, ADMM_TORCH_NO_FILELOG='1')
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_cli_') as tmp:
+        def run(*args, want=0):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, '-m', *args], cwd=tmp,
+                                  env=env, capture_output=True, text=True,
+                                  timeout=600)
+            if proc.returncode != want:
+                raise AssertionError(f'{args}: exit {proc.returncode}\n'
+                                     f'{proc.stdout[-3000:]}'
+                                     f'{proc.stderr[-3000:]}')
+            return time.perf_counter() - t0, proc.stdout
+        t_cli, _ = run('admm_lstm_torch.cli', '-y', '-d', 'YahooFinance',
+                       '--scenarios', str(SCEN_COUNT), '-e', '5', '--save',
+                       '--record_matlab_data', '--no-plot')
+        save_dir = os.path.join(tmp, 'SAVED_MODELS')
+        saved = sorted(os.listdir(save_dir))
+        if len(saved) != SCEN_COUNT or not all(
+                n.endswith('.npz') for n in saved):
+            raise AssertionError(f'--save wrote {saved}')
+        mat = sio.loadmat(os.path.join(tmp, 'ADMM_Val.mat'))
+        loss = mat['loss'].ravel()
+        if loss.shape != (6,) or not np.all(np.isfinite(loss)):
+            raise AssertionError(f'ADMM_Val.mat loss {loss}')
+        t_vis, out = run('admm_lstm_torch.visualize', '-d', 'YahooFinance',
+                         '--save_dir', save_dir, '--no-plot')
+        if out.count('test MSE') != SCEN_COUNT:
+            raise AssertionError(f'visualize --no-plot logged\n{out}')
+        (_, _, test_x, _), _, _ = load_dataset('YahooFinance')
+        card = visualize.predict_all(visualize.load_models(save_dir), test_x)
+        cpu = visualize.predict_all(
+            visualize.load_models(save_dir, device='cpu'), test_x)
+        pred_err = max(float(np.abs(card[k] - cpu[k]).max()) for k in cpu)
+        if sorted(card) != sorted(n[:-4] for n in saved) or pred_err > 1e-5:
+            raise AssertionError(f'visualize on the card: models '
+                                 f'{sorted(card)}, error {pred_err}')
+        png = os.path.join(tmp, 'plots', 'Predictions.png')
+        if importlib.util.find_spec('matplotlib') is not None:
+            run('admm_lstm_torch.visualize', '-d', 'YahooFinance',
+                '--save_dir', save_dir)
+            plotted = f'{os.path.getsize(png)} bytes'
+        else:
+            _, out = run('admm_lstm_torch.visualize', '-d', 'YahooFinance',
+                         '--save_dir', save_dir, want=1)
+            if 'matplotlib' not in out or os.path.exists(png):
+                raise AssertionError(f'visualize without matplotlib:\n{out}')
+            plotted = 'exit 1 naming matplotlib (not installed)'
+        log(f'[scenarios] CLI --scenarios {SCEN_COUNT} -e 5 --save '
+            f'--record_matlab_data: exit 0 in {t_cli:.2f} s, {saved}, '
+            f'ADMM_Val.mat loss {loss.tolist()}; visualize --no-plot: exit '
+            f'0 in {t_vis:.2f} s, {SCEN_COUNT} test MSEs; predictions on '
+            f'the card within {pred_err:.3g} of the CPU\'s; '
+            f'plots/Predictions.png: {plotted}')
+
+
+def _scenario_trace(xs, ys, vxs, vys, ps, cfg, params):
+    """profile_trace around one scenario epoch under
+    annotate('scenario-epoch'); the trace must name the kernel and the
+    region."""
+    import tempfile
+    from admm_lstm_torch import api
+    from admm_lstm_torch.models.lstm import LSTMParams
+    from admm_lstm_torch.utils.observe import annotate, profile_trace
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_trace_') as tmp:
+        with profile_trace(tmp):
+            with annotate('scenario-epoch'):
+                api.train_scenarios(
+                    xs[:1], ys[:1], vxs[:1], vys[:1], ps,
+                    cfg.replace(epochs=1),
+                    params=LSTMParams(*(w[:1] for w in params)),
+                    device='cuda')
+            torch.cuda.synchronize()
+        (name,) = os.listdir(tmp)
+        with open(os.path.join(tmp, name)) as fh:
+            text = fh.read()
+    found = {k: k in text for k in ('interior_sweep_kernel',
+                                    'scenario-epoch')}
+    log(f'[scenarios] profile_trace of one scenario epoch: {len(text)} '
+        f'bytes, names {found}')
+    if not all(found.values()):
+        raise AssertionError(f'the trace lacks {found}')
+
+
+def phase_scenarios(card):
+    """api.train_scenarios on the CLI's --scenarios 4 config, held to the
+    JAX package's losses from its seed-split inits, with 1 interior_sweep
+    launch per scenario per epoch; the JAX bench's scenario config timed;
+    the CLI and visualize; a profile_trace.  Returns the launches of the
+    parity run and of the speed run."""
+    from admm_lstm_torch import api
+    from admm_lstm_torch.core.step import rules_for
+    from admm_lstm_torch.data.yahoo_finance import load_scenarios
+    from admm_lstm_torch.params import parameter_set
+    from admm_lstm_torch.utils.config import ADMMConfig
+    xs, ys, vxs, vys = load_scenarios(num_scenarios=SCEN_COUNT, seed=0)
+    ps = parameter_set('YahooFinance')
+    cfg = ADMMConfig(variant='fast', hidden_size=10, epochs=SCEN_EPOCHS,
+                     seed=0, wy_lipschitz=True)
+    params = _scenario_inits()
+    kernels = _zero_launches()
+    res = api.train_scenarios(xs, ys, vxs, vys, ps, cfg, params=params,
+                              device='cuda')
+    launches = {name: k.launches for name, k in kernels.items()}
+    train, val = res['train_loss'], res['val_loss']
+    log(f'[scenarios] train_scenarios {SCEN_COUNT} x {SCEN_EPOCHS} epochs '
+        f'(fast, H 10, wy_lipschitz) on {card}: {res["seconds"]:.3f} s, '
+        f'launches {launches}; val trajectories {json.dumps(val.tolist())}')
+    if not (np.all(np.isfinite(train)) and np.all(np.isfinite(val))):
+        raise AssertionError('scenarios: non-finite losses')
+    if launches != dict(interior_sweep=SCEN_COUNT * SCEN_EPOCHS,
+                        jacobi_sweep=0, chol_solve=0, chol_inverse=0):
+        raise AssertionError(f'scenarios: launches {launches}')
+    report = _hold_scenarios(train, val)
+    control = api.train_scenarios(xs, ys, vxs, vys, ps,
+                                  cfg.replace(matmul_precision='high'),
+                                  params=params, device='cuda')
+    control_gaps = [r['largest_gap_held'] for r in _scenario_report(
+        control['train_loss'], control['val_loss'])]
+    try:
+        _hold_scenarios(control['train_loss'], control['val_loss'])
+    except AssertionError as e:
+        refused = ' / '.join(line.strip() for line in
+                             str(e).strip().splitlines()[:2])
+    else:
+        raise AssertionError('scenarios: the TF32 control run passes the '
+                             'hold')
+    theta = rules_for(cfg).wy_theta
+    log(f'[scenarios] against the JAX package: {json.dumps(report)}; '
+        f'the TF32 control refused ({refused}), its largest gaps before '
+        f'a jump {control_gaps}; '
+        f'readout safeguard at the final states (theta {theta}): '
+        f'{json.dumps(_wy_safeguard(res["state"], theta))}')
+    speed_launches = _scenario_speed(card)
+    _scenario_cli_and_visualize()
+    _scenario_trace(xs, ys, vxs, vys, ps, cfg, params)
+    return launches, speed_launches
+
+
 def _sharded_rank(rank, world, job):
     """One rank of the `sharded` phase (parallel/launch.spawn runs it in a
     process of its own): `job['kind']` 'train' drives api.train_sharded
@@ -1707,6 +2096,7 @@ def main() -> int:
      stacked_seconds) = phase_stacked()
     launches['legacy'] = phase_legacy(tx, ty, vx, vy, ps, weights)
     card = card_name_and_power()
+    launches['scenarios'], launches['scenarios_speed'] = phase_scenarios(card)
     launches.update(phase_sharded(tx, ty, vx, vy, ps, weights, slice1_train,
                                   slice1_val, card))
 

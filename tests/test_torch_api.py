@@ -224,11 +224,110 @@ def test_torch_cli_without_card_or_cpu_fails(tmp_path):
     assert 'no CUDA device was found' in proc.stdout
 
 
-@pytest.mark.parametrize('flag', [['--record_matlab_data'],
-                                  ['--scenarios', '2'], ['--save']])
-def test_torch_cli_later_slice_flags_fail(flag):
+def test_torch_cli_scenarios_run(tmp_path, monkeypatch):
     from admm_lstm_torch.cli import main
-    assert main(['--cpu', '-y', '-e', '1', '--no-plot', *flag]) != 0
+    monkeypatch.chdir(tmp_path)
+    assert main(['--cpu', '-y', '-d', 'YahooFinance', '--scenarios', '2',
+                 '-e', '2', '--hidden', '4', '--no-plot']) == 0
+    assert not os.listdir(tmp_path)      # nothing saved unless asked
+
+
+SYNTH_ARGS = ['-d', 'Synthetic', '-nt', '64', '-nv', '16']
+# Per CLI branch: its arguments and the files --save writes.
+SAVE_CASES = {
+    'fast': (SYNTH_ARGS, ['Fast ADMM-LSTM.npz']),
+    'scenarios': (['-d', 'YahooFinance', '--scenarios', '2'],
+                  [f'Scenario ADMM-LSTM [fast] scenario {i}.npz'
+                   for i in range(2)]),
+    'stacked': (SYNTH_ARGS + ['--layers', '2'], ['Stacked ADMM-LSTM.npz']),
+    'admm_l': (SYNTH_ARGS + ['--variant', 'admm_l'], ['ADMM-LSTM-L.npz']),
+    'admm_s': (SYNTH_ARGS + ['--variant', 'admm_s'], []),
+}
+
+
+@pytest.mark.parametrize('branch', list(SAVE_CASES))
+def test_torch_cli_save_loads_in_jax(tmp_path, monkeypatch, branch):
+    """--save writes the result's weights with the JAX package's keys (one
+    file per scenario under --scenarios, named as the JAX CLI names them;
+    none for ADMM-S, whose result has no weights, as in the JAX CLI); the
+    JAX package's load_model reads each to the same arrays."""
+    from admm_lstm_tpu.ckpt import load_model as j_load_model
+    from admm_lstm_tpu.ckpt import save_model as j_save_model
+    from admm_lstm_torch import cli
+    from admm_lstm_torch.ckpt import load_model
+    monkeypatch.chdir(tmp_path)
+    results = {}
+    train_scenarios = api.train_scenarios
+
+    def keep(*args, **kwargs):
+        results.update(train_scenarios(*args, **kwargs))
+        return results
+    monkeypatch.setattr(api, 'train_scenarios', keep)
+    args, files = SAVE_CASES[branch]
+    assert cli.main(['--cpu', '-y', '-e', '2', '--hidden', '4', '--no-plot',
+                     '--save', *args]) == 0
+    names = (sorted(os.listdir('SAVED_MODELS'))
+             if os.path.isdir('SAVED_MODELS') else [])
+    assert names == files
+    flat = lambda p: (tuple(w for lp in p.layers for w in lp) + (p.wy,)
+                      if branch == 'stacked' else tuple(p))
+    for i, name in enumerate(names):
+        path = os.path.join('SAVED_MODELS', name)
+        mine, theirs = load_model(path, device='cpu'), j_load_model(path)
+        for a, b in zip(flat(mine), flat(theirs), strict=True):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        # The JAX package's save_model of the same weights writes the
+        # same keys and arrays.
+        again = j_save_model(f'again {i}', theirs, save_dir='JAX_SAVED')
+        with np.load(path) as ours, np.load(again) as jax_file:
+            assert sorted(ours.files) == sorted(jax_file.files)
+            for key in ours.files:
+                np.testing.assert_array_equal(ours[key], jax_file[key])
+        if branch == 'scenarios':
+            for a, b in zip(mine, results['params']):
+                np.testing.assert_array_equal(a.numpy(), b[i].numpy())
+
+
+def test_torch_cli_record_matlab_data(tmp_path, monkeypatch):
+    """--record_matlab_data writes the run's validation curve: the same
+    losses as api.train on the CLI's config and seeded init."""
+    import scipy.io as sio
+    from admm_lstm_torch.cli import main
+    monkeypatch.chdir(tmp_path)
+    assert main(['--cpu', '-y', '-d', 'Synthetic', '-nt', '64', '-nv', '16',
+                 '-e', '3', '--hidden', '4', '--no-plot',
+                 '--record_matlab_data']) == 0
+    mat = sio.loadmat('ADMM_Val.mat')
+    (tx, ty, vx, vy), ps, _ = load_dataset('Synthetic', 64, 16)
+    want = api.train(tx, ty, vx, vy, ps, ADMMConfig(epochs=3, hidden_size=4),
+                     log_every=0, device='cpu')['val_loss']
+    np.testing.assert_array_equal(mat['epoch'].ravel(), np.arange(4))
+    np.testing.assert_allclose(mat['loss'].ravel(), want, rtol=1e-6)
+
+
+def test_torch_cli_scenarios_off_yahoo_exits_1_as_jax(tmp_path, monkeypatch):
+    from admm_lstm_tpu import cli as j_cli
+    from admm_lstm_torch.cli import main
+    monkeypatch.chdir(tmp_path)
+    argv = ['--cpu', '-y', '-d', 'Synthetic', '-e', '1', '--no-plot',
+            '--scenarios', '2']
+    assert main(argv) == 1
+    assert j_cli.main(argv) == 1
+
+
+@pytest.mark.parametrize('flags', [['--mesh', '2'], ['--layers', '2'],
+                                   ['--preset', 'best'], ['--tune_rho', '1'],
+                                   ['--checkpoint_dir', 'ck'],
+                                   ['--checkpoint_dir', 'ck', '--resume'],
+                                   ['--variant', 'admm_l'],
+                                   ['--variant', 'admm_s']])
+def test_torch_cli_scenarios_refuse_flags(tmp_path, monkeypatch, flags):
+    """Flags the JAX CLI's scenario branch ignores exit 1 here."""
+    from admm_lstm_torch.cli import main
+    monkeypatch.chdir(tmp_path)
+    assert main(['--cpu', '-y', '-d', 'YahooFinance', '-e', '1',
+                 '--no-plot', '--scenarios', '2', *flags]) == 1
+    assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize('flag', [['--turbo'], ['--preset', 'best'],

@@ -1,7 +1,7 @@
 """Tests of the port's CUDA kernels (the Gauss-Seidel and Jacobi sweeps,
-the batched Cholesky solve and inverse), of the legacy variants' epochs
-and of data-parallel ranks (gloo ranks sharing the card, one NCCL rank)
-on the card; they need a CUDA card and skip without one.  This file imports no JAX, so it also runs where JAX is not
+the batched Cholesky solve and inverse), of the legacy variants' epochs,
+of data-parallel ranks (gloo ranks sharing the card, one NCCL rank) and
+of the scenario batch on the card; they need a CUDA card and skip without one.  This file imports no JAX, so it also runs where JAX is not
 installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -89,6 +89,7 @@ def _resident_threshold(device, batch):
     (3, 40, 37),       # two rows a thread, one column a block
     (4, 300, 24),      # wh streamed, a partial last warp
     (59, 10, 1360),    # YahooFinance
+    (59, 10, 340),     # a YahooFinance scenario (4 folds)
     (56, 10, 85),      # DNA1
     (24, 10, 487),     # SMSSpam
     (23, 10, 10522),   # GEFCOM2012Wind
@@ -467,3 +468,26 @@ def test_torch_cuda_nccl_refuses_ranks_sharing_a_card(cuda, tmp_path):
         spawn(train_cases, 2, args=(_sharded_cases(cfg, tx, ty, vx, vy,
                                                    params),),
               backend='nccl', timeout=120, workdir=str(tmp_path))
+
+
+def test_torch_cuda_train_scenarios_matches_cpu(cuda):
+    """api.train_scenarios on the card (the sweep kernel, one launch per
+    scenario per epoch) against the same run on the CPU (the plain
+    loop), 3 Synthetic scenarios x 3 epochs."""
+    from admm_lstm_torch import api
+    from admm_lstm_torch.kernels import gate_sweep
+    scen = [synth(batch=64, seq_len=12, input_size=1, output_size=1,
+                  val_batch=16, seed=s) for s in range(3)]
+    data = tuple(np.stack([s[k] for s in scen]) for k in range(4))
+    cfg = ADMMConfig(hidden_size=6, epochs=3, wy_lipschitz=True)
+    ps = parameter_set('Synthetic')
+    cpu = api.train_scenarios(*data, ps, cfg, device='cpu')
+    gate_sweep.interior_sweep.launches = 0
+    # The default inits come from CPU generators: the same on both.
+    got = api.train_scenarios(*data, ps, cfg, device='cuda')
+    assert gate_sweep.interior_sweep.launches == 9
+    np.testing.assert_allclose(got['train_loss'], cpu['train_loss'],
+                               rtol=1e-5)
+    np.testing.assert_allclose(got['val_loss'], cpu['val_loss'], rtol=1e-5)
+    for a, b in zip(got['params'], cpu['params']):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=ATOL)

@@ -61,10 +61,17 @@ def test_torch_port_sources_exist():
                                     'parallel/__init__.py',
                                     'parallel/mesh.py',
                                     'parallel/sharding.py',
-                                    'parallel/launch.py'])
+                                    'parallel/launch.py',
+                                    'api.py',
+                                    'cli.py',
+                                    'visualize.py',
+                                    'utils/observe.py',
+                                    'utils/logging.py',
+                                    'utils/plotting.py'])
 def test_torch_turbo_leg_modules_are_guarded(module):
     """The slice-2 modules, the stacked variant, the legacy variants, the
-    gradient baselines, the comparison harness and the data-parallel
+    gradient baselines, the comparison harness, the data-parallel
+    modules, and the scenario batch, CLI, visualize and observability
     modules are among the sources the guard walks."""
     path = os.path.join(ROOT, 'admm_lstm_torch', module)
     assert path in _sources()

@@ -19,7 +19,7 @@ from admm_lstm_tpu.models.lstm import params_from_dict as j_params_from_dict
 from admm_lstm_tpu.params import parameter_set as j_parameter_set
 from admm_lstm_torch.core.init import init_admm_state
 from admm_lstm_torch.core.state import to_batch_major
-from admm_lstm_torch.core.step import make_admm_step
+from admm_lstm_torch.core.step import make_admm_step, rules_for
 from admm_lstm_torch.data.synthetic import load as synth
 from admm_lstm_torch.models.lstm import params_from_dict, params_from_numpy
 from admm_lstm_torch.params import parameter_set
@@ -92,7 +92,27 @@ JAX_CASES = [
     ('auto', dict(AUTO_FIELDS)),
     # I = 130 > 128: the x-side stage takes the blocked solve.
     ('turbo_wide_input', dict(TURBO, input_size=130)),
+    # The x-side stage (D = I = 2) takes the exact solve, the h side
+    # (D = H = 6) the prox-linear step.
+    ('exact_solve_max_dim', dict(exact_weight_solve=True,
+                                 exact_solve_max_dim=4)),
+    # rho_y 2: rho_y * lambda_max(h_T h_T^T) exceeds both variants'
+    # fixed theta, so the Lipschitz safeguard binds (checked below).
+    ('wy_lipschitz_fast', dict(wy_lipschitz=True, rho_y=2.0)),
+    ('wy_lipschitz_no_dual_y', dict(variant='no_dual_y', wy_lipschitz=True,
+                                    rho_y=2.0)),
+    ('h_theta', dict(h_theta0=0.02, h_theta_max=4.0)),
+    ('adapt_mu_tau', dict(adaptive_rho=True, adapt_mu=1.5, adapt_tau=1.5)),
+    ('matmul_precision_high', dict(matmul_precision='high')),
 ]
+
+
+def _pset(module_parameter_set, rho_y):
+    """The 'Synthetic' set, with rho_y replaced when given."""
+    ps = module_parameter_set('Synthetic')
+    if rho_y is None:
+        return ps
+    return type(ps).from_dict({'rho': dict(ps.rho, y=rho_y), 'beta': ps.beta})
 
 
 @pytest.mark.parametrize('name,cfgkw', JAX_CASES)
@@ -101,6 +121,7 @@ def test_torch_step_matches_jax_step(name, cfgkw):
     at atol 1e-4 and rho at rtol 1e-6 (f32, summation order)."""
     cfgkw = dict(cfgkw)
     n_in = cfgkw.pop('input_size', 2)
+    rho_y = cfgkw.pop('rho_y', None)
     tx, ty, _, _ = synth(batch=48, seq_len=7, input_size=n_in, output_size=1,
                          val_batch=4, seed=3)
     rng = np.random.default_rng(11)
@@ -114,16 +135,21 @@ def test_torch_step_matches_jax_step(name, cfgkw):
 
     j_cfg = JConfig(**cfgkw)
     j_state = j_init(j_params_from_dict(w), jnp.asarray(tx),
-                     j_parameter_set('Synthetic'), j_cfg)
+                     _pset(j_parameter_set, rho_y), j_cfg)
     j_step = j_make_step(j_cfg, donate=False)
 
     cfg = ADMMConfig(**cfgkw)
     state = init_admm_state(params_from_numpy(wx, wh, wy),
-                            torch.from_numpy(tx), parameter_set('Synthetic'),
+                            torch.from_numpy(tx), _pset(parameter_set, rho_y),
                             cfg)
     step = make_admm_step(cfg)
     x, y = torch.from_numpy(tx), torch.from_numpy(ty)
     for s in range(3):
+        if cfg.wy_lipschitz:
+            h_last = state.gates.h[-1]
+            lip = float(state.rho.y
+                        * torch.linalg.eigvalsh(h_last @ h_last.T)[-1])
+            assert lip > rules_for(cfg).wy_theta, (s, lip)
         j_state = j_step(j_state, jnp.asarray(tx), jnp.asarray(ty))
         state = step(state, x, y)
         for k in SLABS:
