@@ -12,7 +12,8 @@ Layout:
   core/      ADMMState + the one-epoch `admm_step`
   variants/  the stacked N-layer variant (`train_stacked`), ADMM-L,
              ADMM-S, the gradient baselines
-  parallel/  data-parallel consensus over torch.distributed
+  parallel/  sharded consensus ADMM over torch.distributed (data-parallel,
+             time-sharded and hidden-sharded layouts)
   solvers/   closed-form / prox-linear / exact (normal-equation) solvers
   kernels/   CUDA kernels (ctypes-bound) with their plain versions
   models/    the LSTM-Linear model as plain functions

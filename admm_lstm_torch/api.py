@@ -305,10 +305,8 @@ def train(train_x, train_y, val_x, val_y,
     the restored epoch, the loss lists start there, and the run ends bit
     for bit where the uninterrupted one does.
 
-    `config.mesh_shape` is ignored here, as in the JAX package: a 1-D
-    mesh trains data-parallel through `train_sharded`, and a 2-D (data,
-    model) mesh raises NotImplementedError (tensor parallelism is not
-    ported yet).  ADMM-L and ADMM-S train through their own demos
+    `config.mesh_shape` is ignored here, as in the JAX package: a mesh
+    trains data-parallel through `train_sharded`.  ADMM-L and ADMM-S train through their own demos
     (variants/admm_l.py, variants/admm_s.py) or train_best.
     """
     if preset is not None:
@@ -323,7 +321,7 @@ def train(train_x, train_y, val_x, val_y,
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
             resume_from=resume_from, async_checkpoint=async_checkpoint,
             stop_tol=stop_tol, device=device)
-    rules = rules_for(config)        # raises for configs not ported yet
+    rules = rules_for(config)        # raises for the legacy variants
     device = resolve_device(device)
     with matmul_precision(config.matmul_precision):
         return _train(train_x, train_y, val_x, val_y, parameter_set, config,
@@ -736,13 +734,17 @@ def train_sharded(train_x, train_y, val_x, val_y,
                   track_best: bool = False,
                   device='cuda',
                   backend: Optional[str] = None) -> Dict[str, object]:
-    """Data-parallel training over `config.mesh_shape` = (n,) ranks
-    (JAX api.py:677-791): `train`'s loop and result on each rank's block
-    of the batch, with every batch sum all-reduced inside the epoch.
+    """Data-parallel training over `config.mesh_shape` = (n,) or
+    (n, n_model) ranks (JAX api.py:677-791): `train`'s loop and result on
+    each rank's block of the batch, with every batch sum all-reduced over
+    the 'data' axis inside the epoch.  On a 2-D mesh the 'model' ranks are
+    replicas of their data block, as in the JAX package, which places the
+    state with the data axis only (api.py:723): the sums are all-reduced
+    over 'data' alone, so that replicas do not double them.
 
-    The batch is padded to a multiple of n with duplicated tail samples
-    (JAX's index formula); rank r holds samples [r*B/n, (r+1)*B/n) and
-    the validation arrays whole.  The weights stay bit-equal across the
+    The batch is padded to a multiple of the mesh's ranks with duplicated
+    tail samples (JAX's index formula, api.py:713-722); data rank d holds
+    samples [d*B/n, (d+1)*B/n) and the validation arrays whole.  The weights stay bit-equal across the
     ranks, because every rank computes them from the same all-reduced
     sums.  Checkpoints are `train`'s `step_<N>.pt` files of the whole
     state, written by rank 0 (gathered through the host); a resume reads
@@ -761,18 +763,25 @@ def train_sharded(train_x, train_y, val_x, val_y,
 
     Returns `train`'s keys, with 'state' the whole state gathered to the
     host and 'mesh' a description of the ranks and this rank's
-    all-reduce counts.  A 2-D mesh raises NotImplementedError.
+    collectives.  The time-sharded and hidden-sharded layouts have no
+    entry point here, as in the JAX package: parallel/sharding.py reaches
+    them.
     """
+    import math
+
     import torch.distributed as dist
 
     from admm_lstm_torch.parallel.mesh import backend_for, make_mesh
-    rules = rules_for(config)        # raises for a 2-D mesh
+    rules = rules_for(config)
+    if config.mesh_shape is not None and len(config.mesh_shape) > 2:
+        raise ValueError(f'mesh_shape {tuple(config.mesh_shape)}: a mesh '
+                         f'has one axis (data) or two (data, model)')
     if not dist.is_initialized():
-        from admm_lstm_torch.parallel.launch import spawn, train_cases
+        from admm_lstm_torch.parallel.launch import run_cases, spawn
         if config.mesh_shape is None:
             raise ValueError('train_sharded outside a process group needs '
                              'config.mesh_shape = (n,), the ranks to start')
-        world = config.mesh_shape[0]
+        world = math.prod(config.mesh_shape)
         backend = backend_for(device, world, backend)
         arrays = [a.detach().cpu() if isinstance(a, torch.Tensor) else a
                   for a in (train_x, train_y, val_x, val_y)]
@@ -785,7 +794,7 @@ def train_sharded(train_x, train_y, val_x, val_y,
             resume_from=resume_from, async_checkpoint=async_checkpoint,
             stop_tol=stop_tol, stop_divergence=stop_divergence,
             track_best=track_best, device=device)
-        return spawn(train_cases, world, args=([case],),
+        return spawn(run_cases, world, args=([(train_sharded, case)],),
                      backend=backend)[0][0]
     mesh = make_mesh(config.mesh_shape, config.mesh_axes, device=device)
     rules = dataclasses.replace(rules, consensus=mesh.consensus)

@@ -8,34 +8,76 @@ Counterpart of `admm_lstm_tpu/core/residuals.py`:
   * `balanced_rho` - residual balancing (Boyd et al. 2011, section 3.4.1).
 All results are 0-d tensors on the state's device (no host sync).
 
-Under data parallelism (core/consensus.py) each mean square is a global
-one: every rank's means over its equal block of the batch are averaged in
-one all-reduce per call, so every rank sees the single-process residuals
-and adapts rho the same way.
+Under a mesh (core/consensus.py) each mean square is a global one: every
+rank sums the squares of its block, the sums over H are all-reduced over
+the 'model' ranks, every sum over the ranks that hold other rows (of the
+batch, or of the time rows), and each is divided by the global count.
+Time blocks are uneven (the ceil split), so a mean of the ranks' means
+would weigh them wrongly.  `a` and the y-dual are replicated across the
+time and 'model' ranks: under time sharding only the last time block
+counts the y family.  Every rank sees the single-process residuals and
+adapts rho the same way.
+
+`rules` is anything with the StepRules fields `consensus`, `model` and
+`shard_time` (None: one process).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-from admm_lstm_torch.core.consensus import LOCAL, Consensus
+from admm_lstm_torch.core.consensus import LOCAL, time_block
 from admm_lstm_torch.core.state import ADMMState, GateSlabs, Penalties
 
 _FAMILIES = ('i', 'f', 'g', 'o', 'c', 'h', 'y')
 
 
-def _mean_square(x: torch.Tensor) -> torch.Tensor:
+def _axes(rules):
+    if rules is None:
+        return LOCAL, LOCAL, False
+    return rules.consensus, rules.model, rules.shard_time
+
+
+def _sum_square(x: torch.Tensor) -> torch.Tensor:
     x = x.float()  # accumulate in f32 under bf16 slab storage
-    return torch.mean(x * x)
+    return torch.sum(x * x)
 
 
-def _rms(named: Dict[str, torch.Tensor],
-         consensus: Consensus) -> Dict[str, torch.Tensor]:
-    """{name: RMS of the tensor over the whole batch}, one all-reduce."""
-    means = consensus.means([_mean_square(x) for x in named.values()])
-    return {k: torch.sqrt(m) for k, m in zip(named, means)}
+def _rms(slabs: Dict[str, torch.Tensor], outs: Dict[str, torch.Tensor],
+         slab_count: int, out_count: int, rules) -> Dict[str, torch.Tensor]:
+    """{name: RMS over the whole state} of this rank's blocks of the slab
+    families (over H and the rows) and the (O, B) families (over the rows
+    only; None where another rank counts them), from one all-reduce per
+    axis."""
+    rows, model, _ = _axes(rules)
+    sums = model.all_sum(torch.stack([_sum_square(x)
+                                      for x in slabs.values()]))
+    zero = sums.new_zeros(())
+    sums = torch.cat([sums, torch.stack([zero if x is None else
+                                         _sum_square(x)
+                                         for x in outs.values()])])
+    sums = rows.all_sum(sums).unbind()
+    counts = [slab_count] * len(slabs) + [out_count] * len(outs)
+    return {k: torch.sqrt(s / n)
+            for k, s, n in zip(list(slabs) + list(outs), sums, counts)}
+
+
+def _global_counts(state: ADMMState, rows: int, rules):
+    """(elements of `rows` slab rows, of an (O, B) tensor) over every
+    rank."""
+    cons, model, shard_time = _axes(rules)
+    batch = state.batch_size * (1 if shard_time else cons.world)
+    hidden = state.hidden_size * model.world
+    return rows * hidden * batch, state.gates.a.shape[0] * batch
+
+
+def _counts_y(rules) -> bool:
+    """Whether this rank counts the replicated (O, B) family y: all but
+    the earlier time blocks."""
+    cons, _, shard_time = _axes(rules)
+    return not shard_time or cons.index == cons.world - 1
 
 
 def admm_residuals(state: ADMMState,
@@ -44,8 +86,7 @@ def admm_residuals(state: ADMMState,
     return admm_residuals_im(state, train_x.permute(1, 2, 0))
 
 
-def admm_residuals_im(state: ADMMState, x_im: torch.Tensor,
-                      consensus: Consensus = LOCAL
+def admm_residuals_im(state: ADMMState, x_im: torch.Tensor, rules=None
                       ) -> Dict[str, torch.Tensor]:
     """RMS primal residuals of each constraint family, on batch-minor
     (T, I, B) inputs.
@@ -54,32 +95,55 @@ def admm_residuals_im(state: ADMMState, x_im: torch.Tensor,
       c[t]      = f[t]*c[t-1] + i[t]*g[t]
       h[t]      = o[t]*tanh(c[t])
       a         = h_T @ wy
+
+    On a time block the rows t >= 1 of the block are checked, with the
+    previous block's last h and c (the halo) for t-1.
     """
+    cons, model, shard_time = _axes(rules)
     g = state.gates
     p = state.params
-    h_prev = g.h[:-1]
-    pre = (torch.einsum('tdb,gdh->gthb', x_im, p.wx)
+    seq_len = x_im.shape[0]
+    lo, hi = 0, seq_len + 1
+    h_prev, c_prev = g.h, g.c
+    if shard_time:
+        lo, hi = time_block(seq_len + 1, cons.index, cons.world)
+        prev = cons.halo(torch.stack([g.h[-1], g.c[-1]]))
+        if prev is not None:
+            h_prev = torch.cat([prev[0:1], g.h])
+            c_prev = torch.cat([prev[1:2], g.c])
+    h_prev, c_prev = model.all_gather(h_prev[:-1], 1), c_prev[:-1]
+    first = 1 if lo == 0 else 0
+    now = lambda s: s[first:]
+    pre = (torch.einsum('tdb,gdh->gthb', x_im[max(lo, 1) - 1:hi - 1], p.wx)
            + torch.einsum('tub,guh->gthb', h_prev.to(p.wh.dtype), p.wh))
     acts = (torch.sigmoid(pre[0]), torch.sigmoid(pre[1]),
             torch.tanh(pre[2]), torch.sigmoid(pre[3]))
-    gates_now = (g.i[1:], g.f[1:], g.g[1:], g.o[1:])
-    diffs = {f'r_{k}': now - act
-             for k, now, act in zip(('i', 'f', 'g', 'o'), gates_now, acts)}
-    diffs['r_c'] = g.c[1:] - (g.f[1:] * g.c[:-1] + g.i[1:] * g.g[1:])
-    diffs['r_h'] = g.h[1:] - g.o[1:] * torch.tanh(g.c[1:])
-    diffs['r_y'] = g.a - torch.einsum('hb,ho->ob', g.h[-1].to(p.wy.dtype),
-                                      p.wy)
-    return _rms(diffs, consensus)
+    gates_now = (now(g.i), now(g.f), now(g.g), now(g.o))
+    diffs = {f'r_{k}': gate - act
+             for k, gate, act in zip(('i', 'f', 'g', 'o'), gates_now, acts)}
+    diffs['r_c'] = now(g.c) - (now(g.f) * c_prev + now(g.i) * now(g.g))
+    diffs['r_h'] = now(g.h) - now(g.o) * torch.tanh(now(g.c))
+    outs = {'r_y': None}
+    if _counts_y(rules):
+        outs['r_y'] = g.a - model.all_sum(torch.einsum(
+            'hb,ho->ob', g.h[-1].to(p.wy.dtype), p.wy))
+    slab_count, out_count = _global_counts(state, seq_len, rules)
+    return _rms(diffs, outs, slab_count, out_count, rules)
 
 
-def dual_residuals(state: ADMMState, prev_gates: GateSlabs,
-                   consensus: Consensus = LOCAL) -> Dict[str, torch.Tensor]:
-    """RMS dual residuals: rho_k * ||primal_k^new - primal_k^old||_RMS."""
+def dual_residuals(state: ADMMState, prev_gates: GateSlabs, rules=None,
+                   seq_len: Optional[int] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """RMS dual residuals: rho_k * ||primal_k^new - primal_k^old||_RMS.
+    `seq_len`, the global T, is needed only under time sharding (a block
+    does not know the other blocks' rows)."""
     g, r = state.gates, state.rho
+    rows = state.seq_len + 1 if seq_len is None else seq_len + 1
     diffs = {k: getattr(g, k) - getattr(prev_gates, k)
              for k in ('i', 'f', 'g', 'o', 'c', 'h')}
-    diffs['y'] = g.a - prev_gates.a
-    rms = _rms(diffs, consensus)
+    outs = {'y': g.a - prev_gates.a if _counts_y(rules) else None}
+    slab_count, out_count = _global_counts(state, rows, rules)
+    rms = _rms(diffs, outs, slab_count, out_count, rules)
     return {f's_{k}': getattr(r, k) * rms[k] for k in _FAMILIES}
 
 

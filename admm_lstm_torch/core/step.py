@@ -38,16 +38,37 @@ training loss.  The `a` update scales by the global batch, the local
 block times the world.  Nothing else reduces over the batch: the gates,
 the duals and `a` are per sample, and the sweep kernels are independent
 per batch column, so they run unchanged on the local block.
+
+The time-sharded layout (`StepRules.shard_time`, Jacobi sweep only) runs
+it on a contiguous block of the T+1 time rows (core/consensus.time_block)
+with the batch whole.  The sums over t are all-reduced over the time
+ranks (`consensus`); target row t reads h row t-1, so each rank takes the
+old h and c of the row before its block from the previous rank (the
+halo).  The last time rank owns row T: it computes wy from h_T, the final
+step from the fresh (h, c) at T-1 (a second halo when T-1 lies on the
+previous rank), `a` and the y-dual, and broadcasts wy, `a` and the y-dual
+to the other time ranks.
+
+Tensor parallelism (`StepRules.model`) runs it on a block of the hidden
+axis: the slabs' H rows, the weights' output columns and wy's rows.  Sums
+over H (h·wy, the per-gate sums of the weight searches, the final-h
+search's norms) are all-reduced over the 'model' ranks; the old h is
+gathered to the whole H once an epoch, for the h-stage's design matrix,
+the Jacobi recurrence and the Lipschitz Gram.  Each rank updates only its
+own columns of the wide weights.  The Gauss-Seidel sweep's serial chain
+needs all of h_{t-1} at every step, so under tensor parallelism it runs on
+slabs gathered to the whole H on every 'model' rank, each keeping its
+block, as the JAX package runs its unsharded kernel on gathered operands.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from admm_lstm_torch.core.consensus import LOCAL, Consensus
+from admm_lstm_torch.core.consensus import LOCAL, Consensus, time_block
 from admm_lstm_torch.core.residuals import (admm_residuals_im, balanced_rho,
                                             dual_residuals)
 from admm_lstm_torch.core.state import (ADMMState, DualSlabs, GateSlabs,
@@ -58,7 +79,7 @@ from admm_lstm_torch.solvers import closed_form as cf
 from admm_lstm_torch.solvers.normal_eq import gauss_newton_ridge_update_wide
 from admm_lstm_torch.solvers.prox_linear import (h_final_update,
                                                  weight_stage_update_wide)
-from admm_lstm_torch.utils.config import ADMMConfig, unsupported_reason
+from admm_lstm_torch.utils.config import ADMMConfig
 
 
 def gate_is_tanh(n: int, per_gate: int, device) -> torch.Tensor:
@@ -68,12 +89,13 @@ def gate_is_tanh(n: int, per_gate: int, device) -> torch.Tensor:
     return torch.arange(n, device=device) // per_gate == 2
 
 
-def wide_targets(gates: GateSlabs, duals: DualSlabs,
-                 rho: Penalties) -> torch.Tensor:
+def wide_targets(gates: GateSlabs, duals: DualSlabs, rho: Penalties,
+                 first: int = 1) -> torch.Tensor:
     """The weight stages' gate targets dual/rho + gate (admm.py:309-310),
-    rows t = 1..T, gate-folded: (T, 4H, B)."""
+    rows t = 1..T, gate-folded: (T, 4H, B).  `first` is the slabs' first
+    target row (0 for a time block that starts past row 0)."""
     return torch.cat(
-        [d[1:] / r + g[1:] for g, d, r in
+        [d[first:] / r + g[first:] for g, d, r in
          ((gates.i, duals.i, rho.i), (gates.f, duals.f, rho.f),
           (gates.g, duals.g, rho.g), (gates.o, duals.o, rho.o))], dim=1)
 
@@ -122,15 +144,25 @@ class StepRules:
     # Sets the bf16 rounding of the wide Gram operands (solvers/normal_eq);
     # every other product follows the process-wide matmul precision.
     matmul_precision: str = 'highest'
-    # The all-reduce of every batch sum under data parallelism; LOCAL (the
-    # identity) in a single process.
+    # The all-reduce of every sum over the slabs' rows (t, b): over the
+    # batch blocks under data parallelism, over the time blocks when
+    # shard_time; LOCAL (the identity) in a single process.
     consensus: Consensus = LOCAL
+    # The 'model' axis of tensor parallelism: the slabs' H rows, the gate
+    # weights' output columns and wy's rows are this rank's block.
+    model: Consensus = LOCAL
+    # True: `consensus` runs over contiguous blocks of the T+1 time rows
+    # and the batch is whole (the time-sharded layout, Jacobi sweep only).
+    shard_time: bool = False
+
+    @property
+    def batch(self) -> Consensus:
+        """The all-reduce of sums over the batch alone: `consensus`, or
+        the identity where the batch is whole (time-sharded)."""
+        return LOCAL if self.shard_time else self.consensus
 
 
 def rules_for(config: ADMMConfig) -> StepRules:
-    reason = unsupported_reason(config)
-    if reason is not None:
-        raise NotImplementedError(reason)
     common = dict(
         h_theta0=config.h_theta0, h_theta_max=config.h_theta_max,
         max_backtrack=config.max_backtrack,
@@ -165,26 +197,77 @@ def _sweep_uses_kernel(rules: StepRules, seq_len: int,
             and device.type == 'cuda')
 
 
-def _wy_update(state: ADMMState, rules: StepRules) -> torch.Tensor:
-    """Readout update generalized over variant constants (admm.py:246-280)."""
-    h_last = state.gates.h[-1]                      # (H, B) batch-minor
+class _OldRows(NamedTuple):
+    """This rank's rows [lo, hi) of the T+1 and the old h and c from row
+    max(lo - 1, 0): under time sharding the previous block's last row (the
+    halo) stands in front of the block.  `h_full` is that h with the whole
+    H (gathered over the 'model' ranks under tensor parallelism)."""
+    lo: int
+    hi: int
+    h: torch.Tensor
+    c: torch.Tensor
+    h_full: torch.Tensor
+
+
+def _old_rows(state: ADMMState, seq_len: int, rules: StepRules) -> _OldRows:
+    h, c = state.gates.h, state.gates.c
+    lo, hi = 0, seq_len + 1
+    if rules.shard_time:
+        lo, hi = time_block(seq_len + 1, rules.consensus.index,
+                            rules.consensus.world)
+        if h.shape[0] != hi - lo:
+            raise ValueError(f'time block {rules.consensus.index} of '
+                             f'{rules.consensus.world} holds rows [{lo}, '
+                             f'{hi}) of {seq_len + 1}; the slabs have '
+                             f'{h.shape[0]}')
+        prev = rules.consensus.halo(torch.stack([h[-1], c[-1]]))
+        if prev is not None:
+            h, c = torch.cat([prev[0:1], h]), torch.cat([prev[1:2], c])
+    return _OldRows(lo, hi, h, c, rules.model.all_gather(h, 1))
+
+
+def whole_params(params: LSTMParams, model: Consensus) -> LSTMParams:
+    """The weights with the whole H: this rank's blocks gathered over the
+    'model' ranks (wx, wh on their output columns, wy on its rows)."""
+    if model.world == 1:
+        return params
+    return LSTMParams(wx=model.all_gather(params.wx, 2),
+                      wh=model.all_gather(params.wh, 2),
+                      wy=model.all_gather(params.wy, 0))
+
+
+def _wy_update(state: ADMMState, h_last_full: torch.Tensor, last: bool,
+               rules: StepRules) -> torch.Tensor:
+    """Readout update generalized over variant constants (admm.py:246-280).
+    Under time sharding only the last time block holds h_T: it computes
+    wy and broadcasts it.  Under tensor parallelism h_T·wy is a partial
+    sum over H, and the Lipschitz Gram is of the whole h_T
+    (`h_last_full`)."""
     wy = state.params.wy
-    resid = torch.einsum('hb,ho->ob', h_last, wy) - state.gates.a
-    if rules.with_dual_y:
-        resid = resid - state.duals.y / state.rho.y
-    grad_sum = torch.einsum('hb,ob->ho', h_last, resid)
-    if rules.wy_lipschitz:
-        grad_sum, gram = rules.consensus.all_sum_packed(grad_sum,
-                                                        h_last @ h_last.T)
+    if last:
+        h_last = state.gates.h[-1]                  # (H, B) batch-minor
+        resid = rules.model.all_sum(
+            torch.einsum('hb,ho->ob', h_last, wy)) - state.gates.a
+        if rules.with_dual_y:
+            resid = resid - state.duals.y / state.rho.y
+        grad_sum = torch.einsum('hb,ob->ho', h_last, resid)
+        if rules.wy_lipschitz:
+            grad_sum, gram = rules.batch.all_sum_packed(
+                grad_sum, h_last_full @ h_last_full.T)
+        else:
+            grad_sum = rules.batch.all_sum(grad_sum)
+        grad = state.rho.y * grad_sum
+        theta = torch.tensor(rules.wy_theta, dtype=wy.dtype, device=wy.device)
+        if rules.wy_lipschitz:
+            lip = state.rho.y * torch.linalg.eigvalsh(gram)[-1]
+            theta = torch.maximum(theta, lip)
+        denom = theta + rules.wy_beta_factor * state.beta.wy
+        wy = (theta * wy - grad) / denom
     else:
-        grad_sum = rules.consensus.all_sum(grad_sum)
-    grad = state.rho.y * grad_sum
-    theta = torch.tensor(rules.wy_theta, dtype=wy.dtype, device=wy.device)
-    if rules.wy_lipschitz:
-        lip = state.rho.y * torch.linalg.eigvalsh(gram)[-1]
-        theta = torch.maximum(theta, lip)
-    denom = theta + rules.wy_beta_factor * state.beta.wy
-    return (theta * wy - grad) / denom
+        wy = torch.empty_like(wy)
+    if rules.shard_time:
+        wy = rules.consensus.broadcast(wy, rules.consensus.world - 1)
+    return wy
 
 
 def _to_wide(w: torch.Tensor) -> torch.Tensor:
@@ -197,23 +280,32 @@ def _from_wide(w_w: torch.Tensor, hidden: int) -> torch.Tensor:
     return w_w.reshape(w_w.shape[0], 4, hidden).permute(1, 0, 2).contiguous()
 
 
-def _weight_phase(state: ADMMState, x_im: torch.Tensor,
+def _weight_phase(state: ADMMState, x_im: torch.Tensor, old: _OldRows,
                   rules: StepRules) -> Tuple[torch.Tensor, torch.Tensor]:
     """The 8 gate-weight updates as two 4-gate-parallel stages, x side then
     h side (the reference's x2g-before-h2g order): the h-side stage sees
     the fresh x-side projection, assembled by linearity.  Gate-folded,
-    batch-minor layout: slabs (T, 4H, B), weights (D, 4H)."""
-    seq_len = state.seq_len
+    batch-minor layout: slabs (T, 4H, B), weights (D, 4H).
+
+    On a block of the rows the targets are the block's rows t >= 1 and the
+    design rows are x and h at t-1; on a block of H the wide weights are
+    this rank's columns g*H + h of each gate g, and the h-stage's design
+    matrix is the old h with the whole H."""
+    seq_len = x_im.shape[0]
     hidden = state.hidden_size
     gates, duals, rho = state.gates, state.duals, state.rho
-    h_hist = gates.h[:-1]          # (T, H, B) stale history incl. zero row
+    h_hist = old.h_full[:-1]       # (T, H, B) stale history incl. zero row
+    x_rows = x_im[max(old.lo, 1) - 1:old.hi - 1]
     rho_g = rho.stacked_ifgo()
 
-    target_w = wide_targets(gates, duals, rho)
+    target_w = wide_targets(gates, duals, rho, 1 if old.lo == 0 else 0)
     tanh_cols = gate_is_tanh(4 * hidden, hidden, x_im.device)
+    # The Gram strategy and the searches see the global shapes.
+    total_rows = seq_len * state.batch_size * rules.batch.world
+    total_cols = 4 * hidden * rules.model.world
 
     wx_w, wh_w = _to_wide(state.params.wx), _to_wide(state.params.wh)
-    xproj = torch.einsum('tdb,dk->tkb', x_im, wx_w)
+    xproj = torch.einsum('tdb,dk->tkb', x_rows, wx_w)
     hproj = torch.einsum('tdb,dk->tkb', h_hist, wh_w)
 
     def run_stage(m_inputs, proj_self, proj_other, w_w, beta_g, need_proj):
@@ -226,18 +318,20 @@ def _weight_phase(state: ADMMState, x_im: torch.Tensor,
                 m_inputs, proj_self + proj_other, w_w, target_w, rho_g,
                 beta_g, tanh_cols, rules.matmul_precision,
                 use_pallas_chol=rules.use_pallas_chol,
-                consensus=rules.consensus)
+                consensus=rules.consensus, total_rows=total_rows,
+                total_cols=total_cols)
             proj_new = (torch.einsum('tdb,dk->tkb', m_inputs, new_w)
                         if need_proj else None)
             return new_w, proj_new
         res = weight_stage_update_wide(m_inputs, proj_self, proj_other, w_w,
                                        target_w, rho_g, beta_g, tanh_cols,
                                        seq_len, rules.max_backtrack,
-                                       consensus=rules.consensus)
+                                       consensus=rules.consensus,
+                                       model=rules.model)
         return res.weights, res.proj_new
 
     # Stage X: update x2{i,f,g,o}; hidden-side projection fixed at old wh.
-    wx_new_w, xproj_new = run_stage(x_im, xproj, hproj, wx_w, state.beta.x,
+    wx_new_w, xproj_new = run_stage(x_rows, xproj, hproj, wx_w, state.beta.x,
                                     need_proj=True)
     # Stage H: update h2{i,f,g,o}; input-side projection uses FRESH wx.
     wh_new_w, _ = run_stage(h_hist, hproj, xproj_new, wh_w, state.beta.h,
@@ -275,99 +369,168 @@ def _timestep_primal_duals(pre, old, duals_t, c_prev, rho):
     return (i_n, f_n, g_n, o_n, c_n), lam_n
 
 
+def _gauss_seidel(xproj: torch.Tensor, wh: torch.Tensor, old, duals, rho,
+                  rho_vec: torch.Tensor, use_kernel: bool):
+    """The interior steps t = 1..T-1 in order from h_0 = c_0 = 0: the 11
+    new slabs (T-1, H, B), i..h then the duals i..c."""
+    if use_kernel:
+        new_gates, new_duals = gate_sweep.interior_sweep(xproj, wh, old,
+                                                         duals, rho_vec)
+        return new_gates + new_duals
+    # Mirrors the JAX package's lax.scan (core/step.py:357-371,452-456).
+    steps, _, hidden, batch = xproj.shape
+    h_prev = xproj.new_zeros((hidden, batch))
+    c_prev = xproj.new_zeros((hidden, batch))
+    rows = [[] for _ in range(11)]
+    for t in range(steps):
+        old_t = tuple(s[t] for s in old)
+        duals_t = tuple(s[t] for s in duals)
+        pre = xproj[t] + torch.einsum('hb,ghk->gkb', h_prev, wh)
+        prim, lam_n = _timestep_primal_duals(pre, old_t, duals_t, c_prev, rho)
+        h_n = cf.h_interior_update(prim[3], torch.tanh(prim[4]), duals_t[5],
+                                   rho.h)
+        for acc, v in zip(rows, prim + (h_n,) + lam_n):
+            acc.append(v)
+        h_prev, c_prev = h_n, prim[4]
+    empty = xproj.new_zeros((0, hidden, batch))
+    return tuple(torch.stack(r) if r else empty for r in rows)
+
+
 def _sweep(state: ADMMState, x_im: torch.Tensor, params_new: LSTMParams,
-           y_im: torch.Tensor, rules: StepRules):
-    """The t = 1..T sweep: interior steps (kernel or plain loop), then the
-    peeled final step, the `a` update and the duals."""
+           y_im: torch.Tensor, old: _OldRows, rules: StepRules):
+    """The t = 1..T sweep: this rank's interior steps (kernel or plain
+    loop), then, on the rank that holds row T, the peeled final step, the
+    `a` update and the duals (the y-dual too)."""
     rho = state.rho
-    seq_len = state.seq_len
+    seq_len = x_im.shape[0]
     batch = state.batch_size
     hidden = state.hidden_size
     wh = params_new.wh
+    lo, hi = old.lo, old.hi
+    last = hi == seq_len + 1
+    t0, t1 = max(lo, 1), min(hi, seq_len)     # this block's interior rows
+    n_int = max(t1 - t0, 0)
 
-    # Input-side projections for every t at once: (T, 4, H, B).
-    xproj = torch.einsum('tdb,gdh->tghb', x_im, params_new.wx).contiguous()
+    # Input-side projections of rows t0..t1-1 and, on the last block, T:
+    # (n_int + last, 4, H, B).
+    xproj = torch.einsum('tdb,gdh->tghb', x_im[t0 - 1:t1 - 1 + last],
+                         params_new.wx).contiguous()
     gates, duals = state.gates, state.duals
     old_slabs = (gates.i, gates.f, gates.g, gates.o, gates.c, gates.h)
     dual_slabs = (duals.i, duals.f, duals.g, duals.o, duals.c, duals.h)
-
-    def recur_pre(xp_t, h_prev):
-        return xp_t + torch.einsum('hb,ghk->gkb', h_prev, wh)
-
     rho_vec = torch.stack([rho.i, rho.f, rho.g, rho.o, rho.c, rho.h])
-    interior = lambda slabs: tuple(s[1:seq_len] for s in slabs)
+    interior = lambda slabs: tuple(s[t0 - lo:t1 - lo] for s in slabs)
     use_kernel = _sweep_uses_kernel(rules, seq_len, x_im.device)
+    empty = x_im.new_zeros((0, hidden, batch))
+    h_prev_full = None          # the fresh h at T-1 with the whole H
     if rules.sweep_mode == 'jacobi' and seq_len > 1:
         # Every interior timestep reads the PREVIOUS sweep's h[t-1] and
         # c[t-1]: the recurrent projection of all of them is one product,
         # and the rest is one elementwise pass (JAX core/step.py:374-430).
-        h_prev_all = gates.h[:seq_len - 1]
-        c_prev_all = gates.c[:seq_len - 1]
-        wh_flat = wh.permute(1, 0, 2).reshape(hidden, 4 * hidden)
-        rec = torch.matmul(wh_flat.T, h_prev_all)       # (T-1, 4H, B)
-        pre_all = xproj[:seq_len - 1] + rec.reshape(seq_len - 1, 4, hidden,
-                                                    batch)
-        sweep = (gate_sweep.jacobi_sweep if use_kernel
-                 else gate_sweep.jacobi_sweep_plain)
-        new_gates, new_duals = sweep(
-            pre_all, interior(old_slabs), interior(dual_slabs),
-            h_prev_all, c_prev_all, rho_vec)
-        scanned = new_gates + new_duals
-        # The peeled final step consumes the freshest (h, c) at T-1.
-        h_prev, c_prev = scanned[5][-1], scanned[4][-1]
-    elif use_kernel:
-        new_gates, new_duals = gate_sweep.interior_sweep(
-            xproj[:seq_len - 1], wh, interior(old_slabs),
-            interior(dual_slabs), rho_vec)
-        scanned = new_gates + new_duals
-        h_prev, c_prev = scanned[5][-1], scanned[4][-1]
+        scanned = (empty,) * 11
+        if n_int:
+            wh_flat = wh.permute(1, 0, 2).reshape(wh.shape[1], 4 * hidden)
+            rec = torch.matmul(wh_flat.T, old.h_full[:n_int])
+            pre_all = xproj[:n_int] + rec.reshape(n_int, 4, hidden, batch)
+            sweep = (gate_sweep.jacobi_sweep if use_kernel
+                     else gate_sweep.jacobi_sweep_plain)
+            new_gates, new_duals = sweep(
+                pre_all, interior(old_slabs), interior(dual_slabs),
+                old.h[:n_int], old.c[:n_int], rho_vec)
+            scanned = new_gates + new_duals
+    elif rules.model.world > 1:
+        # The serial chain needs all of h_{t-1} at every step: every
+        # 'model' rank sweeps the slabs gathered to the whole H and keeps
+        # its block.
+        model = rules.model
+        wx_full, wh_full = (model.all_gather(w, 2)
+                            for w in (params_new.wx, wh))
+        slabs = model.all_gather(torch.stack(interior(old_slabs)
+                                             + interior(dual_slabs)), 2)
+        xproj_full = torch.einsum('tdb,gdh->tghb', x_im[:seq_len - 1],
+                                  wx_full).contiguous()
+        scanned_full = _gauss_seidel(xproj_full, wh_full, slabs[:6].unbind(),
+                                     slabs[6:].unbind(), rho, rho_vec,
+                                     use_kernel)
+        h0 = model.index * hidden
+        scanned = tuple(s[:, h0:h0 + hidden].contiguous()
+                        for s in scanned_full)
+        if n_int:
+            h_prev_full = scanned_full[5][-1]
     else:
-        # Mirrors the JAX package's lax.scan (core/step.py:357-371,452-456).
-        h_prev, c_prev = gates.h[0], gates.c[0]
-        rows = [[] for _ in range(11)]
-        for t in range(1, seq_len):
-            old = tuple(s[t] for s in old_slabs)
-            duals_t = tuple(s[t] for s in dual_slabs)
-            prim, lam_n = _timestep_primal_duals(
-                recur_pre(xproj[t - 1], h_prev), old, duals_t, c_prev, rho)
-            h_n = cf.h_interior_update(prim[3], torch.tanh(prim[4]),
-                                       duals_t[5], rho.h)
-            for acc, v in zip(rows, prim + (h_n,) + lam_n):
-                acc.append(v)
-            h_prev, c_prev = h_n, prim[4]
-        empty = x_im.new_zeros((0, hidden, batch))
-        scanned = tuple(torch.stack(r) if r else empty for r in rows)
+        scanned = _gauss_seidel(xproj[:n_int], wh, interior(old_slabs),
+                                interior(dual_slabs), rho, rho_vec,
+                                use_kernel)
 
-    # --- Final timestep t = T (admm.py:74-76: gates, then a, then duals). ---
-    old_T = tuple(s[seq_len] for s in old_slabs)
-    duals_T = tuple(s[seq_len] for s in dual_slabs)
-    (i_T, f_T, g_T, o_T, c_T), lam_T = _timestep_primal_duals(
-        recur_pre(xproj[seq_len - 1], h_prev), old_T, duals_T, c_prev, rho)
-    tanh_c_T = torch.tanh(c_T)
-    wy = params_new.wy
-    to_out = lambda v: torch.einsum('hb,ho->ob', v, wy)
-    from_out = lambda r: torch.einsum('ob,ho->hb', r, wy)
-    h_T = h_final_update(
-        old_T[5], o_T, tanh_c_T, duals_T[5], rho.h, wy, gates.a, rho.y,
-        duals.y, with_dual_y=rules.with_dual_y, theta0=rules.h_theta0,
-        theta_max=rules.h_theta_max, max_iters=rules.max_backtrack,
-        grad_uses_rho_h=rules.h_grad_uses_rho_h,
-        probe_is_grad_over_theta=rules.h_probe_grad_over_theta,
-        to_out=to_out, from_out=from_out, consensus=rules.consensus).h
+    # The fresh (h, c) at T-1 for the final step: the block's last interior
+    # row, the previous block's (a second halo) when row T is the last
+    # block's only row, or row 0's zeros when T = 1.
+    fresh = None
+    world = rules.consensus.world
+    if (rules.shard_time
+            and time_block(seq_len + 1, world - 1, world)[0] == seq_len):
+        mine = (torch.stack([scanned[5][-1], scanned[4][-1]]) if n_int
+                else x_im.new_zeros((2, hidden, batch)))
+        fresh = rules.consensus.halo(mine)
 
-    # The a update scales by the whole (padded) batch, as the JAX package
-    # does under the mesh: the blocks are equal, so the local block times
-    # the world.
-    a_new = cf.a_update(y_im, to_out(h_T), rho.y, duals.y,
-                        batch * rules.consensus.world, rules.with_dual_y)
-    lam_h_T = cf.dual_h_update(duals_T[5], rho.h, h_T, o_T, tanh_c_T)
+    a_new, lam_y = torch.empty_like(gates.a), duals.y
+    if last:
+        # --- Final timestep t = T (admm.py:74-76: gates, a, duals). ---
+        if n_int:
+            h_prev, c_prev = scanned[5][-1], scanned[4][-1]
+        elif fresh is not None:
+            h_prev, c_prev = fresh[0], fresh[1]
+        else:
+            h_prev = c_prev = x_im.new_zeros((hidden, batch))
+        if h_prev_full is None:
+            h_prev_full = rules.model.all_gather(h_prev, 0)
+        old_T = tuple(s[-1] for s in old_slabs)
+        duals_T = tuple(s[-1] for s in dual_slabs)
+        pre_T = xproj[-1] + torch.einsum('hb,ghk->gkb', h_prev_full, wh)
+        (i_T, f_T, g_T, o_T, c_T), lam_T = _timestep_primal_duals(
+            pre_T, old_T, duals_T, c_prev, rho)
+        tanh_c_T = torch.tanh(c_T)
+        wy = params_new.wy
+        to_out = lambda v: rules.model.all_sum(
+            torch.einsum('hb,ho->ob', v, wy))
+        from_out = lambda r: torch.einsum('ob,ho->hb', r, wy)
+        h_T = h_final_update(
+            old_T[5], o_T, tanh_c_T, duals_T[5], rho.h, wy, gates.a, rho.y,
+            duals.y, with_dual_y=rules.with_dual_y, theta0=rules.h_theta0,
+            theta_max=rules.h_theta_max, max_iters=rules.max_backtrack,
+            grad_uses_rho_h=rules.h_grad_uses_rho_h,
+            probe_is_grad_over_theta=rules.h_probe_grad_over_theta,
+            to_out=to_out, from_out=from_out, consensus=rules.batch,
+            model=rules.model).h
 
-    # --- Reassemble (T+1, H, B) slabs: zero row 0 | interior | final row. ---
+        # The a update scales by the whole (padded) batch, as the JAX
+        # package does under the mesh: the batch blocks are equal, so the
+        # local block times their number.
+        hw_T = to_out(h_T)
+        a_new = cf.a_update(y_im, hw_T, rho.y, duals.y,
+                            batch * rules.batch.world, rules.with_dual_y)
+        lam_h_T = cf.dual_h_update(duals_T[5], rho.h, h_T, o_T, tanh_c_T)
+        if rules.with_dual_y:
+            lam_y = cf.dual_y_update(duals.y, rho.y, a_new, hw_T)
+    if rules.shard_time:
+        # `a` and the y-dual stay replicated: the last block sends them.
+        src = world - 1
+        if rules.with_dual_y:
+            a_new, lam_y = rules.consensus.broadcast(
+                torch.stack([a_new, lam_y]), src).unbind()
+        else:
+            a_new = rules.consensus.broadcast(a_new.contiguous(), src)
+
+    # --- Reassemble the block's slabs: zero row 0 | interior | row T. ---
     zero_row = x_im.new_zeros((1, hidden, batch))
 
-    def assemble(mid, last):
-        return torch.cat([zero_row, mid, last[None]], dim=0)
+    def assemble(mid, last_row):
+        return torch.cat(([zero_row] if lo == 0 else []) + [mid]
+                         + ([last_row[None]] if last else []), dim=0)
 
+    if not last:
+        i_T = f_T = g_T = o_T = c_T = h_T = None
+        lam_T = (None,) * 5
     i_s, f_s, g_s, o_s, c_s, h_s, li_s, lf_s, lg_s, lo_s, lc_s = scanned
     gates_new = GateSlabs(
         i=assemble(i_s, i_T), f=assemble(f_s, f_T), g=assemble(g_s, g_T),
@@ -375,12 +538,13 @@ def _sweep(state: ADMMState, x_im: torch.Tensor, params_new: LSTMParams,
         a=a_new)
     # h-dual rows t < T are never written (admm.py:532-534).
     lam_h_slab = duals.h.clone()
-    lam_h_slab[seq_len] = lam_h_T
+    if last:
+        lam_h_slab[-1] = lam_h_T
     lam_T_i, lam_T_f, lam_T_g, lam_T_o, lam_T_c = lam_T
     duals_new = DualSlabs(
         i=assemble(li_s, lam_T_i), f=assemble(lf_s, lam_T_f),
         g=assemble(lg_s, lam_T_g), o=assemble(lo_s, lam_T_o),
-        c=assemble(lc_s, lam_T_c), h=lam_h_slab, y=duals.y)
+        c=assemble(lc_s, lam_T_c), h=lam_h_slab, y=lam_y)
     return gates_new, duals_new
 
 
@@ -398,7 +562,9 @@ def admm_step(state: ADMMState, train_x: torch.Tensor, train_y: torch.Tensor,
 
 def admm_step_im(state: ADMMState, x_im: torch.Tensor, y_im: torch.Tensor,
                  rules: StepRules) -> ADMMState:
-    """`admm_step` on batch-minor (T, I, B) inputs and (O, B) targets."""
+    """`admm_step` on batch-minor (T, I, B) inputs and (O, B) targets
+    (this rank's block of the batch under data parallelism, whole under
+    time sharding)."""
     # Storage-dtype policy (ADMMConfig.dtype='bfloat16'): slabs are stored
     # at reduced precision, ALL math runs in f32.
     slab_dtype = state.gates.i.dtype
@@ -407,18 +573,15 @@ def admm_step_im(state: ADMMState, x_im: torch.Tensor, y_im: torch.Tensor,
             gates=GateSlabs(*(s.float() for s in state.gates)),
             duals=DualSlabs(*(s.float() for s in state.duals)))
 
-    wy_new = _wy_update(state, rules)
+    seq_len = x_im.shape[0]
+    old = _old_rows(state, seq_len, rules)
+    wy_new = _wy_update(state, old.h_full[-1], old.hi == seq_len + 1, rules)
     state = state._replace(params=state.params._replace(wy=wy_new))
 
-    wx_new, wh_new = _weight_phase(state, x_im, rules)
+    wx_new, wh_new = _weight_phase(state, x_im, old, rules)
     params_new = LSTMParams(wx=wx_new, wh=wh_new, wy=wy_new)
 
-    gates_new, duals_new = _sweep(state, x_im, params_new, y_im, rules)
-
-    if rules.with_dual_y:
-        hw = torch.einsum('hb,ho->ob', gates_new.h[-1], params_new.wy)
-        lam_y = cf.dual_y_update(duals_new.y, state.rho.y, gates_new.a, hw)
-        duals_new = duals_new._replace(y=lam_y)
+    gates_new, duals_new = _sweep(state, x_im, params_new, y_im, old, rules)
 
     if slab_dtype != torch.float32:
         gates_new = GateSlabs(*(s.to(slab_dtype) for s in gates_new[:6]),
@@ -431,8 +594,8 @@ def admm_step_im(state: ADMMState, x_im: torch.Tensor, y_im: torch.Tensor,
     live = (not rules.adapt_stop_epoch
             or new_state.epoch <= rules.adapt_stop_epoch)
     if rules.adaptive_rho and live:
-        primal = admm_residuals_im(new_state, x_im, rules.consensus)
-        dual = dual_residuals(new_state, state.gates, rules.consensus)
+        primal = admm_residuals_im(new_state, x_im, rules)
+        dual = dual_residuals(new_state, state.gates, rules, seq_len)
         new_state = new_state._replace(rho=balanced_rho(
             new_state.rho, primal, dual, mu=rules.adapt_mu,
             tau=rules.adapt_tau))
@@ -445,15 +608,18 @@ def epoch_step(state: ADMMState, x_im: torch.Tensor, y_im: torch.Tensor,
                ) -> Tuple[ADMMState, Dict[str, torch.Tensor]]:
     """One epoch plus its metrics (train/val loss, optionally residuals),
     all left on the device.  xall_im is the train and validation inputs
-    concatenated along the batch axis."""
+    concatenated along the batch axis.  The losses come from one forward
+    of the weights with the whole H over the inputs, which are whole on
+    every rank but for data parallelism's blocks of the batch."""
     prev_gates = state.gates
     state = admm_step_im(state, x_im, y_im, rules)
-    train_l, val_l = train_val_mse_im(state.params, xall_im, y_im, vy_im,
-                                      rules.consensus)
+    train_l, val_l = train_val_mse_im(whole_params(state.params, rules.model),
+                                      xall_im, y_im, vy_im, rules.batch)
     metrics = {'train_loss': train_l, 'val_loss': val_l}
     if with_residuals:
-        metrics.update(admm_residuals_im(state, x_im, rules.consensus))
-        metrics.update(dual_residuals(state, prev_gates, rules.consensus))
+        metrics.update(admm_residuals_im(state, x_im, rules))
+        metrics.update(dual_residuals(state, prev_gates, rules,
+                                      x_im.shape[0]))
     return state, metrics
 
 

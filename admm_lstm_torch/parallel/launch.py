@@ -4,8 +4,10 @@
 joins them into a process group through a FileStore in a directory of
 its own (no TCP port to collide on) and returns what each rank's
 function returned.  A rank's function must be importable by the new
-process: a module-level function, such as `train_cases`, which
-`api.train_sharded` runs when it is called outside a process group.
+process: a module-level function, such as `run_cases`, which runs
+several calls in one process group: of `api.train_sharded` (which runs
+it so when it is called outside a process group), or of `run_layout`
+for the explicit layouts.
 """
 
 from __future__ import annotations
@@ -135,9 +137,66 @@ def _omp_threads(threads: Optional[int]):
                 os.environ['OMP_NUM_THREADS'] = saved
 
 
-def train_cases(rank: int, world: int, cases: Sequence[dict]) -> List[dict]:
-    """The rank function of `api.train_sharded` outside a process group:
-    `api.train_sharded(**case)` for each case in this rank, in order;
-    returns each case's result."""
-    from admm_lstm_torch.api import train_sharded
-    return [train_sharded(**case) for case in cases]
+
+def run_cases(rank: int, world: int, calls: Sequence) -> List[object]:
+    """The rank function of several runs in one process group: fn(**kw)
+    for each (fn, kw) of `calls`, in order; fn is module-level, such as
+    `api.train_sharded` or `run_layout`."""
+    return [fn(**kw) for fn, kw in calls]
+
+
+def run_layout(mesh_shape, config, parameter_set, params, data,
+               epochs: int, axis_names=('data',), shard_time: bool = False,
+               model_axis: Optional[str] = None, device='cuda') -> dict:
+    """This rank's part of a sharded run under an explicit layout (the
+    time-sharded and hidden-sharded ones of parallel/sharding.py, which no
+    `api` entry point reaches), inside a process group.
+
+    The whole initial state is built on the host from the whole batch
+    (`init_admm_state` from `params`, the whole LSTMParams) and cut into
+    this rank's block (`shard_state`), the carry-across path from JAX
+    weights; then `epochs` epochs of `make_sharded_epoch_fn` on
+    `shard_batch`'s inputs.  data: (train_x, train_y, val_x, val_y),
+    numpy or tensors; the batch must split over the 'data' axis unless
+    shard_time.
+
+    Returns 'train_loss' and 'val_loss' after each epoch, 'rho' after each
+    epoch ({key: float}), 'epoch_ms' (host clock; each epoch ends with the
+    host reading its losses), 'state' (the whole final state,
+    `gather_state`), 'round_trip' (whether gather_state(shard_state(the
+    initial state)) is the initial state bit for bit), 'block' (this
+    rank's slab shape) and 'mesh' (`Mesh.describe`, with the collectives
+    of the epochs only)."""
+    from admm_lstm_torch.core.init import init_admm_state
+    from admm_lstm_torch.parallel.mesh import make_mesh
+    from admm_lstm_torch.parallel.sharding import (gather_state,
+                                                   make_sharded_epoch_fn,
+                                                   shard_batch, shard_state)
+    from admm_lstm_torch.utils.device import matmul_precision
+    mesh = make_mesh(mesh_shape, axis_names, device=device)
+    layout = dict(shard_time=shard_time, model_axis=model_axis)
+    tx, ty, vx, vy = (torch.as_tensor(a).float() for a in data)
+    with matmul_precision(config.matmul_precision):
+        whole = init_admm_state(params.to('cpu'), tx, parameter_set, config)
+        state = shard_state(whole, mesh, **layout)
+        back = gather_state(state, mesh, **layout)
+        round_trip = all(torch.equal(a, b) for ga, gb in
+                         zip(back[:5], whole[:5]) for a, b in zip(ga, gb))
+        x, y = shard_batch(tx, ty, mesh, shard_time)
+        vx, vy = vx.to(mesh.device), vy.to(mesh.device)
+        epoch = make_sharded_epoch_fn(config, mesh, **layout)
+        mesh.consensus.reset_counts()
+        mesh.model.reset_counts()
+        train, val, rho, ends = [], [], [], [time.perf_counter()]
+        for _ in range(epochs):
+            state, metrics = epoch(state, x, y, vx, vy)
+            train.append(float(metrics['train_loss']))
+            val.append(float(metrics['val_loss']))
+            ends.append(time.perf_counter())
+            rho.append({k: float(v) for k, v in state.rho._asdict().items()})
+        describe = mesh.describe()
+        return dict(train_loss=train, val_loss=val, rho=rho,
+                    epoch_ms=[1e3 * (b - a) for a, b in zip(ends, ends[1:])],
+                    state=gather_state(state, mesh, **layout),
+                    round_trip=round_trip, block=tuple(state.gates.h.shape),
+                    mesh=describe)

@@ -1,12 +1,18 @@
-"""Process groups and the mesh of ranks of data-parallel training.
+"""Process groups and the mesh of ranks of sharded training.
 
 Counterpart of `admm_lstm_tpu/parallel/mesh.py`.  The JAX package is one
 controller over a `jax.sharding.Mesh` of devices, and GSPMD inserts the
 collectives.  The port keeps PyTorch's own idiom instead: one process per
 rank (SPMD), an explicit `torch.distributed` process group and an
 explicit device per rank.  `make_mesh` describes this rank's place in
-the group, and its `consensus` all-reduces the batch sums of the epoch
-(core/consensus.py).
+the group.  A mesh has one or two axes, (data,) or (data, model), laid
+out row-major over the ranks; each axis has its own `Consensus`
+(core/consensus.py) over the ranks that differ only in that axis's
+coordinate: `consensus` for the 'data' axis (the rows of the slabs:
+blocks of the batch, or of the time rows) and `model` for the 'model'
+axis (blocks of H).  A 2-D mesh builds one process group per row and per
+column of the mesh (`dist.new_group`); an axis that spans every rank
+uses the default group.
 
 The backend is chosen by an explicit rule, never by a silent switch
 (`backend_for`): NCCL for CUDA tensors, gloo for CPU tensors, or the
@@ -28,15 +34,17 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from admm_lstm_torch.core.consensus import Consensus
+from admm_lstm_torch.core.consensus import LOCAL, Consensus
 from admm_lstm_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in a data-parallel run.  The all-reduces run on
-    the default process group; `host_group` (None: the default group)
-    runs the gathers of host copies and the barriers."""
+    """This rank's place in a sharded run: `coords` on the mesh of
+    `shape`, the collectives of the 'data' axis (`consensus`) and of the
+    'model' axis (`model`, the identity on a 1-D mesh).  `host_group`
+    (None: the default group) runs the gathers of whole states through
+    host copies and the barriers."""
 
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
@@ -46,6 +54,8 @@ class Mesh:
     backend: Optional[str]
     host_group: object
     consensus: Consensus
+    model: Consensus = LOCAL
+    coords: Tuple[int, ...] = ()
 
     def barrier(self) -> None:
         if self.world > 1:
@@ -53,12 +63,16 @@ class Mesh:
 
     def describe(self) -> dict:
         """The ranks, as the result of `api.train_sharded` reports them,
-        with this rank's all-reduce counts so far."""
+        with this rank's collectives so far: the all-reduces over every
+        axis, and per axis each kind of collective."""
+        axes = {'data': self.consensus, 'model': self.model}
         return {'shape': self.shape, 'axis_names': self.axis_names,
                 'world': self.world, 'rank': self.rank,
+                'coords': self.coords,
                 'device': str(self.device), 'backend': self.backend,
-                'all_reduces': self.consensus.calls,
-                'bytes_all_reduced': self.consensus.nbytes}
+                'all_reduces': sum(c.calls for c in axes.values()),
+                'bytes_all_reduced': sum(c.nbytes for c in axes.values()),
+                'collectives': {k: c.counts() for k, c in axes.items()}}
 
 
 def shared_card_message(ranks: int, cards: int) -> str:
@@ -136,11 +150,14 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
     """The mesh of every rank of the process group (one rank, with no
     collectives, outside a process group).
 
-    shape=None puts every rank on one 'data' axis.  A shape that needs
+    shape=None puts every rank on one 'data' axis; (n_data, n_model) with
+    axis_names ('data', 'model') is the 2-D mesh of tensor parallelism,
+    rank r at coordinates (r // n_model, r % n_model).  A shape that needs
     more ranks than the group has raises ValueError, as the JAX package
     does for devices; so does one that leaves ranks of the group out
-    (each rank is one process of the run).  Under NCCL, ranks of this
-    host that would share a card raise ValueError naming gloo.
+    (each rank is one process of the run), and one of more than two axes.
+    Under NCCL, ranks of this host that would share a card raise
+    ValueError naming gloo.
     """
     if dist.is_initialized():
         rank, world = dist.get_rank(), dist.get_world_size()
@@ -152,6 +169,9 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
     shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
     if len(axis_names) != len(shape):
         raise ValueError(f'mesh shape {shape} with axis names {axis_names}')
+    if len(shape) > 2:
+        raise ValueError(f'mesh shape {shape}: a mesh has one axis (data) '
+                         f'or two (data, model)')
     n = math.prod(shape)
     if n > world:
         raise ValueError(f'mesh shape {shape} needs {n} ranks, have {world}')
@@ -168,6 +188,32 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
     host_group = None
     if backend is not None and 'gloo' not in backend:
         host_group = dist.new_group(backend='gloo')
+    n_model = shape[1] if len(shape) == 2 else 1
+    d, m = rank // n_model, rank % n_model
+    data, model = _axis_groups(shape[0], n_model, d, m)
     return Mesh(shape=shape, axis_names=axis_names, rank=rank, world=world,
                 device=dev, backend=backend, host_group=host_group,
-                consensus=Consensus(group=None, world=world))
+                consensus=data, model=model,
+                coords=(d, m)[:len(shape)])
+
+
+def _axis_groups(n_data: int, n_model: int, d: int,
+                 m: int) -> Tuple[Consensus, Consensus]:
+    """The 'data' and 'model' axes' Consensus of the rank at (d, m) of an
+    (n_data, n_model) mesh.  Every rank creates every group, in the same
+    order (`dist.new_group` is collective); an axis of one rank needs no
+    group, and one that spans every rank takes the default group."""
+    def axis(groups_of, n_axis, n_other, other, index):
+        members = [groups_of(o) for o in range(n_other)]
+        if n_axis == 1:
+            return Consensus()
+        groups = ([None] * n_other if n_other == 1
+                  else [dist.new_group(ranks) for ranks in members])
+        return Consensus(group=groups[other], world=n_axis, index=index,
+                         ranks=members[other])
+
+    data = axis(lambda mm: [dd * n_model + mm for dd in range(n_data)],
+                n_data, n_model, m, d)
+    model = axis(lambda dd: [dd * n_model + mm for mm in range(n_model)],
+                 n_model, n_data, d, m)
+    return data, model

@@ -23,9 +23,12 @@ Under data parallelism (core/consensus.py) each rank builds the Gram stack
 and the first-order term from its block of the batch, and both are
 all-reduced in one packed call before the trace, the Levenberg-Marquardt
 anchor and the right-hand side; every rank then solves the same
-replicated systems.  The Gram strategy is picked from the global row
-count T * B, as the JAX package sees it, so that every rank takes the
-path (and, at 'default', the bf16 roundings) a single process takes.
+replicated systems.  The same holds for blocks of the time rows.  Under
+tensor parallelism each rank builds and solves the systems of its own
+columns only (the columns are independent), on its own stack.  The Gram
+strategy is picked from the global shape, 4H columns and T * B rows, as
+the JAX package sees it, so that every rank takes the path (and, at
+'default', the bf16 roundings) a single process takes.
 """
 
 from __future__ import annotations
@@ -93,6 +96,9 @@ def _gram_bvec(s2: torch.Tensor, wres: torch.Tensor, m_inputs: torch.Tensor,
     strategy = strategy or _gram_strategy(n_cols, dim, n_rows * world)
     if strategy not in GRAM_STRATEGIES:
         raise ValueError(f'unknown Gram strategy {strategy!r}')
+    if n_rows == 0:         # a time block with no target rows
+        return (s2.new_zeros((n_cols, dim, dim)),
+                s2.new_zeros((n_cols, dim)))
     if strategy == 'einsum':
         gram = torch.einsum('tkb,tdb,teb->kde', s2, m_inputs, m_inputs)
         bvec = torch.einsum('tkb,tdb->kd', wres, m_inputs)
@@ -181,7 +187,9 @@ def gauss_newton_ridge_update_wide(m_inputs: torch.Tensor, pre: torch.Tensor,
                                    matmul_precision: str = 'highest',
                                    damping: float = 1e-6, prox: float = 0.25,
                                    use_pallas_chol: object = 'auto',
-                                   consensus: Consensus = LOCAL
+                                   consensus: Consensus = LOCAL,
+                                   total_rows: Optional[int] = None,
+                                   total_cols: Optional[int] = None
                                    ) -> torch.Tensor:
     """The exact weight stage in the gate-folded, batch-minor layout.
 
@@ -196,6 +204,10 @@ def gauss_newton_ridge_update_wide(m_inputs: torch.Tensor, pre: torch.Tensor,
         w_k^+  = solve((beta + mu) I + rho G_k, rhs_k)
     with the Levenberg-Marquardt anchor mu = prox * rho * mean(diag G_k)
     + damping (JAX normal_eq.py:350-357 says why).
+
+    `total_rows` (T * B) and `total_cols` (4H) are the global shape the
+    Gram strategy is picked from (default: this rank's rows times the
+    consensus world, and its columns).
     """
     dtype, device = weights_w.dtype, weights_w.device
     hidden = weights_w.shape[-1] // 4
@@ -215,9 +227,13 @@ def gauss_newton_ridge_update_wide(m_inputs: torch.Tensor, pre: torch.Tensor,
 
     resid = act - target_w
     s2 = d_act * d_act
+    steps, n_cols, batch = pre.shape
+    strategy = _gram_strategy(
+        n_cols if total_cols is None else total_cols, dim,
+        steps * batch * consensus.world if total_rows is None
+        else total_rows)
     gram, bvec = consensus.all_sum_packed(*_gram_bvec(
-        s2, d_act * resid, m_inputs, matmul_precision,
-        world=consensus.world))
+        s2, d_act * resid, m_inputs, matmul_precision, strategy=strategy))
     eye = torch.eye(dim, dtype=dtype, device=device)
 
     trace = torch.einsum('kdd->k', gram) / dim             # (4H,)

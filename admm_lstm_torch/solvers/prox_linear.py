@@ -22,7 +22,11 @@ search is all-reduced before it is compared, so that every rank takes the
 same branch and makes the same number of host reads: in the weight stage
 the gradient and f(W) in one packed all-reduce, then each block's (K, 4)
 table of candidate objectives in one; in the final-h search f(h), then
-the three sums of each acceptance test in one packed all-reduce.
+the three sums of each acceptance test in one packed all-reduce.  Under
+tensor parallelism (`model`) a rank holds only its columns of each gate,
+so the per-gate sums of the weight stage and the final-h search's sums
+over H are all-reduced over the 'model' ranks as well, and every rank
+takes the same theta.
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ def weight_stage_update_wide(m_inputs: torch.Tensor, proj_self: torch.Tensor,
                              target_w: torch.Tensor, rho_g: torch.Tensor,
                              beta_g: torch.Tensor, tanh_cols: torch.Tensor,
                              seq_len: int, max_iters: int,
-                             consensus: Consensus = LOCAL) -> WideStageResult:
+                             consensus: Consensus = LOCAL,
+                             model: Consensus = LOCAL) -> WideStageResult:
     """One side (input or hidden) of the gate-weight phase, all 4 gates at
     once, in the gate-folded batch-minor layout: slabs (T, 4H, B), weights
     (D, 4H) with columns ordered gate-major (k = g*H + h), design matrices
@@ -64,7 +69,9 @@ def weight_stage_update_wide(m_inputs: torch.Tensor, proj_self: torch.Tensor,
 
     `proj_self` = m_inputs @ weights_w and `proj_other` is the frozen
     side's projection; `proj_new` is assembled elementwise from them by
-    linearity, so the next stage needs no re-projection.
+    linearity, so the next stage needs no re-projection.  `seq_len` is
+    the global T, whatever rows this rank holds; `model` all-reduces the
+    per-gate sums over the ranks that hold the other columns.
     """
     dtype = weights_w.dtype
     hidden = weights_w.shape[-1] // 4
@@ -96,13 +103,13 @@ def weight_stage_update_wide(m_inputs: torch.Tensor, proj_self: torch.Tensor,
         torch.einsum('tdb,tkb->dk', m_inputs, resid * dact_pre),
         torch.sum(resid * resid, dim=(0, 2)))
     grad = rho_cols * grad_sum
-
-    f_at_w = 0.5 * rho_g * per_gate(sq_cols)
     grad_proj = torch.einsum('tdb,dk->tkb', m_inputs, grad)
 
     # <grad, diff> + T/2 * theta * |diff|^2 with diff = grad/theta
     # collapses to (1 + T/2) * S / theta, S = sum(grad^2) per gate.
-    grad_sq = per_gate(torch.sum(grad * grad, dim=0))
+    sq_gate, grad_sq = model.all_sum_packed(
+        per_gate(sq_cols), per_gate(torch.sum(grad * grad, dim=0)))
+    f_at_w = 0.5 * rho_g * sq_gate
     est_coef = (1.0 + 0.5 * seq_len) * grad_sq
 
     def fails(cands):
@@ -112,7 +119,8 @@ def weight_stage_update_wide(m_inputs: torch.Tensor, proj_self: torch.Tensor,
             th_cols = torch.repeat_interleave(th, hidden)[:, None]
             r = act(pre + grad_proj / th_cols) - target_w
             sums.append(per_gate(torch.sum(r * r, dim=(0, 2))))
-        original = 0.5 * rho_g * consensus.all_sum(torch.stack(sums))
+        original = 0.5 * rho_g * model.all_sum(
+            consensus.all_sum(torch.stack(sums)))
         return original > f_at_w + est_coef / cands
 
     theta, iters = doubling_search(
@@ -176,7 +184,8 @@ def h_final_update(h_old, o_new, tanh_c_new, lam_h, rho_h, wy, a_old,
                    grad_uses_rho_h: bool = False,
                    probe_is_grad_over_theta: bool = False,
                    to_out=None, from_out=None,
-                   consensus: Consensus = LOCAL) -> HFinalResult:
+                   consensus: Consensus = LOCAL,
+                   model: Consensus = LOCAL) -> HFinalResult:
     """Final-timestep h update: prox-linear on the output-fit term
     (admm.py:439-487; no-dual-y flavor admm.no_dual_y.py:414-449).
 
@@ -191,7 +200,8 @@ def h_final_update(h_old, o_new, tanh_c_new, lam_h, rho_h, wy, a_old,
     rho_y; probe_is_grad_over_theta probes grad/theta instead of the prox
     candidate.  `to_out` (h-like -> output space) and `from_out` default
     to the batch-major (B, H) / (B, O) convention; the epoch passes
-    batch-minor closures.
+    batch-minor closures.  Under tensor parallelism `to_out` all-reduces
+    its partial sum over H, and `model` the search's sums over H.
     """
     if to_out is None:
         to_out = lambda v: v @ wy
@@ -221,8 +231,10 @@ def h_final_update(h_old, o_new, tanh_c_new, lam_h, rho_h, wy, a_old,
             beta_wy = (theta * hw0 + pnf_wy) / (theta + rho_h)
         r = beta_wy - target
         diff = beta - h_old
-        sq_r, cross, sq_diff = consensus.all_sum_packed(
-            torch.sum(r * r), torch.sum(grad * diff), torch.sum(diff * diff))
+        cross, sq_diff = model.all_sum_packed(torch.sum(grad * diff),
+                                              torch.sum(diff * diff))
+        sq_r, cross, sq_diff = consensus.all_sum_packed(torch.sum(r * r),
+                                                        cross, sq_diff)
         original = 0.5 * rho_y * sq_r
         estimated = f_at_h + cross + 0.5 * theta * sq_diff
         return bool(original > estimated)                 # the host sync

@@ -5,10 +5,6 @@ The same two frozen dataclasses as the JAX package
 across unchanged.  In this package `use_pallas_sweep` selects the
 hand-written CUDA sweep kernels (kernels/gate_sweep.py) and
 `use_pallas_chol` the CUDA Cholesky kernels (kernels/cholesky.py).
-
-Fields whose code path is not ported yet are accepted here (validation
-matches the JAX package) and rejected where they would run, by
-`unsupported_reason`, which `api.train` turns into NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,9 +23,6 @@ VARIANTS = ('fast', 'no_dual_y', 'admm_l', 'admm_s')
 AUTO_FIELDS = dict(sweep_mode='jacobi', exact_weight_solve=True,
                    matmul_precision='default', adaptive_rho=True,
                    adapt_stop_epoch=10)
-
-# Where each unported path arrives.
-LATER = 'a later slice of the port'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,9 +77,11 @@ class ADMMConfig:
     # Final-timestep h line search bounds (reference: admm.py:447-449).
     h_theta0: float = 0.1
     h_theta_max: float = 1.0
-    # Mesh: axis names and sizes; None => single device.  A 1-D
-    # ('data',) mesh is data parallelism (api.train_sharded); a 2-D
-    # (data, model) mesh is not ported yet.
+    # Mesh: axis names and sizes; None => single device.  api.train_sharded
+    # trains data-parallel over the 'data' axis of a 1-D ('data',) or 2-D
+    # ('data', 'model') mesh, the 'model' ranks as replicas, as the JAX
+    # package does; the time-sharded and hidden-sharded layouts are
+    # reached through parallel/sharding.py.
     mesh_shape: Optional[Tuple[int, ...]] = None
     mesh_axes: Tuple[str, ...] = ('data',)
     # Exact ridge/normal-equation weight solve (solvers/normal_eq.py) for
@@ -157,12 +152,3 @@ class ADMMConfig:
         base.update(kw)
         return cls(**base)
 
-
-def unsupported_reason(config: ADMMConfig) -> Optional[str]:
-    """Why this slice of the port cannot train `config`, or None."""
-    if config.mesh_shape is not None and len(config.mesh_shape) > 1:
-        return (f'mesh_shape {tuple(config.mesh_shape)}: a 2-D (data, '
-                f'model) mesh is hidden-axis tensor parallelism, which '
-                f'arrives in {LATER}; data parallelism takes a 1-D mesh '
-                f'(n,)')
-    return None

@@ -623,7 +623,7 @@ def train_stacked(train_x, train_y, val_x, val_y,
     `api.train`: 'name', 'train_loss', 'val_loss', 'params',
     'final_params', 'best_epoch', 'state', 'seconds'.
     """
-    rules_for(config)                # raises for configs not ported yet
+    rules_for(config)                # raises for the legacy variants
     device = resolve_device(device)
     if isinstance(parameter_set, dict):
         parameter_set = ParameterSet.from_dict(parameter_set)

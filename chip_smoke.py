@@ -101,6 +101,22 @@ Phases, each fatal on failure:
                models' predictions on the card held to the CPU's; a
                profile_trace of one scenario epoch naming the kernel and
                the annotate() region.
+ 10. seqpar  - the time-sharded Jacobi layout (parallel/sharding.py,
+               shard_time=True) at the JAX long-T bench's shape (B 256, T
+               512, H 16, Jacobi, prox-linear weights): two gloo ranks on
+               the card hold time blocks of 257 and 256 rows, 10 epochs
+               held to one process on the card (losses at rtol 1e-4, each
+               weight leaf within 1e-4 of its scale, the ranks' weights
+               bit-equal), one jacobi_sweep launch an epoch on each rank;
+               ms per epoch per rank and the collectives per epoch per
+               axis (halos and broadcasts too);
+ 11. tp      - hidden-axis tensor parallelism on a (1, 2) (data, model)
+               mesh: Path B's shape under turbo at 'highest', 5 epochs, held
+               to one process as above, with jacobi_sweep 5, chol_solve 5
+               and chol_inverse 45 launches on each rank; and slice 1's
+               GoogleStock default config (H 10, 5 a rank) for 30 epochs on
+               slice 1's trajectory at rtol 1e-4 and the reference's val30,
+               30 interior_sweep launches a rank on the gathered slabs.
 Then it prints the card's name and power limit, one JSON line describing
 every kernel, and as the last line {"ok": true, "device": {...}}.
 It exits non-zero, printing no result line, without a CUDA card.
@@ -154,11 +170,17 @@ SWEEP_SHAPES = [(9, 10, 4224), (13, 5, 1000), (31, 130, 512),
                 # a YahooFinance scenario (4 folds of 340)
                 (59, 10, 340)]
 JACOBI_SHAPES = [(9, 10, 4224), (9, 128, 2048), (13, 5, 1000),
-                 (5, 7, 1001)]     # H * B odd: the V = 1 instance
+                 (5, 7, 1001),     # H * B odd: the V = 1 instance
+                 # the seqpar phase's two time blocks and the tp phase's H
+                 # block of Path B
+                 (256, 16, 256), (255, 16, 256), (9, 64, 2048)]
 SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128), (37, 100),
                 # the stacked (8, 8) layer-0 solves: wx (D = I) and wh
-                (32, 1), (32, 8)]
-INVERSE_SHAPES = [(512, 64), (16, 128), (7, 33)]
+                (32, 1), (32, 8),
+                # the tp phase's h-stage: a 'model' rank's 4H/2 columns
+                (256, 128)]
+INVERSE_SHAPES = [(512, 64), (16, 128), (7, 33),
+                  (256, 64)]      # the tp phase's x-stage blocks
 # Gate (ii) at the shapes of Path A and Path B.
 ILL_SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128)]
 ILL_INVERSE_SHAPES = [(512, 64)]
@@ -353,6 +375,21 @@ LEGACY_RTOL = 1e-5
 # differs), and every rendezvous, collective and join is bounded.
 SHARDED_RTOL = 1e-4
 SHARDED_TIMEOUT = 300
+
+# The seqpar phase: the JAX package's long-T bench shape
+# (benchmarks/bench_longseq.py:54, B 256, T 512, H 16), Jacobi with the
+# prox-linear weight stage, time-sharded over two gloo ranks on the one
+# card (257 and 256 of the 513 rows).  The tp phase: Path B's shape at
+# 'highest' on a (1, 2) mesh, H over 'model', and slice 1's GoogleStock
+# default config (Gauss-Seidel, H 10: 5 a rank) on the same mesh.  Each
+# is held to one process on the card: losses at LAYOUT_RTOL relative,
+# each weight leaf within LAYOUT_RTOL of its largest |value|.
+SEQPAR_SHAPE = dict(batch=256, seq_len=512, input_size=2, output_size=1,
+                    val_batch=32)
+SEQPAR_HIDDEN = 16
+SEQPAR_EPOCHS = 10
+TP_EPOCHS = 5
+LAYOUT_RTOL = 1e-4
 
 # The scenarios phase: the CLI's --scenarios 4 config on YahooFinance
 # (load_scenarios(4, seed=0): 4 x 340 train, 4 x 85 val windows, T 60),
@@ -2056,6 +2093,188 @@ def phase_sharded(tx, ty, vx, vy, ps, weights, slice1_train, slice1_val,
     return out
 
 
+def _layout_rank(rank, world, cases):
+    """One rank of the seqpar and tp phases (parallel/launch.spawn runs it
+    in a process of its own): each case is parallel/launch.run_layout's
+    keywords, run in order in the one process group.  The kernels' launch
+    counts are zeroed just before each run and read just after, in this
+    process."""
+    from admm_lstm_torch.parallel.launch import run_layout
+    from admm_lstm_torch.utils.logging import set_console_enabled
+    set_console_enabled(False)
+    out = []
+    for case in cases:
+        kernels = _zero_launches()
+        res = run_layout(**case)
+        res['launches'] = {n: k.launches for n, k in kernels.items()}
+        out.append(res)
+    return out
+
+
+def _run_layouts(cases):
+    """[[rank 0's result, rank 1's] for each case]: two gloo ranks on the
+    one card."""
+    from admm_lstm_torch.parallel.launch import spawn
+    ranks = spawn(_layout_rank, 2, args=(cases,), backend='gloo',
+                  timeout=SHARDED_TIMEOUT)
+    return [list(r) for r in zip(*ranks)]
+
+
+def _hold_layout(label, ranks, ref_train, ref_val, ref_params=None):
+    """Rank 0's losses after every epoch within LAYOUT_RTOL relative of
+    one process's, each gathered weight leaf within LAYOUT_RTOL of the
+    reference leaf's largest |value|, and every rank's gathered weights
+    bit-equal.  Returns the largest relative gaps."""
+    r0 = ranks[0]
+    for key, ref in (('train_loss', ref_train), ('val_loss', ref_val)):
+        got = np.asarray(r0[key])
+        if not (np.all(np.isfinite(got)) and got.shape == np.shape(ref)):
+            raise AssertionError(f'{label}: {key} {got.tolist()}')
+        np.testing.assert_allclose(got, ref, rtol=LAYOUT_RTOL,
+                                   err_msg=f'{label} {key}')
+    gaps = {'val_loss': _gap(np.asarray(r0['val_loss']), np.asarray(ref_val)),
+            'train_loss': _gap(np.asarray(r0['train_loss']),
+                               np.asarray(ref_train))}
+    for k in ('wx', 'wh', 'wy') if ref_params is not None else ():
+        got = getattr(r0['state'].params, k)
+        want = getattr(ref_params, k).detach().cpu()
+        scale = float(want.abs().max())
+        gaps[k] = float((got - want).abs().max()) / scale
+        if not gaps[k] <= LAYOUT_RTOL:
+            raise AssertionError(f'{label}: {k} differs from one process '
+                                 f'by {gaps[k]} of its scale')
+    for r in ranks[1:]:
+        for a, b in zip(r['state'].params, r0['state'].params):
+            if not torch.equal(a, b):
+                raise AssertionError(f'{label}: the ranks\' weights differ')
+    return gaps
+
+
+def _per_epoch_axes(mesh, epochs):
+    """{axis: {collective: [calls, bytes]} per epoch} of one rank, for
+    the collectives that the run made."""
+    return {axis: {kind: [c['calls'] / epochs, c['bytes'] / epochs]
+                   for kind, c in counts.items() if c['calls']}
+            for axis, counts in mesh['collectives'].items()}
+
+
+def _launch_gate(label, ranks, want):
+    for rank, r in enumerate(ranks):
+        got = {k: r['launches'][k] for k in want}
+        if got != want:
+            raise AssertionError(f'{label} rank {rank}: launches '
+                                 f'{r["launches"]}, expected {want}')
+
+
+def phase_seqpar(card):
+    """The time-sharded Jacobi layout at the JAX long-T bench's shape on
+    two gloo ranks sharing the card, against one process."""
+    from admm_lstm_torch import api
+    from admm_lstm_torch.data.synthetic import load as synth_load
+    from admm_lstm_torch.models.lstm import params_from_dict
+    from admm_lstm_torch.params import parameter_set
+    from admm_lstm_torch.utils.config import ADMMConfig
+    data = synth_load(seed=0, **SEQPAR_SHAPE)
+    ps = parameter_set('Synthetic')
+    weights = numpy_weights(SEQPAR_SHAPE['input_size'], SEQPAR_HIDDEN,
+                            SEQPAR_SHAPE['output_size'], seed=0)
+    cfg = ADMMConfig(sweep_mode='jacobi', hidden_size=SEQPAR_HIDDEN,
+                     epochs=SEQPAR_EPOCHS)
+    ref = api.train(*data, ps, cfg, params=params_from_dict(weights),
+                    log_every=0, device='cuda')
+    (ranks,) = _run_layouts([dict(
+        mesh_shape=(2,), shard_time=True, config=cfg, parameter_set=ps,
+        params=params_from_dict(weights), data=data, epochs=SEQPAR_EPOCHS,
+        device='cuda')])
+    gaps = _hold_layout('seqpar', ranks, ref['train_loss'][1:],
+                        ref['val_loss'][1:], ref['params'])
+    _launch_gate('seqpar', ranks, {'jacobi_sweep': SEQPAR_EPOCHS,
+                                   'interior_sweep': 0})
+    from admm_lstm_torch.core.consensus import time_block
+    blocks = [r['block'] for r in ranks]
+    want = [(hi - lo, SEQPAR_HIDDEN, SEQPAR_SHAPE['batch']) for lo, hi in
+            (time_block(SEQPAR_SHAPE['seq_len'] + 1, k, 2) for k in (0, 1))]
+    if blocks != want:
+        raise AssertionError(f'seqpar: time blocks {blocks}, not {want}')
+    log(f'[seqpar] B 256, T 512, H 16, Jacobi, 2 gloo ranks on one card, '
+        f'time blocks {blocks}: {SEQPAR_EPOCHS} epochs, largest relative '
+        f'gaps to one process {gaps}, weights bit-equal across ranks, '
+        f'round trip bit-equal {[r["round_trip"] for r in ranks]}; '
+        f'launches per rank {[r["launches"] for r in ranks]}; ms/epoch per '
+        f'rank (median after the first, host clock, each epoch read back) '
+        f'{[float(np.median(r["epoch_ms"][1:])) for r in ranks]}, one '
+        f'process {ref["seconds"] * 1e3 / SEQPAR_EPOCHS!r} (train loop, '
+        f'synchronized) on {card}; collectives [calls, bytes] per epoch per '
+        f'axis per rank {[_per_epoch_axes(r["mesh"], SEQPAR_EPOCHS) for r in ranks]}')
+    return ranks[0]['launches']
+
+
+def phase_tp(tx, ty, vx, vy, ps, weights, slice1_train, slice1_val, card):
+    """Hidden-axis tensor parallelism on a (1, 2) mesh, two gloo ranks
+    sharing the card: Path B's shape at 'highest' (the Jacobi kernel and
+    both Cholesky kernels on each rank's columns) against one process,
+    and slice 1's GoogleStock default config (the Gauss-Seidel kernel on
+    the slabs gathered to the whole H) against slice 1's trajectory."""
+    from admm_lstm_torch import api
+    from admm_lstm_torch.data.synthetic import load as synth_load
+    from admm_lstm_torch.models.lstm import init_lstm_params, params_from_dict
+    from admm_lstm_torch.params import parameter_set
+    from admm_lstm_torch.utils.config import ADMMConfig
+    har = synth_load(seed=0, **HAR_SHAPE)
+    har_ps = parameter_set('HAR')
+    har_params = init_lstm_params(torch.Generator().manual_seed(0),
+                                  HAR_SHAPE['input_size'], HAR_HIDDEN,
+                                  HAR_SHAPE['output_size'])
+    har_cfg = ADMMConfig.turbo(hidden_size=HAR_HIDDEN,
+                               exact_solve_max_dim=1024,
+                               matmul_precision='highest', epochs=TP_EPOCHS)
+    ref = api.train(*har, har_ps, har_cfg, params=har_params, log_every=0,
+                    device='cuda')
+    gs_cfg = ADMMConfig(epochs=EPOCHS, hidden_size=10)
+    mesh = dict(mesh_shape=(1, 2), axis_names=('data', 'model'),
+                model_axis='model', device='cuda')
+    har_ranks, gs_ranks = _run_layouts([
+        dict(mesh, config=har_cfg, parameter_set=har_ps, params=har_params,
+             data=har, epochs=TP_EPOCHS),
+        dict(mesh, config=gs_cfg, parameter_set=ps,
+             params=params_from_dict(weights), data=(tx, ty, vx, vy),
+             epochs=EPOCHS)])
+
+    gaps = _hold_layout('tp Path B', har_ranks, ref['train_loss'][1:],
+                        ref['val_loss'][1:], ref['params'])
+    _launch_gate('tp Path B', har_ranks,
+                 {'jacobi_sweep': TP_EPOCHS, 'chol_solve': TP_EPOCHS,
+                  'chol_inverse': 9 * TP_EPOCHS, 'interior_sweep': 0})
+    log(f'[tp] Path B (B 2048, T 10, I 561, H 128: 64 a rank), turbo at '
+        f'highest, mesh (1, 2), 2 gloo ranks on one card: {TP_EPOCHS} '
+        f'epochs, largest relative gaps to one process {gaps}, weights '
+        f'bit-equal across ranks; launches per rank '
+        f'{[r["launches"] for r in har_ranks]}; ms/epoch per rank (median '
+        f'after the first, host clock, each epoch read back) '
+        f'{[float(np.median(r["epoch_ms"][1:])) for r in har_ranks]}, one '
+        f'process {ref["seconds"] * 1e3 / TP_EPOCHS!r} on {card}; '
+        f'collectives [calls, bytes] per epoch per axis per rank '
+        f'{[_per_epoch_axes(r["mesh"], TP_EPOCHS) for r in har_ranks]}')
+
+    gaps = _hold_layout('tp GoogleStock', gs_ranks, slice1_train[1:],
+                        slice1_val[1:])
+    val30 = gs_ranks[0]['val_loss'][-1]
+    if not val30 <= REF_VAL_30 * 1.05:
+        raise AssertionError(f'tp GoogleStock val30 {val30} above the '
+                             f'reference {REF_VAL_30} x 1.05')
+    _launch_gate('tp GoogleStock', gs_ranks, {'interior_sweep': EPOCHS,
+                                              'jacobi_sweep': 0})
+    log(f'[tp] GoogleStock H 10 (5 a rank), default config, mesh (1, 2): '
+        f'{EPOCHS} epochs, val30 {val30:.6f}, largest relative gaps to '
+        f'slice 1 {gaps}; launches per rank '
+        f'{[r["launches"] for r in gs_ranks]} (Gauss-Seidel on the slabs '
+        f'gathered to the whole H); ms/epoch per rank '
+        f'{[float(np.median(r["epoch_ms"][1:])) for r in gs_ranks]} on '
+        f'{card}; collectives per epoch per axis per rank '
+        f'{[_per_epoch_axes(r["mesh"], EPOCHS) for r in gs_ranks]}')
+    return har_ranks[0]['launches'], gs_ranks[0]['launches']
+
+
 def card_name_and_power():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -2099,6 +2318,9 @@ def main() -> int:
     launches['scenarios'], launches['scenarios_speed'] = phase_scenarios(card)
     launches.update(phase_sharded(tx, ty, vx, vy, ps, weights, slice1_train,
                                   slice1_val, card))
+    launches['seqpar'] = phase_seqpar(card)
+    launches['tp_path_b'], launches['tp_googlestock'] = phase_tp(
+        tx, ty, vx, vy, ps, weights, slice1_train, slice1_val, card)
 
     log(f'[card] {card}')
     meta = {

@@ -127,8 +127,9 @@ def test_torch_train_needs_a_card_unless_asked_for_cpu():
 def test_torch_train_unported_options_raise(kw, tmp_path):
     """The checkpoint options run now (a resume from an empty directory
     starts from scratch, as in the JAX package); train_sharded runs a 1-D
-    mesh (tests/test_torch_parallel*.py) and still raises for a 2-D one,
-    which is tensor parallelism."""
+    or 2-D mesh (tests/test_torch_parallel*.py,
+    tests/test_torch_tensor_parallel.py) and raises for a mesh of more
+    than two axes."""
     (tx, ty, vx, vy), ps, _ = load_dataset('Synthetic', batch=8, val_batch=4)
     kw = {k: str(tmp_path / v) for k, v in kw.items()}
     res = api.train(tx, ty, vx, vy, ps, ADMMConfig(epochs=2), device='cpu',
@@ -137,9 +138,9 @@ def test_torch_train_unported_options_raise(kw, tmp_path):
     saved = sorted(os.listdir(tmp_path / 'ckpt'))
     assert saved == (['step_1.pt', 'step_2.pt'] if 'checkpoint_dir' in kw
                      else [])
-    with pytest.raises(NotImplementedError, match='tensor parallelism'):
+    with pytest.raises(ValueError, match='mesh_shape'):
         api.train_sharded(tx, ty, vx, vy, ps,
-                          ADMMConfig(epochs=1, mesh_shape=(2, 2)))
+                          ADMMConfig(epochs=1, mesh_shape=(2, 2, 1)))
 
 
 @pytest.mark.parametrize('cfgkw', [dict(epochs=8), dict(epochs=40)],

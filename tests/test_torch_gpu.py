@@ -169,6 +169,9 @@ def _jacobi_matches_plain(args):
     (5, 7, 1001),      # B % 4 != 0: V = 1
     (9, 20, 2052),     # float4s, several rounds, a partial last block
     (7, 33, 3001),     # V = 1, several rounds, a partial last block
+    (256, 16, 256),    # time-sharded T = 512: the first block's interior
+    (255, 16, 256),    # and the last block's (parallel/sharding.py)
+    (9, 64, 2048),     # HAR-shaped turbo, H = 128 on two 'model' ranks
 ])
 def test_torch_cuda_jacobi_matches_plain(cuda, steps, hidden, batch):
     _jacobi_matches_plain(_jacobi_inputs(steps, hidden, batch, cuda))
@@ -224,10 +227,12 @@ CHOL_ATOL = 1e-5
 # blocked kernels' 16-wide panels.
 CHOL_DIMS = [1, 2, 15, 16, 17, 31, 32, 33, 47, 63, 64, 65, 100, 127, 128]
 # N = 41 and 7 are not multiples of the warp kernel's 8 systems per block.
-SOLVE_CASES = ([(40, 1), (40, 10), (512, 128), (37, 100), (3, 33)]
+SOLVE_CASES = ([(40, 1), (40, 10), (512, 128), (37, 100), (3, 33),
+                (256, 128)]     # HAR's h-stage on two 'model' ranks
                + [(41, d) for d in CHOL_DIMS]
                + [(1, 10), (7, 10), (1, 100), (7, 64)])
-INVERSE_CASES = ([(512, 64), (16, 128), (7, 33), (2, 1)]
+INVERSE_CASES = ([(512, 64), (16, 128), (7, 33), (2, 1),
+                  (256, 64)]    # HAR's x-stage blocks on two 'model' ranks
                  + [(41, d) for d in CHOL_DIMS]
                  + [(1, 64), (7, 10), (1, 5)])
 
@@ -391,9 +396,12 @@ def test_torch_cuda_legacy_epochs_match_cpu(cuda):
 
 
 def _sharded_cases(cfg, tx, ty, vx, vy, params):
-    return [dict(train_x=tx, train_y=ty, val_x=vx, val_y=vy,
-                 parameter_set=parameter_set('Synthetic'), config=cfg,
-                 params=params, log_every=0, device='cuda')]
+    """`parallel/launch.run_cases`'s one call of api.train_sharded."""
+    from admm_lstm_torch import api
+    return [(api.train_sharded,
+             dict(train_x=tx, train_y=ty, val_x=vx, val_y=vy,
+                  parameter_set=parameter_set('Synthetic'), config=cfg,
+                  params=params, log_every=0, device='cuda'))]
 
 
 @pytest.mark.parametrize('sweep_mode', ['gauss_seidel', 'jacobi'])
@@ -405,7 +413,7 @@ def test_torch_cuda_gloo_ranks_sharing_the_card_match_one_process(
     unsharded); the ranks' weights bit-equal."""
     from admm_lstm_torch import api
     from admm_lstm_torch.kernels import build
-    from admm_lstm_torch.parallel.launch import spawn, train_cases
+    from admm_lstm_torch.parallel.launch import run_cases, spawn
     build.build_all(['gate_sweep', 'cholesky'])   # once, before the ranks
     tx, ty, vx, vy = synth(batch=256, seq_len=20, input_size=2,
                            output_size=1, val_batch=32)
@@ -415,7 +423,7 @@ def test_torch_cuda_gloo_ranks_sharing_the_card_match_one_process(
     ref = api.train(tx, ty, vx, vy, parameter_set('Synthetic'), cfg,
                     params=params, log_every=0, device='cuda')
     r0, r1 = (r[0] for r in spawn(
-        train_cases, 2, args=(_sharded_cases(cfg.replace(mesh_shape=(2,)),
+        run_cases, 2, args=(_sharded_cases(cfg.replace(mesh_shape=(2,)),
                                              tx, ty, vx, vy, params),),
         backend='gloo', timeout=300, workdir=str(tmp_path)))
     for a, b, want in zip(r0['params'], r1['params'], ref['params']):
@@ -426,18 +434,56 @@ def test_torch_cuda_gloo_ranks_sharing_the_card_match_one_process(
     np.testing.assert_allclose(r0['val_loss'], ref['val_loss'], rtol=1e-5)
 
 
+@pytest.mark.parametrize('layout', ['time', 'model'])
+def test_torch_cuda_layouts_on_gloo_ranks_match_one_process(cuda, layout,
+                                                            tmp_path):
+    """Two gloo ranks on the one card under the time-sharded layout (the
+    Jacobi kernel on each time block) and under tensor parallelism (the
+    Gauss-Seidel kernel on the slabs gathered to the whole H), against
+    the single-process kernel run."""
+    from admm_lstm_torch import api
+    from admm_lstm_torch.kernels import build
+    from admm_lstm_torch.parallel.launch import run_cases, run_layout, spawn
+    build.build_all(['gate_sweep', 'cholesky'])   # once, before the ranks
+    tx, ty, vx, vy = synth(batch=256, seq_len=21, input_size=2,
+                           output_size=1, val_batch=32)
+    params = init_lstm_params(torch.Generator().manual_seed(0), 2, 8, 1)
+    time_sharded = layout == 'time'
+    cfg = ADMMConfig(hidden_size=8, epochs=3, use_pallas_sweep=True,
+                     sweep_mode='jacobi' if time_sharded else 'gauss_seidel')
+    ref = api.train(tx, ty, vx, vy, parameter_set('Synthetic'), cfg,
+                    params=params, log_every=0, device='cuda')
+    case = dict(mesh_shape=(2,) if time_sharded else (1, 2),
+                axis_names=('data',) if time_sharded else ('data', 'model'),
+                shard_time=time_sharded,
+                model_axis=None if time_sharded else 'model', config=cfg,
+                parameter_set=parameter_set('Synthetic'), params=params,
+                data=(tx, ty, vx, vy), epochs=3, device='cuda')
+    r0, r1 = (r[0] for r in spawn(run_cases, 2, args=([(run_layout, case)],),
+                                  backend='gloo', timeout=300,
+                                  workdir=str(tmp_path)))
+    for a, b, want in zip(r0['state'].params, r1['state'].params,
+                          ref['params']):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), want.cpu().numpy(), atol=ATOL)
+    np.testing.assert_allclose(r0['state'].gates.h.numpy(),
+                               ref['state'].gates.h.cpu().numpy(), atol=ATOL)
+    np.testing.assert_allclose(r0['val_loss'], ref['val_loss'][1:],
+                               rtol=1e-5)
+
+
 def test_torch_cuda_nccl_one_rank_is_bit_equal_to_train(cuda, tmp_path):
     """One NCCL rank: the consensus is the identity, so the run is
     api.train's bit for bit."""
     from admm_lstm_torch import api
-    from admm_lstm_torch.parallel.launch import spawn, train_cases
+    from admm_lstm_torch.parallel.launch import run_cases, spawn
     tx, ty, vx, vy = synth(batch=256, seq_len=10, input_size=2,
                            output_size=1, val_batch=32)
     params = init_lstm_params(torch.Generator().manual_seed(0), 2, 8, 1)
     cfg = ADMMConfig(hidden_size=8, epochs=3)
     ref = api.train(tx, ty, vx, vy, parameter_set('Synthetic'), cfg,
                     params=params, log_every=0, device='cuda')
-    (got,), = spawn(train_cases, 1, args=(_sharded_cases(
+    (got,), = spawn(run_cases, 1, args=(_sharded_cases(
         cfg.replace(mesh_shape=(1,)), tx, ty, vx, vy, params),),
         backend='nccl', timeout=300, workdir=str(tmp_path))
     assert got['mesh']['backend'] == 'nccl'
@@ -452,7 +498,7 @@ def test_torch_cuda_nccl_refuses_ranks_sharing_a_card(cuda, tmp_path):
     ranks that would share one must ask for gloo, and the error says so,
     both before the ranks start (backend_for) and in a rank (make_mesh)."""
     from admm_lstm_torch.parallel import backend_for
-    from admm_lstm_torch.parallel.launch import spawn, train_cases
+    from admm_lstm_torch.parallel.launch import run_cases, spawn
     cards = torch.cuda.device_count()
     assert backend_for('cuda', cards) == 'nccl'
     assert backend_for('cuda', cards + 1, 'gloo') == 'gloo'
@@ -465,7 +511,7 @@ def test_torch_cuda_nccl_refuses_ranks_sharing_a_card(cuda, tmp_path):
     params = init_lstm_params(torch.Generator().manual_seed(0), 2, 4, 1)
     cfg = ADMMConfig(hidden_size=4, epochs=1, mesh_shape=(2,))
     with pytest.raises(RuntimeError, match='gloo'):
-        spawn(train_cases, 2, args=(_sharded_cases(cfg, tx, ty, vx, vy,
+        spawn(run_cases, 2, args=(_sharded_cases(cfg, tx, ty, vx, vy,
                                                    params),),
               backend='nccl', timeout=120, workdir=str(tmp_path))
 

@@ -24,6 +24,9 @@ SHAPES = [
     (9, 10, 4224),     # GoogleStock
     (9, 20, 2052),     # several rounds, a partial last block
     (9, 128, 2048),    # the HAR-shaped turbo run
+    (256, 16, 256),    # T = 512 time-sharded over two ranks: the first
+    (255, 16, 256),    # block's interior rows and the last block's
+    (9, 64, 2048),     # the HAR-shaped run's H block on two 'model' ranks
 ]
 
 

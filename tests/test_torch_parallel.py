@@ -23,7 +23,7 @@ from admm_lstm_torch.core.init import init_admm_state
 from admm_lstm_torch.core.step import admm_step, rules_for
 from admm_lstm_torch.data.synthetic import load as synth
 from admm_lstm_torch.models.lstm import params_from_dict
-from admm_lstm_torch.parallel import (backend_for, gather_state,
+from admm_lstm_torch.parallel import (Mesh, backend_for, gather_state,
                                       initialize_multihost, make_mesh,
                                       pad_batch, shard_batch, shard_range,
                                       shard_state)
@@ -131,11 +131,12 @@ def test_torch_pad_batch_is_the_jax_index_formula(batch, world):
     assert px.shape[0] % world == 0
 
 
-@dataclasses.dataclass(frozen=True)
-class _FakeMesh:
-    rank: int
-    world: int
-    device: torch.device = torch.device('cpu')
+def _fake_mesh(rank, world):
+    """Rank `rank` of a 1-D mesh of `world`, with no process group."""
+    return Mesh(shape=(world,), axis_names=('data',), rank=rank, world=world,
+                device=torch.device('cpu'), backend=None, host_group=None,
+                consensus=Consensus(world=world, index=rank),
+                coords=(rank,))
 
 
 def test_torch_shard_slabs_are_contiguous_blocks():
@@ -144,7 +145,7 @@ def test_torch_shard_slabs_are_contiguous_blocks():
     whole = init_admm_state(params_from_dict(_weights()),
                             torch.from_numpy(tx), ps)
     for rank in range(4):
-        mesh = _FakeMesh(rank, 4)
+        mesh = _fake_mesh(rank, 4)
         local = shard_state(whole, mesh)
         lo, hi = 4 * rank, 4 * rank + 4
         for k in 'ifgoch':
@@ -402,9 +403,9 @@ def test_torch_train_sharded_without_card_or_mesh_raises():
     with pytest.raises(ValueError, match='mesh_shape'):
         api.train_sharded(tx, ty, vx, vy, ps, ADMMConfig(epochs=1),
                           device='cpu')
-    with pytest.raises(NotImplementedError, match='tensor parallelism'):
+    with pytest.raises(ValueError, match='mesh_shape'):
         api.train_sharded(tx, ty, vx, vy, ps,
-                          ADMMConfig(epochs=1, mesh_shape=(2, 2)),
+                          ADMMConfig(epochs=1, mesh_shape=(2, 2, 1)),
                           device='cpu')
 
 

@@ -23,7 +23,7 @@ from admm_lstm_torch.ckpt.checkpoint import CheckpointManager
 from admm_lstm_torch.data.synthetic import load as synth
 from admm_lstm_torch.models.lstm import params_from_numpy
 from admm_lstm_torch.parallel import pad_batch
-from admm_lstm_torch.parallel.launch import spawn, train_cases
+from admm_lstm_torch.parallel.launch import run_cases, spawn
 from admm_lstm_torch.params import parameter_set
 from admm_lstm_torch.utils.config import ADMMConfig
 
@@ -76,8 +76,9 @@ def _case(name, world, ckpt):
 def _spawn(world, names, tmp_path_factory):
     work = tmp_path_factory.mktemp(f'ranks{world}')
     ckpt = str(work / 'ckpt')
-    ranks = spawn(train_cases, world,
-                  args=([_case(n, world, ckpt) for n in names],),
+    ranks = spawn(run_cases, world,
+                  args=([(api.train_sharded, _case(n, world, ckpt))
+                         for n in names],),
                   backend='gloo', timeout=SPAWN_TIMEOUT, threads=1,
                   workdir=str(work))
     return [dict(zip(names, per_rank)) for per_rank in ranks], ckpt

@@ -233,9 +233,6 @@ def test_torch_kernel_route_matches_scan_loop(monkeypatch, input_size):
 
 
 @pytest.mark.parametrize('cfgkw,exc,match', [
-    # A 1-D mesh is data parallelism (api.train_sharded); a 2-D (data,
-    # model) mesh is tensor parallelism, not ported yet.
-    (dict(mesh_shape=(2, 2)), NotImplementedError, 'mesh_shape'),
     # The legacy variants train through admm_lstm_torch.variants, not the
     # core epoch (as in the JAX package's core/step.rules_for).
     (dict(variant='admm_l'), ValueError, 'admm_l'),
@@ -244,6 +241,21 @@ def test_torch_kernel_route_matches_scan_loop(monkeypatch, input_size):
 def test_torch_step_unported_configs_raise(cfgkw, exc, match):
     with pytest.raises(exc, match=match):
         make_admm_step(ADMMConfig(**cfgkw))
+
+
+def test_torch_step_ignores_a_2d_mesh_in_one_process():
+    """A (data, model) mesh in the config is api.train_sharded's (and the
+    layouts of parallel/sharding.py); one process's epoch ignores it, as
+    the JAX package's make_admm_step does."""
+    tx, ty, _, _ = synth(batch=16, seq_len=4, input_size=2, val_batch=4)
+    x, y = torch.from_numpy(tx), torch.from_numpy(ty)
+    params = params_from_numpy(
+        *(np.full(s, 0.1, np.float32) for s in ((4, 2, 3), (4, 3, 3), (3, 1))))
+    ps = parameter_set('Synthetic')
+    got, want = (make_admm_step(ADMMConfig(mesh_shape=mesh))(
+        init_admm_state(params, x, ps), x, y) for mesh in ((2, 2), None))
+    for a, b in zip(got.params, want.params):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize('cfgkw', [dict(sweep_mode='jacobi'),
