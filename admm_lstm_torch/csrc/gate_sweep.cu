@@ -1,5 +1,6 @@
 // Fused interior timestep sweeps of the fast ADMM-LSTM epoch, for Hopper:
-// the Gauss-Seidel sweep and the Jacobi sweep.
+// the Gauss-Seidel sweep and the Jacobi sweep, and the Gauss-Seidel
+// sweep's serial-floor probe.
 //
 // interior_sweep_kernel replaces
 // admm_lstm_tpu/kernels/gate_sweep.py::pallas_interior_sweep.  For
@@ -21,6 +22,20 @@
 //
 // Both kernels call one __device__ function, timestep_math, so the math
 // exists once.
+//
+// floor_sweep_kernel replaces benchmarks/bench_gs_floor.py::floor_sweep, a
+// probe of the Gauss-Seidel sweep's serial floor: the bare LSTM recurrence
+// from the same xproj and wh, c_s = sig(pre_f) c_{s-1} + sig(pre_i)
+// tanh(pre_g), h_s = sig(pre_o) tanh(c_s), h_0 = c_0 = 0, with h (steps,
+// H, B) its one output.  It is the Gauss-Seidel kernel's loop (one
+// __device__ body, `sweep`, runs both) with another step policy: per row
+// and step it loads 4 projections, not 14, and stores 1 value, not 11, on
+// the same tile plan, the same recurrent product and the same h and c
+// carries, so the gap between the two kernels' per-step times is what the
+// closed forms, the duals and the 20 extra slab streams cost.  It moves 5
+// slabs (7.6 MB at GoogleStock, 2.3 us at 3.35 TB/s); at long T its serial
+// chain, a product, 3 expf and 2 tanhf deep, plus a block barrier, sets
+// the time.
 //
 // Layout: every slab is (steps, H, B) row-major, batch-minor; xproj and
 // pre are (steps, 4, H, B); wh is (4, H, H) with wh[g][k][j] the weight
@@ -117,7 +132,7 @@
 // (admm_lstm_torch/jacobi_ab.py times them).
 // No shared memory, no barrier.
 //
-// Numerics of both: FP32 FMA, no TF32, IEEE division, full-precision
+// Numerics of all three: FP32 FMA, no TF32, IEEE division, full-precision
 // expf/tanhf (no fast math).
 
 #include <cuda_runtime.h>
@@ -138,6 +153,8 @@ constexpr int AHEAD = WH_BUFS - 1;   // chunks in flight ahead of the one in use
 // _MAX_THREADS holds the same numbers.
 constexpr int sweep_max_threads(int rows) { return rows == 1 ? 1024 : 512; }
 
+// The Gauss-Seidel and floor kernels' arguments; the floor kernel reads no
+// rho and no `in` and writes h to out[0].
 struct SweepArgs {
   const float* xproj;        // (steps, 4, H, B)
   const float* wh;           // (4, H, H)
@@ -224,6 +241,28 @@ __device__ __forceinline__ void timestep_math(const float pre[4],
   res[10] = lc + r.c * (c_n - (f_n * cp + i_n * g_n));
 }
 
+// What `sweep` does per element and step: LOADS carry-free inputs (the 4
+// xproj gates first), `math` from the pre-activations, those inputs and
+// c_{s-1} to OUTS results, of which the first STORES go to out[0 ..
+// STORES-1]; c_s and h_s are results C_AT and H_AT.
+struct FullStep {        // the Gauss-Seidel sweep: timestep_math
+  static constexpr int LOADS = 14, OUTS = 11, STORES = 11, C_AT = 4, H_AT = 5;
+  __device__ static void math(const float pre[4], const float v[LOADS],
+                              float cp, const Rho& r, float res[OUTS]) {
+    timestep_math(pre, v + 4, cp, r, res);
+  }
+};
+
+struct FloorStep {       // the bare recurrence: h, then c (not stored)
+  static constexpr int LOADS = 4, OUTS = 2, STORES = 1, C_AT = 1, H_AT = 0;
+  __device__ static void math(const float pre[4], const float*, float cp,
+                              const Rho&, float res[OUTS]) {
+    const float c = sigmoidf_(pre[1]) * cp + sigmoidf_(pre[0]) * tanhf(pre[2]);
+    res[0] = sigmoidf_(pre[3]) * tanhf(c);
+    res[1] = c;
+  }
+};
+
 // ---- Gauss-Seidel sweep ----------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -283,44 +322,51 @@ __device__ __forceinline__ void recurrent_product(const float* w,
   }
 }
 
-// The 14 carry-free inputs of element (s, j, b): xproj i, f, g, o, then the
-// old f, g, c, h and the six duals (timestep_math's `old`); zeros outside
-// the slabs (!ok), so the math of a padded row or column stays finite.
+// The carry-free inputs of element (s, j, b): xproj i, f, g, o, then (the
+// full step) the old f, g, c, h and the six duals (timestep_math's `old`);
+// zeros outside the slabs (!ok), so the math of a padded row or column
+// stays finite.
+template <class Step>
 __device__ __forceinline__ void load_step(const SweepArgs& a, int s, int j,
-                                          int b, bool ok, float v[14]) {
+                                          int b, bool ok,
+                                          float v[Step::LOADS]) {
   const size_t slab = (size_t)a.H * a.B;
   const size_t e = (size_t)s * slab + (size_t)j * a.B + b;
-  const size_t xe = e + 3 * (size_t)s * slab;     // (s, gate 0, j, b)
-  const float* src[14] = {a.xproj + xe, a.xproj + xe + slab,
-                          a.xproj + xe + 2 * slab, a.xproj + xe + 3 * slab,
-                          a.in[1] + e, a.in[2] + e, a.in[4] + e, a.in[5] + e,
-                          a.in[6] + e, a.in[7] + e, a.in[8] + e, a.in[9] + e,
-                          a.in[10] + e, a.in[11] + e};
+  const float* const x = a.xproj + e + 3 * (size_t)s * slab;  // (s, 0, j, b)
 #pragma unroll
-  for (int k = 0; k < 14; ++k) v[k] = ok ? __ldg(src[k]) : 0.0f;
+  for (int g = 0; g < 4; ++g) v[g] = ok ? __ldg(x + g * slab) : 0.0f;
+  if constexpr (Step::LOADS > 4) {
+    const float* src[10] = {a.in[1] + e, a.in[2] + e, a.in[4] + e,
+                            a.in[5] + e, a.in[6] + e, a.in[7] + e,
+                            a.in[8] + e, a.in[9] + e, a.in[10] + e,
+                            a.in[11] + e};
+#pragma unroll
+    for (int k = 0; k < 10; ++k) v[4 + k] = ok ? __ldg(src[k]) : 0.0f;
+  }
 }
 
-// Stores the 11 results of rows j0 .. j0+R-1 of column b at step s: new
-// gates i..h, then duals i..c (masked by ok).
-template <int R>
+// Stores the results of rows j0 .. j0+R-1 of column b at step s to out[0 ..
+// STORES-1] (the full step: new gates i..h, then duals i..c; the floor: h),
+// masked by ok.
+template <int R, class Step>
 __device__ __forceinline__ void store_step(const SweepArgs& a, int s, int j0,
                                            int b, const bool ok[R],
-                                           const float res[R][11]) {
+                                           const float res[R][Step::STORES]) {
   const size_t slab = (size_t)a.H * a.B;
 #pragma unroll
   for (int q = 0; q < R; ++q)
     if (ok[q]) {
       const size_t e = (size_t)s * slab + (size_t)(j0 + q) * a.B + b;
 #pragma unroll
-      for (int k = 0; k < 11; ++k) a.out[k][e] = res[q][k];
+      for (int k = 0; k < Step::STORES; ++k) a.out[k][e] = res[q][k];
     }
 }
 
-template <int R, bool STREAM>
-__global__ void __launch_bounds__(sweep_max_threads(R))
-interior_sweep_kernel(const SweepArgs a) {
-  extern __shared__ float4 smem4[];
-  float* const smem = reinterpret_cast<float*>(smem4);   // [resident][4][hp]
+// The Gauss-Seidel loop over time of one block, with Step's loads, math
+// and stores; smem is the block's dynamic shared memory.
+template <int R, bool STREAM, class Step>
+__device__ __forceinline__ void sweep(const SweepArgs& a, float* const smem) {
+  // smem: [resident][4][hp] resident wh rows, then the ring, then h.
   const int H = a.H, B = a.B, hp = a.hp, tb = blockDim.x;
   const int kres = STREAM ? a.resident : H, kc = a.chunk;
   const int chunk_floats = kc * 4 * hp;
@@ -361,23 +407,25 @@ interior_sweep_kernel(const SweepArgs a) {
   cp_async_commit();
   for (int e = tid; e < H * tb; e += nthreads) hbuf[e] = 0.0f;   // h_0 = 0
 
-  const Rho rho = load_rho(a.rho);
-  float pf[R][14];   // this thread's prefetched inputs, row by row
+  Rho rho{};
+  if constexpr (Step::LOADS > 4) rho = load_rho(a.rho);
+  float pf[R][Step::LOADS];   // this thread's prefetched inputs, row by row
   float cst[R];      // c_{s-1}, c_0 = 0
   bool ok[R];        // row j0 + q and column b lie in the slabs
 #pragma unroll
   for (int q = 0; q < R; ++q) {
     cst[q] = 0.0f;
     ok[q] = j0 + q < H && b < B;
-    load_step(a, 0, j0 + q, b, ok[q], pf[q]);
+    load_step<Step>(a, 0, j0 + q, b, ok[q], pf[q]);
   }
   cp_async_wait<0>();
   __syncthreads();
 
-  // A step's results: stored during the next step where their 11 R
-  // registers fit (R <= 2; at R = 4 they spill), else at once.
-  constexpr bool DEFER = R <= 2;
-  float pend[R][11];
+  // A step's results: stored during the next step where their STORES * R
+  // registers fit (up to 22: the full step at R <= 2; at R = 4 they spill),
+  // else at once.
+  constexpr bool DEFER = Step::STORES * R <= 22;
+  float pend[R][Step::STORES];
   int buf = 0;       // ring slot of the next chunk (STREAM)
   int n = 0;         // index of the next chunk in the stream (STREAM)
   for (int s = 0; s < a.steps; ++s) {
@@ -408,12 +456,12 @@ interior_sweep_kernel(const SweepArgs a) {
         buf = buf + 1 == WH_BUFS ? 0 : buf + 1;
       }
     }
-    // Step s-1's results go out first (R <= 2), so the slab stores overlap
+    // Step s-1's results go out first (DEFER), so the slab stores overlap
     // the resident product instead of the math.  The resident rows last:
     // no barrier from here to the end of the step, so the warps drift apart
     // and one warp's math and memory traffic overlap another's product.
     if constexpr (DEFER) {
-      if (s > 0) store_step<R>(a, s - 1, j0, b, ok, pend);
+      if (s > 0) store_step<R, Step>(a, s - 1, j0, b, ok, pend);
     }
     recurrent_product<R>(smem + j0 * 4, hp_s + tx, kres, tb, hp, acc);
 
@@ -425,24 +473,38 @@ interior_sweep_kernel(const SweepArgs a) {
       const int j = j0 + q;
       const float pre[4] = {pf[q][0] + acc[0][q], pf[q][1] + acc[1][q],
                             pf[q][2] + acc[2][q], pf[q][3] + acc[3][q]};
-      float res[11];
-      timestep_math(pre, pf[q] + 4, cst[q], rho, res);
+      float res[Step::OUTS];
+      Step::math(pre, pf[q], cst[q], rho, res);
       if constexpr (DEFER) {
 #pragma unroll
-        for (int k = 0; k < 11; ++k) pend[q][k] = res[k];
+        for (int k = 0; k < Step::STORES; ++k) pend[q][k] = res[k];
       } else if (ok[q]) {
         const size_t e = (size_t)s * H * B + (size_t)j * B + b;
 #pragma unroll
-        for (int k = 0; k < 11; ++k) a.out[k][e] = res[k];
+        for (int k = 0; k < Step::STORES; ++k) a.out[k][e] = res[k];
       }
-      if (j < H) hn[j * tb + tx] = res[5];
-      cst[q] = res[4];
-      if (s + 1 < a.steps) load_step(a, s + 1, j, b, ok[q], pf[q]);
+      if (j < H) hn[j * tb + tx] = res[Step::H_AT];
+      cst[q] = res[Step::C_AT];
+      if (s + 1 < a.steps) load_step<Step>(a, s + 1, j, b, ok[q], pf[q]);
     }
     if constexpr (STREAM) cp_async_wait<AHEAD - 1>();   // next step's chunk 0
     __syncthreads();
   }
-  if constexpr (DEFER) store_step<R>(a, a.steps - 1, j0, b, ok, pend);
+  if constexpr (DEFER) store_step<R, Step>(a, a.steps - 1, j0, b, ok, pend);
+}
+
+template <int R, bool STREAM>
+__global__ void __launch_bounds__(sweep_max_threads(R))
+interior_sweep_kernel(const SweepArgs a) {
+  extern __shared__ float4 smem4[];
+  sweep<R, STREAM, FullStep>(a, reinterpret_cast<float*>(smem4));
+}
+
+template <int R, bool STREAM>
+__global__ void __launch_bounds__(sweep_max_threads(R))
+floor_sweep_kernel(const SweepArgs a) {
+  extern __shared__ float4 smem4[];
+  sweep<R, STREAM, FloorStep>(a, reinterpret_cast<float*>(smem4));
 }
 
 // ---- Jacobi sweep ----------------------------------------------------------
@@ -533,14 +595,17 @@ jacobi_sweep_kernel(const JacobiArgs a) {
 
 constexpr int MAX_DEVICES = 64;
 
-// Raises interior_sweep_kernel<R, STREAM>'s dynamic shared-memory limit to
-// the device's opt-in maximum once per device and remembers it, so a
-// launch does not pay a cudaFuncSetAttribute (two threads racing here both
-// set the same value), then launches it.
-template <int R, bool STREAM>
+// Raises the dynamic shared-memory limit of interior_sweep_kernel<R,
+// STREAM> (floor_sweep_kernel<R, STREAM> if FLOOR) to the device's opt-in
+// maximum once per device and remembers it, so a launch does not pay a
+// cudaFuncSetAttribute (two threads racing here both set the same value),
+// then launches it.
+template <int R, bool STREAM, bool FLOOR>
 cudaError_t launch_sweep(const SweepArgs& a, dim3 grid, dim3 block,
                          size_t smem, cudaStream_t st) {
   static bool ready[MAX_DEVICES];
+  const auto kernel = FLOOR ? floor_sweep_kernel<R, STREAM>
+                            : interior_sweep_kernel<R, STREAM>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -549,14 +614,68 @@ cudaError_t launch_sweep(const SweepArgs& a, dim3 grid, dim3 block,
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(interior_sweep_kernel<R, STREAM>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
     if (err != cudaSuccess) return err;
     if (dev < MAX_DEVICES) ready[dev] = true;
   }
-  interior_sweep_kernel<R, STREAM><<<grid, block, smem, st>>>(a);
+  kernel<<<grid, block, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+// Checks the tile plan of kernels/gate_sweep.py::sweep_plan that `a`
+// (steps, H, B, hp, resident, chunk, whp), `tb`, `rows` and `smem` carry
+// and launches it: the floor kernel if FLOOR, else the Gauss-Seidel
+// kernel.  Returns cudaErrorInvalidValue for a plan the kernels do not
+// take, else cudaGetLastError() after the launch (0 = launched).
+template <bool FLOOR>
+cudaError_t launch_plan(const SweepArgs& a, int tb, int rows, int smem,
+                        cudaStream_t st) {
+  const int hidden = a.H, hp = a.hp, resident = a.resident, chunk = a.chunk;
+  if (a.steps < 1 || hidden < 1 || a.B < 1) return cudaErrorInvalidValue;
+  if (tb < 1 || tb > 32 || (32 % tb) != 0) return cudaErrorInvalidValue;
+  if (rows != 1 && rows != 2 && rows != 4) return cudaErrorInvalidValue;
+  const int groups = (hidden + rows - 1) / rows;
+  if (tb * groups > sweep_max_threads(rows)) return cudaErrorInvalidValue;
+  if (hp < groups * rows) return cudaErrorInvalidValue;
+  const bool streamed = resident < hidden;
+  if (resident < 0 || resident > hidden || (streamed && chunk < 1) ||
+      (streamed && a.whp == nullptr) ||
+      reinterpret_cast<uintptr_t>(a.whp) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const size_t wh_floats =
+      ((size_t)resident + (streamed ? WH_BUFS * (size_t)chunk : 0)) * 4 * hp;
+  const size_t need = (wh_floats + 2 * (size_t)hidden * tb) * sizeof(float);
+  if ((size_t)smem != need) return cudaErrorInvalidValue;
+
+  const dim3 block(tb, groups);
+  const dim3 grid((a.B + tb - 1) / tb);
+  switch (rows * 2 + streamed) {
+    case 2: return launch_sweep<1, false, FLOOR>(a, grid, block, need, st);
+    case 3: return launch_sweep<1, true, FLOOR>(a, grid, block, need, st);
+    case 4: return launch_sweep<2, false, FLOOR>(a, grid, block, need, st);
+    case 5: return launch_sweep<2, true, FLOOR>(a, grid, block, need, st);
+    case 8: return launch_sweep<4, false, FLOOR>(a, grid, block, need, st);
+    default: return launch_sweep<4, true, FLOOR>(a, grid, block, need, st);
+  }
+}
+
+// SweepArgs of a launch, the per-kernel pointers left null.
+SweepArgs sweep_args(const void* xproj, const void* wh, const void* whp,
+                     int steps, int hidden, int batch, int hp, int resident,
+                     int chunk) {
+  SweepArgs a{};
+  a.xproj = static_cast<const float*>(xproj);
+  a.wh = static_cast<const float*>(wh);
+  a.whp = static_cast<const float*>(whp);
+  a.steps = steps;
+  a.H = hidden;
+  a.B = batch;
+  a.hp = hp;
+  a.resident = resident;
+  a.chunk = chunk;
+  return a;
 }
 
 }  // namespace
@@ -592,47 +711,28 @@ int gate_sweep_interior(const void* xproj, const void* wh, const void* whp,
                         void* const* outs, int steps, int hidden, int batch,
                         int tb, int rows, int hp, int resident, int chunk,
                         int smem, void* stream) {
-  if (steps < 1 || hidden < 1 || batch < 1) return cudaErrorInvalidValue;
-  if (tb < 1 || tb > 32 || (32 % tb) != 0) return cudaErrorInvalidValue;
-  if (rows != 1 && rows != 2 && rows != 4) return cudaErrorInvalidValue;
-  const int groups = (hidden + rows - 1) / rows;
-  if (tb * groups > sweep_max_threads(rows)) return cudaErrorInvalidValue;
-  if (hp < groups * rows) return cudaErrorInvalidValue;
-  const bool streamed = resident < hidden;
-  if (resident < 0 || resident > hidden || (streamed && chunk < 1) ||
-      (streamed && whp == nullptr) ||
-      reinterpret_cast<uintptr_t>(whp) % 16 != 0)
-    return cudaErrorInvalidValue;
-  const size_t wh_floats =
-      ((size_t)resident + (streamed ? WH_BUFS * (size_t)chunk : 0)) * 4 * hp;
-  const size_t need = (wh_floats + 2 * (size_t)hidden * tb) * sizeof(float);
-  if ((size_t)smem != need) return cudaErrorInvalidValue;
-
-  SweepArgs a;
-  a.xproj = static_cast<const float*>(xproj);
-  a.wh = static_cast<const float*>(wh);
-  a.whp = static_cast<const float*>(whp);
+  SweepArgs a = sweep_args(xproj, wh, whp, steps, hidden, batch, hp,
+                           resident, chunk);
   a.rho = static_cast<const float*>(rho);
   for (int k = 0; k < 12; ++k) a.in[k] = static_cast<const float*>(ins[k]);
   for (int k = 0; k < 11; ++k) a.out[k] = static_cast<float*>(outs[k]);
-  a.steps = steps;
-  a.H = hidden;
-  a.B = batch;
-  a.hp = hp;
-  a.resident = resident;
-  a.chunk = chunk;
+  return launch_plan<false>(a, tb, rows, smem,
+                            static_cast<cudaStream_t>(stream));
+}
 
-  const dim3 block(tb, groups);
-  const dim3 grid((batch + tb - 1) / tb);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows * 2 + streamed) {
-    case 2: return launch_sweep<1, false>(a, grid, block, need, st);
-    case 3: return launch_sweep<1, true>(a, grid, block, need, st);
-    case 4: return launch_sweep<2, false>(a, grid, block, need, st);
-    case 5: return launch_sweep<2, true>(a, grid, block, need, st);
-    case 8: return launch_sweep<4, false>(a, grid, block, need, st);
-    default: return launch_sweep<4, true>(a, grid, block, need, st);
-  }
+// Launches the floor kernel, the bare recurrence from xproj (steps, 4, H,
+// B) and wh into h (steps, H, B), on `stream` with the same tile plan and
+// arguments as gate_sweep_interior.  Returns cudaErrorInvalidValue for a
+// plan it does not take, else cudaGetLastError() after the launch.
+int gate_sweep_floor(const void* xproj, const void* wh, const void* whp,
+                     void* h, int steps, int hidden, int batch, int tb,
+                     int rows, int hp, int resident, int chunk, int smem,
+                     void* stream) {
+  SweepArgs a = sweep_args(xproj, wh, whp, steps, hidden, batch, hp,
+                           resident, chunk);
+  a.out[0] = static_cast<float*>(h);
+  return launch_plan<true>(a, tb, rows, smem,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // Resident blocks per SM of jacobi_sweep_kernel<vec> at JACOBI_THREADS

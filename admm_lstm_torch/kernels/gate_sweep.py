@@ -14,7 +14,12 @@ math for every interior t at once, from the previous sweep's c[t-1] and a
 pre-activation whose recurrent product the caller hoisted out, so every
 element is independent.
 
-Both wrappers launch their kernel (csrc/gate_sweep.cu) for CUDA tensors
+`floor_sweep` replaces `benchmarks/bench_gs_floor.py::floor_sweep`, the
+probe of the Gauss-Seidel sweep's serial floor: the bare LSTM recurrence
+from the same projections and wh on `interior_sweep`'s tile plan
+(`admm_lstm_torch/gs_floor.py` times it).
+
+The wrappers launch their kernel (csrc/gate_sweep.cu) for CUDA tensors
 and raise on anything they cannot take; they run the plain version only
 for tensors that lie on the CPU.  There is no fallback from a kernel to
 its plain version.  What bounds the kernels on an H100 (bytes: about
@@ -355,6 +360,29 @@ def jacobi_sweep_plain(pre: torch.Tensor, gates: Sequence[torch.Tensor],
     return tuple(out[:6]), tuple(out[6:])
 
 
+def floor_sweep_plain(xproj: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of `floor_sweep`: a loop over steps of
+    the LSTM cell, h_0 = c_0 = 0.
+
+    Args:
+      xproj: (steps, 4, H, B) input projections, gates i, f, g, o.
+      wh:    (4, H, H) recurrent weights, wh[g][k][j] from h[k] to row j.
+    Returns:
+      h, (steps, H, B).
+    """
+    steps, _, hidden, batch = xproj.shape
+    h = xproj.new_zeros((hidden, batch))
+    c = xproj.new_zeros((hidden, batch))
+    out = []
+    for t in range(steps):
+        pre = xproj[t] + torch.einsum('hb,ghk->gkb', h, wh)
+        c = (torch.sigmoid(pre[1]) * c
+             + torch.sigmoid(pre[0]) * torch.tanh(pre[2]))
+        h = torch.sigmoid(pre[3]) * torch.tanh(c)
+        out.append(h)
+    return torch.stack(out)
+
+
 def _check_slabs(name, tensors, slabs, steps, hidden, batch):
     if any(t.device != tensors[0].device for t in tensors):
         raise ValueError(f'{name}: all inputs must be on one device')
@@ -438,6 +466,39 @@ def interior_sweep(xproj: torch.Tensor, wh: torch.Tensor,
     return out
 
 
+def floor_sweep(xproj: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """The bare LSTM recurrence over every step, on `interior_sweep`'s
+    tile plan.
+
+    Same arguments and return as `floor_sweep_plain`.  CUDA tensors go to
+    the CUDA kernel (which adds one to `floor_sweep.launches` per launch);
+    CPU tensors go to the plain version.
+    """
+    if xproj.dim() != 4 or xproj.shape[1] != 4:
+        raise ValueError(f'floor_sweep: the projection must be (steps, 4, H, '
+                         f'B), got {tuple(xproj.shape)}')
+    steps, _, hidden, batch = xproj.shape
+    if tuple(wh.shape) != (4, hidden, hidden):
+        raise ValueError(f'wh must be (4, {hidden}, {hidden}), '
+                         f'got {tuple(wh.shape)}')
+    _check_slabs('floor_sweep', (xproj, wh), (), steps, hidden, batch)
+    if xproj.device.type == 'cpu':
+        return floor_sweep_plain(xproj, wh)
+    plan = card_sweep_plan(xproj.device, hidden, batch)
+    whp = padded_wh(wh, plan.hp) if plan.padded else None
+    h = torch.empty((steps, hidden, batch), dtype=torch.float32,
+                    device=xproj.device)
+    vp = ctypes.c_void_p
+    launch(_LIB, 'gate_sweep_floor', [vp] * 4 + [ctypes.c_int] * 9,
+           xproj.device, xproj.data_ptr(), wh.data_ptr(),
+           None if whp is None else whp.data_ptr(), h.data_ptr(), steps,
+           hidden, batch, plan.tb, plan.rows, plan.hp, plan.resident,
+           plan.chunk, plan.smem,
+           detail=f'steps {steps}, H {hidden}, B {batch}, plan {plan}')
+    floor_sweep.launches += 1
+    return h
+
+
 def tensor_jacobi_plan(pre: torch.Tensor, gates: Sequence[torch.Tensor],
                        duals: Sequence[torch.Tensor],
                        c_prev: torch.Tensor) -> JacobiPlan:
@@ -479,3 +540,4 @@ def jacobi_sweep(pre: torch.Tensor, gates: Sequence[torch.Tensor],
 
 interior_sweep.launches = 0
 jacobi_sweep.launches = 0
+floor_sweep.launches = 0

@@ -20,7 +20,17 @@ Phases, each fatal on failure:
                registers and systems per SM, and gate (ii): the error
                against float64 on ill-conditioned Gram-like inputs, held
                to the plain version's;
-  3. train   - the paths, each through `admm_lstm_torch.api`, with the
+  3. floor   - the Gauss-Seidel serial-floor probe: `python -m
+               admm_lstm_torch.gs_floor` at its defaults (T 2047, H 16,
+               B 64) with the launch counts zeroed just before and read
+               just after; floor_sweep against its plain version at
+               FLOOR_SHAPES, and at the first FLOOR_TIMED of them its time
+               (L2 flushed and warm), bound, plain time, time a step,
+               interior_sweep's times and time a step at the same shape
+               and plan (the chain share is the floor's step over the
+               sweep's), and cuDNN's LSTM on the same function, held to
+               the kernel before it is timed;
+  4. train   - the paths, each through `admm_lstm_torch.api`, with the
                kernels' launch counts zeroed just before each run and read
                just after:
                * slice 1: GoogleStock, H=10, default ADMMConfig, 30 epochs
@@ -40,14 +50,14 @@ Phases, each fatal on failure:
                  to its trajectories, one interior_sweep launch an epoch;
                  SMSSpam (I=95, O=2) and GEFCOM2012Wind, 5 epochs from
                  numpy-seeded weights, held to the JAX package's losses;
-  4. tune    - search_rho on GoogleStock over the default 27-point grid, 30
+  5. tune    - search_rho on GoogleStock over the default 27-point grid, 30
                epochs a candidate: the JAX package's best rho, every
                candidate's validation loss, 810 interior_sweep launches,
                and the search's wall seconds;
-  5. resume  - YahooFinance 10 epochs straight against 5 checkpointed
+  6. resume  - YahooFinance 10 epochs straight against 5 checkpointed
                (async) and resumed from the directory to 10: losses,
                weights and the whole final state equal bit for bit;
-  6. stacked - the stacked N-layer variant on GoogleStock at the JAX
+  7. stacked - the stacked N-layer variant on GoogleStock at the JAX
                bench's width (hiddens (8, 8), ParameterSet 'Stacked'),
                from the JAX package's seed-0 initial weights
                (tests/golden/torch_stacked_init_*.npz): train_stacked at
@@ -58,7 +68,7 @@ Phases, each fatal on failure:
                with its tuned rho; one (8, 8) epoch with the kernels
                against the same epoch with the plain versions; a
                save_model/load_model round trip of the result, bit-equal;
-  7. legacy  - ADMM-LSTM-L, ADMM-LSTM-S, the gradient baselines and the
+  8. legacy  - ADMM-LSTM-L, ADMM-LSTM-S, the gradient baselines and the
                comparison harness on GoogleStock at the CLI's width (H 10,
                seed 0), none of which launches a kernel but the harness's
                Fast run: admm_l_demo for 30 epochs on the JAX package's
@@ -71,7 +81,7 @@ Phases, each fatal on failure:
                launches; one epoch of each ADMM variant on the card
                against the CPU; and each variant's and baseline's ms per
                epoch, host syncs and device operations per epoch.
-  8. sharded - data-parallel consensus ADMM (api.train_sharded and the
+  9. sharded - data-parallel consensus ADMM (api.train_sharded and the
                sharded epoch function) on GoogleStock at H 10 from the
                reference's seed-0 weights, each rank a process of its own
                (parallel/launch.spawn, a timeout on the rendezvous, every
@@ -86,7 +96,7 @@ Phases, each fatal on failure:
                bit-equal to api.train.  It logs each run's ms per epoch
                (two ranks on one card share it: not a scaling figure) and
                the all-reduces and bytes all-reduced per epoch per rank.
-  9. scenarios - api.train_scenarios on the CLI's --scenarios 4 config
+ 10. scenarios - api.train_scenarios on the CLI's --scenarios 4 config
                (YahooFinance in 4 folds of 340, fast, H 10, wy_lipschitz)
                for 30 epochs from the JAX package's seed-split inits
                (tests/golden/torch_scenarios_init_s4.npz), held to the
@@ -101,7 +111,7 @@ Phases, each fatal on failure:
                models' predictions on the card held to the CPU's; a
                profile_trace of one scenario epoch naming the kernel and
                the annotate() region.
- 10. seqpar  - the time-sharded Jacobi layout (parallel/sharding.py,
+ 11. seqpar  - the time-sharded Jacobi layout (parallel/sharding.py,
                shard_time=True) at the JAX long-T bench's shape (B 256, T
                512, H 16, Jacobi, prox-linear weights): two gloo ranks on
                the card hold time blocks of 257 and 256 rows, 10 epochs
@@ -110,7 +120,7 @@ Phases, each fatal on failure:
                bit-equal), one jacobi_sweep launch an epoch on each rank;
                ms per epoch per rank and the collectives per epoch per
                axis (halos and broadcasts too);
- 11. tp      - hidden-axis tensor parallelism on a (1, 2) (data, model)
+ 12. tp      - hidden-axis tensor parallelism on a (1, 2) (data, model)
                mesh: Path B's shape under turbo at 'highest', 5 epochs, held
                to one process as above, with jacobi_sweep 5, chol_solve 5
                and chol_inverse 45 launches on each rank; and slice 1's
@@ -174,6 +184,15 @@ JACOBI_SHAPES = [(9, 10, 4224), (9, 128, 2048), (13, 5, 1000),
                  # the seqpar phase's two time blocks and the tp phase's H
                  # block of Path B
                  (256, 16, 256), (255, 16, 256), (9, 64, 2048)]
+# floor_sweep (steps, H, B): the gs_floor probe's default first, then the
+# Gauss-Seidel rows' (127, 16, 512) and GoogleStock's, timed beside
+# interior_sweep and cuDNN; wh streamed, a ragged batch edge, small ones.
+FLOOR_SHAPES = [(2047, 16, 64), (127, 16, 512), (9, 10, 4224),
+                (31, 130, 512), (13, 5, 1000), (4, 7, 37), (1, 3, 1)]
+FLOOR_TIMED = 3
+# The floor's operations per element and step beside its 8H-long product:
+# the 4 projection adds, five activations and the c and h updates.
+FLOOR_OPS = 25
 SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128), (37, 100),
                 # the stacked (8, 8) layer-0 solves: wx (D = I) and wh
                 (32, 1), (32, 8),
@@ -556,6 +575,15 @@ def sweep_bound(steps, hidden, batch):
                  elems * (8 * hidden + 105))
 
 
+def floor_bound(steps, hidden, batch):
+    """One floor sweep.  Bytes: the 4 xproj gates read once, h written
+    once, wh once.  Operations: 8H per element and step for the recurrent
+    product plus FLOOR_OPS."""
+    elems = steps * hidden * batch
+    return bound(4 * (elems * 5 + 4 * hidden * hidden),
+                 elems * (8 * hidden + FLOOR_OPS))
+
+
 def jacobi_bytes(steps, hidden, batch):
     """The bytes one Jacobi sweep must move: 15 input slabs (4 pre gates,
     old f, g, c, h, 6 duals, c_prev; h_prev is already inside pre and old
@@ -606,6 +634,14 @@ def sweep_inputs(steps, hidden, batch, seed, jacobi=False):
                           for _ in range(2))
         return proj, gates, duals, h_prev, c_prev, rho
     return proj, wh, gates, duals, rho
+
+
+def floor_inputs(steps, hidden, batch, seed):
+    """xproj and wh of floor_sweep, at sweep_inputs' scales."""
+    gen = torch.Generator().manual_seed(seed)
+    return (_rand(gen, steps, 4, hidden, batch, scale=0.3),
+            _rand(gen, 4, hidden, hidden,
+                  scale=0.3 / max(1.0, (hidden / 10) ** 0.5)))
 
 
 def spd_inputs(n, dim, seed):
@@ -683,7 +719,7 @@ def kernel_row(name, shape, kernel, plain, library, tol, bound_ms_by, flush,
 
 KERNEL_NAMES = ('warp_chol_kernel', 'blocked_solve_kernel',
                 'blocked_inverse_kernel', 'interior_sweep_kernel',
-                'jacobi_sweep_kernel')
+                'jacobi_sweep_kernel', 'floor_sweep_kernel')
 
 
 def ptxas_summary(out):
@@ -880,12 +916,121 @@ def phase_kernels(flush, ptxas):
     return rows, ill
 
 
+def cudnn_lstm(xproj, wh):
+    """torch.nn.LSTM(4H, H) on cuDNN set to compute floor_sweep(xproj, wh):
+    weight_ih the identity, biases zero, weight_hh[g H + j, k] =
+    wh[g][k][j] (PyTorch's gate order is i, f, g, o too), its input xproj
+    as (steps, B, 4H), TF32 off.  Returns a call that gives h as (steps,
+    B, H); it also runs the identity GEMM of the input projection, which
+    the kernel does not."""
+    if torch.backends.cudnn.allow_tf32:
+        raise AssertionError('the LSTM yardstick runs with TF32 off '
+                             '(set_matmul_precision("highest"))')
+    steps, _, hidden, batch = xproj.shape
+    lstm = torch.nn.LSTM(4 * hidden, hidden).cuda()
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(torch.eye(4 * hidden))
+        lstm.weight_hh_l0.copy_(wh.permute(0, 2, 1).reshape(4 * hidden,
+                                                            hidden))
+        lstm.bias_ih_l0.zero_()
+        lstm.bias_hh_l0.zero_()
+    inp = xproj.permute(0, 3, 1, 2).reshape(steps, batch, 4 * hidden)
+    inp = inp.contiguous()
+
+    def call():
+        with torch.no_grad():
+            return lstm(inp)[0]
+    return call
+
+
+def phase_floor(flush, ptxas):
+    """The floor probe as a user runs it, with the launch counts zeroed
+    just before and read just after; then floor_sweep against its plain
+    version at FLOOR_SHAPES, the first FLOOR_TIMED rows timed beside
+    interior_sweep at the same shape and plan and beside cuDNN's LSTM
+    (held to the kernel at KERNEL_ATOL first).  Returns the rows and the
+    probe's launch counts."""
+    from admm_lstm_torch import gs_floor
+    from admm_lstm_torch.kernels import gate_sweep as gs
+    if not torch.backends.cudnn.is_available():
+        raise AssertionError('cuDNN is not available for the LSTM yardstick')
+    kernels = _zero_launches()
+    if gs_floor.main([]) != 0:
+        raise AssertionError('gs_floor exited non-zero')
+    launches = {name: k.launches for name, k in kernels.items()}
+    log(f'[floor] gs_floor at its defaults: launches {launches}')
+    need(launches, 'floor_sweep', gs_floor.CHAIN * (gs_floor.REPEATS + 1),
+         'floor')
+    rows = []
+    for k, shape in enumerate(FLOOR_SHAPES):
+        steps, hidden, batch = shape
+        xproj, wh = floor_inputs(*shape, seed=60 + k)
+        plan = gs.card_sweep_plan(torch.device('cuda'), hidden, batch)
+        instance = ptxas.get(f'floor_sweep_kernel<{plan.rows},'
+                             f'{int(plan.resident < hidden)}>', {})
+        kernel = lambda: gs.floor_sweep(xproj, wh)
+        plain = lambda: gs.floor_sweep_plain(xproj, wh)
+        if k >= FLOOR_TIMED:
+            got, want = kernel(), plain()
+            err = float((got - want).abs().max())
+            row = dict(shape=list(shape), max_abs_err=err,
+                       plan=plan._asdict(), **instance)
+            log(f'[floor] floor_sweep {row}')
+            if not (bool(torch.isfinite(got).all()) and err <= KERNEL_ATOL):
+                raise AssertionError(f'floor_sweep disagrees with its plain '
+                                     f'version at {list(shape)}: max abs '
+                                     f'err {err}')
+            rows.append(row)
+            continue
+        library = cudnn_lstm(xproj, wh)
+        lib_err = float((library().permute(0, 2, 1) - kernel()).abs().max())
+        if not lib_err <= KERNEL_ATOL:
+            raise AssertionError(f'cuDNN LSTM disagrees with floor_sweep at '
+                                 f'{list(shape)}: max abs err {lib_err}')
+        one = floor_inputs(1, hidden, batch, seed=60 + k)
+        args = sweep_inputs(*shape, seed=60 + k)
+        args1 = sweep_inputs(1, hidden, batch, seed=60 + k)
+        row = kernel_row(
+            'floor_sweep', shape, kernel, plain, library, KERNEL_ATOL,
+            floor_bound(*shape), flush,
+            info=dict(plan=plan._asdict(), **instance,
+                      cudnn_max_abs_err=lib_err,
+                      cudnn_version=torch.backends.cudnn.version(),
+                      one_step_ms=cuda_ms(lambda: gs.floor_sweep(*one), 50,
+                                          flush),
+                      interior_ms=cuda_ms(lambda: gs.interior_sweep(*args),
+                                          50, flush),
+                      interior_one_step_ms=cuda_ms(
+                          lambda: gs.interior_sweep(*args1), 50, flush),
+                      # L2-resident, right after the same call: what the
+                      # loads' latency from HBM costs the chain.
+                      warm_ms=cuda_ms(kernel, 50, None),
+                      interior_warm_ms=cuda_ms(
+                          lambda: gs.interior_sweep(*args), 50, None)))
+        # A step's time past the first step, as the interior_sweep rows.
+        row['ms_per_step'] = (row['ms'] - row['one_step_ms']) / (steps - 1)
+        row['interior_ms_per_step'] = (
+            row['interior_ms'] - row['interior_one_step_ms']) / (steps - 1)
+        row['chain_share'] = row['ms_per_step'] / row['interior_ms_per_step']
+        log(f'[floor] floor_sweep {list(shape)} plan {row["plan"]}: '
+            f'{row["ms"]} ms, {row["ms_per_step"] * 1e3} us a step; '
+            f'interior_sweep {row["interior_ms"]} ms, '
+            f'{row["interior_ms_per_step"] * 1e3} us a step; chain share '
+            f'{row["chain_share"]}; warm (L2) {row["warm_ms"]} and '
+            f'{row["interior_warm_ms"]} ms; cuDNN LSTM {row["library_ms"]} '
+            f'ms; bound {row["bound_ms"]} ms ({row["bound_by"]})')
+        rows.append(row)
+    return rows, launches
+
+
 def _kernels():
     from admm_lstm_torch.kernels.cholesky import chol_inverse, chol_solve
-    from admm_lstm_torch.kernels.gate_sweep import (interior_sweep,
+    from admm_lstm_torch.kernels.gate_sweep import (floor_sweep,
+                                                    interior_sweep,
                                                     jacobi_sweep)
     return dict(interior_sweep=interior_sweep, jacobi_sweep=jacobi_sweep,
-                chol_solve=chol_solve, chol_inverse=chol_inverse)
+                chol_solve=chol_solve, chol_inverse=chol_inverse,
+                floor_sweep=floor_sweep)
 
 
 def _zero_launches():
@@ -1626,7 +1771,7 @@ def phase_legacy(tx, ty, vx, vy, ps, weights):
                 r[key], alone[r['name']][key][:n + 1], rtol=COMPARISON_RTOL,
                 err_msg=f'run_comparison {r["name"]} {key}')
     if launches != dict(interior_sweep=n, jacobi_sweep=0, chol_solve=0,
-                        chol_inverse=0):
+                        chol_inverse=0, floor_sweep=0):
         raise AssertionError(f'run_comparison launches {launches}')
 
     # 6. One epoch of each variant on the card against the CPU.
@@ -1880,7 +2025,8 @@ def phase_scenarios(card):
     if not (np.all(np.isfinite(train)) and np.all(np.isfinite(val))):
         raise AssertionError('scenarios: non-finite losses')
     if launches != dict(interior_sweep=SCEN_COUNT * SCEN_EPOCHS,
-                        jacobi_sweep=0, chol_solve=0, chol_inverse=0):
+                        jacobi_sweep=0, chol_solve=0, chol_inverse=0,
+                        floor_sweep=0):
         raise AssertionError(f'scenarios: launches {launches}')
     report = _hold_scenarios(train, val)
     control = api.train_scenarios(xs, ys, vxs, vys, ps,
@@ -2297,13 +2443,14 @@ def main() -> int:
     ptxas = phase_build()
     flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device='cuda')
     rows, ill = phase_kernels(flush, ptxas)
+    launches = {}
+    rows['floor_sweep'], launches['floor'] = phase_floor(flush, ptxas)
     del flush
 
     g = np.load(GOLDEN)
     weights = {k[3:]: g[k] for k in g.files if k.startswith('w0_')}
     (tx, ty, vx, vy), ps, _ = load_dataset('GoogleStock')
     # Each kernel's launch count comes from the run of its own path.
-    launches = {}
     launches['slice1'], slice1_train, slice1_val = phase_slice1(
         tx, ty, vx, vy, ps, weights)
     launches.update({'path_a': phase_path_a(tx, ty, vx, vy, ps, weights),
@@ -2336,6 +2483,9 @@ def main() -> int:
         'chol_inverse': ('admm_lstm_torch/csrc/cholesky.cu',
                          'admm_lstm_tpu/kernels/cholesky.py:338',
                          launches['path_b']),
+        'floor_sweep': ('admm_lstm_torch/csrc/gate_sweep.cu',
+                        'benchmarks/bench_gs_floor.py:77',
+                        launches['floor']),
     }
     kernels = []
     for name, (source, replaces, counts) in meta.items():
@@ -2350,13 +2500,15 @@ def main() -> int:
         for key in ('two_call_ms', 'regs', 'local_bytes', 'systems_per_sm',
                     'plan', 'ms_per_step', 'warm_ms', 'copy_ms', 'gb_per_s',
                     'blocks_per_sm', 'spill_stores', 'spill_loads',
-                    'vec1_ms'):
+                    'vec1_ms', 'interior_ms', 'interior_ms_per_step',
+                    'chain_share', 'interior_warm_ms', 'cudnn_max_abs_err'):
             if key in main_row:
                 kernels[-1][key] = main_row[key]
         if name in ill:
             kernels[-1]['ill_conditioned'] = ill[name]
-        kernels[-1]['launches_by_path'] = {
-            path: counts[name] for path, counts in launches.items()}
+        kernels[-1]['launches_by_path'] = (
+            {'floor': counts[name]} if name == 'floor_sweep' else
+            {path: counts[name] for path, counts in launches.items()})
     log(f'[tune] search_rho wall seconds {tune_seconds!r} on {card}')
     log(f'[stacked] train_best_stacked wall seconds {stacked_seconds!r} on '
         f'{card}')

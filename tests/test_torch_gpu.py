@@ -1,8 +1,9 @@
 """Tests of the port's CUDA kernels (the Gauss-Seidel and Jacobi sweeps,
-the batched Cholesky solve and inverse), of the legacy variants' epochs,
-of data-parallel ranks (gloo ranks sharing the card, one NCCL rank) and
-of the scenario batch on the card; they need a CUDA card and skip without one.  This file imports no JAX, so it also runs where JAX is not
-installed:
+the serial-floor probe, the batched Cholesky solve and inverse), of the
+legacy variants' epochs, of data-parallel ranks (gloo ranks sharing the
+card, one NCCL rank) and of the scenario batch on the card; they need a
+CUDA card and skip without one.  This file imports no JAX, so it also
+runs where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -21,6 +22,8 @@ from admm_lstm_torch.kernels.cholesky import (chol_inverse,
 from admm_lstm_torch.kernels.gate_sweep import (JacobiPlan,
                                                 card_jacobi_plan,
                                                 card_sweep_plan,
+                                                floor_sweep,
+                                                floor_sweep_plain,
                                                 interior_sweep,
                                                 interior_sweep_plain,
                                                 jacobi_sweep,
@@ -131,6 +134,23 @@ def test_torch_cuda_step_kernel_matches_plain_loop(cuda):
         np.testing.assert_allclose(
             getattr(states[True].gates, k).cpu().numpy(),
             getattr(states[False].gates, k).cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize('steps,hidden,batch', chip_smoke.FLOOR_SHAPES)
+def test_torch_cuda_floor_matches_plain(cuda, steps, hidden, batch):
+    """chip_smoke.py's [floor] shapes: the probe's default, (127, 16,
+    512), GoogleStock's, wh streamed, a ragged batch edge, small ones;
+    one launch counted per call."""
+    xproj, wh = chip_smoke.floor_inputs(steps, hidden, batch, seed=steps)
+    before = floor_sweep.launches
+    got = floor_sweep(xproj, wh)
+    assert floor_sweep.launches == before + 1
+    want = floor_sweep_plain(xproj, wh)
+    torch.cuda.synchronize()
+    assert floor_sweep.launches == before + 1
+    assert got.shape == (steps, hidden, batch)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= ATOL
 
 
 def _jacobi_inputs(steps, hidden, batch, device, offset=0):

@@ -67,12 +67,13 @@ def test_torch_port_sources_exist():
                                     'visualize.py',
                                     'utils/observe.py',
                                     'utils/logging.py',
-                                    'utils/plotting.py'])
+                                    'utils/plotting.py',
+                                    'gs_floor.py'])
 def test_torch_turbo_leg_modules_are_guarded(module):
     """The slice-2 modules, the stacked variant, the legacy variants, the
     gradient baselines, the comparison harness, the data-parallel
-    modules, and the scenario batch, CLI, visualize and observability
-    modules are among the sources the guard walks."""
+    modules, the scenario batch, CLI, visualize and observability
+    modules, and the floor probe are among the sources the guard walks."""
     path = os.path.join(ROOT, 'admm_lstm_torch', module)
     assert path in _sources()
     assert _bad_imports(path) == []
