@@ -23,19 +23,23 @@
 // Both kernels call one __device__ function, timestep_math, so the math
 // exists once.
 //
-// floor_sweep_kernel replaces benchmarks/bench_gs_floor.py::floor_sweep, a
+// The floor kernels replace benchmarks/bench_gs_floor.py::floor_sweep, a
 // probe of the Gauss-Seidel sweep's serial floor: the bare LSTM recurrence
 // from the same xproj and wh, c_s = sig(pre_f) c_{s-1} + sig(pre_i)
 // tanh(pre_g), h_s = sig(pre_o) tanh(c_s), h_0 = c_0 = 0, with h (steps,
-// H, B) its one output.  It is the Gauss-Seidel kernel's loop (one
-// __device__ body, `sweep`, runs both) with another step policy: per row
-// and step it loads 4 projections, not 14, and stores 1 value, not 11, on
-// the same tile plan, the same recurrent product and the same h and c
-// carries, so the gap between the two kernels' per-step times is what the
-// closed forms, the duals and the 20 extra slab streams cost.  It moves 5
-// slabs (7.6 MB at GoogleStock, 2.3 us at 3.35 TB/s); at long T its serial
-// chain, a product, 3 expf and 2 tanhf deep, plus a block barrier, sets
-// the time.
+// H, B) its one output.  They move 5 slabs (7.6 MB at GoogleStock, 2.3 us
+// at 3.35 TB/s); at long T the chain of dependent steps, a product, 3 expf
+// and 2 tanhf deep, sets the time.  kernels/gate_sweep.py::floor_plan
+// picks the kernel by H:
+//  * H <= 32: floor_warp_kernel<W>, written for the recurrence itself
+//    (design below): its step, under half of cuDNN's LSTM step on an H100,
+//    is the floor that a Gauss-Seidel step is measured against.
+//  * H > 32: floor_sweep_kernel<R, STREAM>, the Gauss-Seidel kernel's loop
+//    (one __device__ body, `sweep`, runs both) with another step policy:
+//    per row and step it loads 4 projections, not 14, and stores 1 value,
+//    not 11, on the same tile plan, recurrent product and carries.  There
+//    each FMA takes its weight from shared memory or L2, and that traffic,
+//    which interior_sweep's tile plan already answers, sets a step.
 //
 // Layout: every slab is (steps, H, B) row-major, batch-minor; xproj and
 // pre are (steps, 4, H, B); wh is (4, H, H) with wh[g][k][j] the weight
@@ -105,6 +109,43 @@
 //    resident ones, each ascending.
 // The ragged batch edge and the padded rows are masked in the kernel.
 //
+// Floor design (H <= 32).  H lanes own a batch column, 32 / H columns a
+// warp (the lanes past the last whole column run as a column that stores
+// nothing); lane j holds row j's c and h in registers.  Where the
+// Gauss-Seidel kernel's step ends in a block barrier and reads h_{s-1} and
+// wh from shared memory once per k, here (times on an H100 from
+// admm_lstm_torch/floor_ab.py, which builds each alternative below):
+//  * Carry by shuffles: the product takes h_{s-1}[k] from the column's lane
+//    k by __shfl_sync, so the carry never leaves registers and nothing on
+//    the chain waits on shared memory or a barrier.  The product runs over
+//    W = H rounded up to a power of two k-rows, a compile-time count with
+//    zero weights past H, so its W shuffles issue back to back; stopping
+//    at k = H, a branch per k, took 2.6-3.3x as long a step.
+//  * wh in registers: lane j's 4W weights stay in registers at every W
+//    (128 floats at W 32, no spill); from shared memory (one float4 per
+//    (k, j)) a step took ~1.4x as long at H 16 and 1.6x at H 32.
+//  * A shallow FMA chain: the k-sum runs in two partial sums per gate, even
+//    and odd k, each ascending, the even one starting from xproj, added
+//    last: 8 independent chains W/2 deep.  The plain version sums over k
+//    in one order and then adds xproj.
+//  * sigmoid(x) = (1 + tanh(x / 2)) / 2 with full-precision tanhf: 1 / (1
+//    + expf(-x)), an expf and an IEEE division, took 1.4-1.7x as long a
+//    step (both agree with the plain version within 1.2e-7).
+//  * xproj staged ahead: a step's 4 values a lane needs do not depend on
+//    the carry.  They wait in shared memory, copied there by cp.async
+//    FLOOR_AHEAD steps ahead, one commit group a step, so the step waits
+//    on its own group alone (cp.async.wait_group).  A register ring of 4
+//    steps refilled by __ldg took 2.6-2.8x as long a step at H 16, as if
+//    every step waited for a load.  2 steps ahead was slower at long T, 8
+//    no faster than 4.  h goes straight to its slab, a store that no step
+//    waits on (storing only the last step would save 0-8% of a step).
+//  * The plan (floor_plan) spreads the warps: one a block while there are
+//    no more warps than SMs, else up to FLOOR_MAX_WARPS a block, one on
+//    each of an SM's four schedulers.
+//  * Numerics: FP32 FMA, no TF32, full-precision tanhf, no division.
+// Columns past B run on column B-1's inputs: their h stays finite, and
+// nothing of them is stored.
+//
 // Jacobi design.  A slab is a flat run of H * B floats, so the kernel
 // walks items: one step s and V consecutive floats at vector offset o of
 // the slab (V = 4, one float4 per slab and item, where H * B % 4 == 0,
@@ -132,8 +173,8 @@
 // (admm_lstm_torch/jacobi_ab.py times them).
 // No shared memory, no barrier.
 //
-// Numerics of all three: FP32 FMA, no TF32, IEEE division, full-precision
-// expf/tanhf (no fast math).
+// Numerics of the Gauss-Seidel, Jacobi and on-plan floor kernels: FP32
+// FMA, no TF32, IEEE division, full-precision expf/tanhf (no fast math).
 
 #include <cuda_runtime.h>
 
@@ -507,6 +548,124 @@ floor_sweep_kernel(const SweepArgs a) {
   sweep<R, STREAM, FloorStep>(a, reinterpret_cast<float*>(smem4));
 }
 
+// ---- The floor at H <= 32: a warp-synchronous recurrence ------------------
+
+// Warps per block of floor_warp_kernel, and steps of xproj in flight ahead
+// of the one in use (the stage holds one slot more: the slot a step fills
+// is not the one it reads); kernels/gate_sweep.py holds the same numbers.
+constexpr int FLOOR_MAX_WARPS = 4;
+constexpr int FLOOR_AHEAD = 4;
+constexpr int FLOOR_SLOTS = FLOOR_AHEAD + 1;
+
+struct FloorArgs {
+  const float* xproj;        // (steps, 4, H, B)
+  const float* wh;           // (4, H, H)
+  float* h;                  // (steps, H, B)
+  int steps, H, B;
+};
+
+// Copies 4 bytes from src to dst by cp.async, or, if !valid, writes 0 to
+// dst and reads nothing (src-size 0).
+__device__ __forceinline__ void cp_async4_or_zero(void* dst, const void* src,
+                                                  bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+
+// sigmoid(x) = (1 + tanh(x / 2)) / 2: one tanhf, where 1 / (1 + expf(-x))
+// is an expf and an IEEE division.
+__device__ __forceinline__ float floor_sigmoid(float x) {
+  return fmaf(0.5f, tanhf(0.5f * x), 0.5f);
+}
+
+// acc[g][k & 1] += w[g][k] * h_{s-1}[k] for k = 0 .. W-1, ascending, with
+// h_{s-1}[k] from lane base + k, this column's lane k (w[g][k] = 0 for
+// k >= H).  No branch inside: the W shuffles issue back to back.
+template <int W>
+__device__ __forceinline__ void floor_product(const float (&w)[4][W],
+                                              float h, int base,
+                                              float acc[4][2]) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const float hk = __shfl_sync(0xffffffffu, h, base + k);
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      acc[g][k & 1] = fmaf(w[g][k], hk, acc[g][k & 1]);
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(FLOOR_MAX_WARPS * 32)
+floor_warp_kernel(const FloorArgs a) {
+  extern __shared__ float stage_all[];   // [FLOOR_SLOTS][4][blockDim.x]
+  // Lanes base .. base+H-1 own column b, lane base + j its row j; the
+  // lanes past the warp's last whole column run as a column of their own
+  // that stores nothing.
+  const int H = a.H, B = a.B, cols = 32 / H, lane = threadIdx.x & 31;
+  const int col = lane / H, j = lane - col * H, base = col * H;
+  const int b = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * cols +
+                col;
+  const bool ok = col < cols && b < B;
+
+  // Lane j's weights, zero past H, so a k past H adds nothing.
+  float w[4][W];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+      w[g][k] = k < H ? __ldg(a.wh + (g * H + k) * H + j) : 0.0f;
+
+  // The stage: step s's 4 xproj values of this lane wait in slot s %
+  // FLOOR_SLOTS of shared memory, copied there by cp.async FLOOR_AHEAD
+  // steps ahead, one commit group a step (zeros past the last step), each
+  // lane reading back only its own.  No copy is masked by a branch: those
+  // of a column past B read column B-1 (its h stays finite and is not
+  // stored).
+  const size_t slab = (size_t)H * B;
+  const float* const x =
+      a.xproj + (size_t)j * B + min(b, B - 1);          // (0, 0, j, b)
+  float* const out = a.h + (size_t)j * B + b;               // (0, j, b)
+  const int last = a.steps - 1, nthreads = blockDim.x;
+  float* const stage = stage_all + threadIdx.x;
+  for (int s2 = 0; s2 < FLOOR_AHEAD; ++s2) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      cp_async4_or_zero(stage + (s2 * 4 + g) * nthreads,
+                        x + (4 * (size_t)min(s2, last) + g) * slab,
+                        s2 <= last);
+    cp_async_commit();
+  }
+
+  float c = 0.0f, h = 0.0f;
+  int rd = 0, wr = FLOOR_AHEAD;    // the slots of steps s and s + FLOOR_AHEAD
+  for (int s = 0; s < a.steps; ++s) {
+    const int s2 = s + FLOOR_AHEAD;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      cp_async4_or_zero(stage + (wr * 4 + g) * nthreads,
+                        x + (4 * (size_t)min(s2, last) + g) * slab,
+                        s2 <= last);
+    cp_async_commit();
+    cp_async_wait<FLOOR_AHEAD>();    // step s's group has landed
+    float acc[4][2];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      acc[g][0] = stage[(rd * 4 + g) * nthreads];
+      acc[g][1] = 0.0f;
+    }
+    floor_product<W>(w, h, base, acc);
+    const float pre_i = acc[0][0] + acc[0][1];
+    const float pre_f = acc[1][0] + acc[1][1];
+    const float pre_g = acc[2][0] + acc[2][1];
+    const float pre_o = acc[3][0] + acc[3][1];
+    c = floor_sigmoid(pre_f) * c + floor_sigmoid(pre_i) * tanhf(pre_g);
+    h = floor_sigmoid(pre_o) * tanhf(c);
+    if (ok) out[(size_t)s * slab] = h;
+    rd = rd + 1 == FLOOR_SLOTS ? 0 : rd + 1;
+    wr = wr + 1 == FLOOR_SLOTS ? 0 : wr + 1;
+  }
+}
+
 // ---- Jacobi sweep ----------------------------------------------------------
 
 template <int V> struct Vec;
@@ -733,6 +892,48 @@ int gate_sweep_floor(const void* xproj, const void* wh, const void* whp,
   a.out[0] = static_cast<float*>(h);
   return launch_plan<true>(a, tb, rows, smem,
                            static_cast<cudaStream_t>(stream));
+}
+
+// Launches floor_warp_kernel<lanes> on `stream` with the plan of
+// kernels/gate_sweep.py::floor_plan at H <= 32: `lanes` the product's
+// length (H rounded up to a power of two), `warps` warps a block of 32 / H
+// columns each, `grid` blocks covering B, `smem` bytes of dynamic shared
+// memory, the stage of xproj (16 * FLOOR_SLOTS * 32 * warps).  xproj
+// (steps, 4, H, B), wh (4, H, H), h (steps, H, B).
+// Returns cudaErrorInvalidValue for a plan this kernel does not take, else
+// cudaGetLastError() after the launch (0 = launched).
+int gate_sweep_floor_warp(const void* xproj, const void* wh, void* h,
+                          int steps, int hidden, int batch, int lanes,
+                          int warps, int grid, int smem, void* stream) {
+  if (steps < 1 || hidden < 1 || hidden > 32 || batch < 1)
+    return cudaErrorInvalidValue;
+  int want = 1;
+  while (want < hidden) want *= 2;
+  if (lanes != want || warps < 1 || warps > FLOOR_MAX_WARPS || grid < 1)
+    return cudaErrorInvalidValue;
+  const long long per_block = (long long)warps * (32 / hidden);
+  if (per_block * grid < batch || per_block * (grid - 1) >= batch)
+    return cudaErrorInvalidValue;
+  if (smem != 16 * FLOOR_SLOTS * 32 * warps) return cudaErrorInvalidValue;
+
+  FloorArgs a;
+  a.xproj = static_cast<const float*>(xproj);
+  a.wh = static_cast<const float*>(wh);
+  a.h = static_cast<float*>(h);
+  a.steps = steps;
+  a.H = hidden;
+  a.B = batch;
+  const dim3 block(32 * warps);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (lanes) {
+    case 1: floor_warp_kernel<1><<<grid, block, smem, st>>>(a); break;
+    case 2: floor_warp_kernel<2><<<grid, block, smem, st>>>(a); break;
+    case 4: floor_warp_kernel<4><<<grid, block, smem, st>>>(a); break;
+    case 8: floor_warp_kernel<8><<<grid, block, smem, st>>>(a); break;
+    case 16: floor_warp_kernel<16><<<grid, block, smem, st>>>(a); break;
+    default: floor_warp_kernel<32><<<grid, block, smem, st>>>(a); break;
+  }
+  return cudaGetLastError();
 }
 
 // Resident blocks per SM of jacobi_sweep_kernel<vec> at JACOBI_THREADS

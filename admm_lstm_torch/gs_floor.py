@@ -1,15 +1,18 @@
-"""The serial floor of the Gauss-Seidel sweep: the bare LSTM recurrence on
-the sweep kernel's tile plan, timed.
+"""The serial floor of the Gauss-Seidel sweep: the bare LSTM recurrence,
+timed.
 
     python -m admm_lstm_torch.gs_floor [--seq 2048] [--hidden 16]
         [--batch 64] [--cpu]
 
 The counterpart of `benchmarks/bench_gs_floor.py`.  `floor_sweep`
-(`kernels/gate_sweep.py`, csrc/gate_sweep.cu) runs the same loop over
-time, tiles, recurrent product and carries as `interior_sweep`, with
-only the LSTM cell as its math: 4 loads and 1 store an element and step
-where the sweep has 14 and 11.  So its time a step prices how much of a
-Gauss-Seidel step is the serial recurrence itself.
+(`kernels/gate_sweep.py`, csrc/gate_sweep.cu) runs the recurrence that
+a Gauss-Seidel step carries, with only the LSTM cell as its math: 4
+loads and 1 store an element and step where the sweep has 14 and 11.  Up
+to 32 hidden units it runs on a kernel written for the recurrence (the
+carry passed between a warp's lanes by shuffles, no block barrier), so
+its time a step prices the bare recurrence, and a Gauss-Seidel step's
+distance from it is what the sweep's own structure costs; above 32, on
+`interior_sweep`'s tile plan.
 
 Inputs as the JAX probe makes them: numpy's RandomState(0), xproj
 (seq - 1, 4, H, B) then wh (4, H, H), randn times 0.1.  It times a

@@ -16,8 +16,11 @@ element is independent.
 
 `floor_sweep` replaces `benchmarks/bench_gs_floor.py::floor_sweep`, the
 probe of the Gauss-Seidel sweep's serial floor: the bare LSTM recurrence
-from the same projections and wh on `interior_sweep`'s tile plan
-(`admm_lstm_torch/gs_floor.py` times it).
+from the same projections and wh (`admm_lstm_torch/gs_floor.py` times
+it).  `floor_plan` routes it by H: up to 32 hidden units to a kernel
+written for the recurrence (a warp-synchronous step, the carry passed by
+shuffles), above 32 to the same recurrence on `interior_sweep`'s tile
+plan.
 
 The wrappers launch their kernel (csrc/gate_sweep.cu) for CUDA tensors
 and raise on anything they cannot take; they run the plain version only
@@ -27,8 +30,9 @@ its plain version.  What bounds the kernels on an H100 (bytes: about
 answers that is written at the top of the CUDA source.  `sweep_plan`
 picks the Gauss-Seidel kernel's tiles from the card's SM count and
 shared-memory limit, `jacobi_plan` the Jacobi kernel's vector width and
-grid from the SM count and the blocks an SM holds; each kernel's entry
-point checks the plan it is given.
+grid from the SM count and the blocks an SM holds, `floor_plan` the floor
+kernel and its grid; each kernel's entry point checks the plan it is
+given.
 """
 
 from __future__ import annotations
@@ -189,6 +193,79 @@ def card_sweep_plan(device: torch.device, hidden: int,
     """`sweep_plan` with the SM count and shared-memory limit of `device`,
     read from the CUDA runtime once per card."""
     return sweep_plan(hidden, batch, *_card_limits(_card_index(device)))
+
+
+# The widest H of the floor's warp-synchronous kernel, its most warps a
+# block and the steps of xproj it stages ahead (csrc/gate_sweep.cu
+# FLOOR_MAX_WARPS, FLOOR_AHEAD).
+FLOOR_WARP_MAX_H = 32
+FLOOR_MAX_WARPS = 4
+FLOOR_AHEAD = 4
+
+
+class FloorPlan(NamedTuple):
+    """`floor_sweep`'s launch.  Route 'warp' (H <= FLOOR_WARP_MAX_H): H
+    lanes own a column, so a warp takes `cols` = 32 // H columns; the
+    product runs over `lanes` k-rows (H rounded up to a power of two, the
+    kernel instance); `warps` warps a block, `grid` blocks; `smem` bytes
+    of shared memory, FLOOR_AHEAD + 1 slots of 4 xproj values a thread (wh
+    stays in registers).  Route 'sweep' (wider H): `interior_sweep`'s tile
+    plan `sweep`, whose grid and shared memory `grid` and `smem` repeat;
+    `lanes`, `cols` and `warps` are 0."""
+    route: str
+    lanes: int
+    cols: int
+    warps: int
+    grid: int
+    smem: int
+    sweep: Optional[SweepPlan] = None
+
+
+def floor_plan(hidden: int, batch: int, sms: int,
+               smem_limit: int) -> FloorPlan:
+    """The plan of `floor_sweep` at hidden size H and batch B on a card
+    with `sms` SMs and `smem_limit` bytes of shared memory per block.
+
+    Up to FLOOR_WARP_MAX_H hidden units, the warp-synchronous kernel, 32 //
+    H columns a warp: one warp a block while the warps, ceil(B / cols),
+    are no more than the SMs, so that no two share an SM; else as many a
+    block (up to FLOOR_MAX_WARPS, one on each of an SM's schedulers) as
+    fill the SMs with one block each.  Above, the recurrence on
+    `sweep_plan`'s tiles.  Steps do not enter the plan.  Raises ValueError for an empty sweep or
+    H beyond `sweep_plan` (above 2048)."""
+    if hidden < 1 or batch < 1 or sms < 1:
+        raise ValueError(f'empty floor sweep or card: H {hidden}, B {batch}, '
+                         f'{sms} SMs')
+    if hidden > FLOOR_WARP_MAX_H:
+        return floor_sweep_plan(sweep_plan(hidden, batch, sms, smem_limit))
+    cols = 32 // hidden
+    warps_total = -(-batch // cols)
+    warps = min(FLOOR_MAX_WARPS, -(-warps_total // sms))
+    smem = floor_smem(warps)
+    if smem > smem_limit:
+        raise ValueError(f'floor_sweep: the stage needs {smem} bytes of '
+                         f'shared memory, the card has {smem_limit}')
+    return FloorPlan('warp', 1 << (hidden - 1).bit_length(), cols, warps,
+                     -(-warps_total // warps), smem)
+
+
+def floor_smem(warps: int, ahead: int = FLOOR_AHEAD) -> int:
+    """Shared-memory bytes of the warp-synchronous kernel at `warps` warps
+    a block: `ahead` + 1 slots of 4 xproj values a thread."""
+    return 16 * (ahead + 1) * 32 * warps
+
+
+def card_floor_plan(device: torch.device, hidden: int,
+                    batch: int) -> FloorPlan:
+    """`floor_plan` with the SM count and shared-memory limit of `device`,
+    read from the CUDA runtime once per card."""
+    return floor_plan(hidden, batch, *_card_limits(_card_index(device)))
+
+
+def floor_sweep_plan(plan: SweepPlan) -> FloorPlan:
+    """The floor's 'sweep' route on `interior_sweep`'s tile plan `plan`,
+    for any H (the route `floor_plan` takes above FLOOR_WARP_MAX_H)."""
+    return FloorPlan('sweep', 0, 0, 0, plan.grid, plan.smem, plan)
 
 
 # Threads per block of the Jacobi kernel (csrc/gate_sweep.cu JACOBI_THREADS).
@@ -466,13 +543,17 @@ def interior_sweep(xproj: torch.Tensor, wh: torch.Tensor,
     return out
 
 
-def floor_sweep(xproj: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
-    """The bare LSTM recurrence over every step, on `interior_sweep`'s
-    tile plan.
+def floor_sweep(xproj: torch.Tensor, wh: torch.Tensor,
+                plan: Optional[FloorPlan] = None) -> torch.Tensor:
+    """The bare LSTM recurrence over every step.
 
     Same arguments and return as `floor_sweep_plain`.  CUDA tensors go to
-    the CUDA kernel (which adds one to `floor_sweep.launches` per launch);
-    CPU tensors go to the plain version.
+    a CUDA kernel (which adds one to `floor_sweep.launches` per launch)
+    with `plan`, by default `card_floor_plan`'s: up to 32 hidden units the
+    warp-synchronous kernel, above them the recurrence on
+    `interior_sweep`'s tile plan (`floor_sweep_plan` gives that route at
+    any H).  A plan the kernel does not take raises RuntimeError.  CPU
+    tensors go to the plain version.
     """
     if xproj.dim() != 4 or xproj.shape[1] != 4:
         raise ValueError(f'floor_sweep: the projection must be (steps, 4, H, '
@@ -484,17 +565,25 @@ def floor_sweep(xproj: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
     _check_slabs('floor_sweep', (xproj, wh), (), steps, hidden, batch)
     if xproj.device.type == 'cpu':
         return floor_sweep_plain(xproj, wh)
-    plan = card_sweep_plan(xproj.device, hidden, batch)
-    whp = padded_wh(wh, plan.hp) if plan.padded else None
+    if plan is None:
+        plan = card_floor_plan(xproj.device, hidden, batch)
     h = torch.empty((steps, hidden, batch), dtype=torch.float32,
                     device=xproj.device)
-    vp = ctypes.c_void_p
-    launch(_LIB, 'gate_sweep_floor', [vp] * 4 + [ctypes.c_int] * 9,
-           xproj.device, xproj.data_ptr(), wh.data_ptr(),
-           None if whp is None else whp.data_ptr(), h.data_ptr(), steps,
-           hidden, batch, plan.tb, plan.rows, plan.hp, plan.resident,
-           plan.chunk, plan.smem,
-           detail=f'steps {steps}, H {hidden}, B {batch}, plan {plan}')
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    detail = f'steps {steps}, H {hidden}, B {batch}, plan {plan}'
+    if plan.route == 'warp':
+        launch(_LIB, 'gate_sweep_floor_warp', [vp] * 3 + [ci] * 7,
+               xproj.device, xproj.data_ptr(), wh.data_ptr(), h.data_ptr(),
+               steps, hidden, batch, plan.lanes, plan.warps, plan.grid,
+               plan.smem, detail=detail)
+    else:
+        sp = plan.sweep
+        whp = padded_wh(wh, sp.hp) if sp.padded else None
+        launch(_LIB, 'gate_sweep_floor', [vp] * 4 + [ci] * 9, xproj.device,
+               xproj.data_ptr(), wh.data_ptr(),
+               None if whp is None else whp.data_ptr(), h.data_ptr(), steps,
+               hidden, batch, sp.tb, sp.rows, sp.hp, sp.resident, sp.chunk,
+               sp.smem, detail=detail)
     floor_sweep.launches += 1
     return h
 

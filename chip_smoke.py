@@ -24,12 +24,16 @@ Phases, each fatal on failure:
                admm_lstm_torch.gs_floor` at its defaults (T 2047, H 16,
                B 64) with the launch counts zeroed just before and read
                just after; floor_sweep against its plain version at
-               FLOOR_SHAPES, and at the first FLOOR_TIMED of them its time
-               (L2 flushed and warm), bound, plain time, time a step,
-               interior_sweep's times and time a step at the same shape
-               and plan (the chain share is the floor's step over the
-               sweep's), and cuDNN's LSTM on the same function, held to
-               the kernel before it is timed;
+               FLOOR_SHAPES with floor_plan's plan and the registers and
+               spills of the kernel instance it takes, and at the first
+               FLOOR_TIMED of them its time (L2 flushed and warm), bound,
+               plain time, time a step, interior_sweep's times and time a
+               step at the same shape (the chain share, the floor's step
+               over the sweep's: how far a Gauss-Seidel step is from the
+               bare recurrence's), where H <= 32 the recurrence on
+               interior_sweep's tile plan (the floor's other route) held
+               to the plain version and timed, and cuDNN's LSTM on the
+               same function, held to the kernel before it is timed;
   4. train   - the paths, each through `admm_lstm_torch.api`, with the
                kernels' launch counts zeroed just before each run and read
                just after:
@@ -185,11 +189,14 @@ JACOBI_SHAPES = [(9, 10, 4224), (9, 128, 2048), (13, 5, 1000),
                  # block of Path B
                  (256, 16, 256), (255, 16, 256), (9, 64, 2048)]
 # floor_sweep (steps, H, B): the gs_floor probe's default first, then the
-# Gauss-Seidel rows' (127, 16, 512) and GoogleStock's, timed beside
-# interior_sweep and cuDNN; wh streamed, a ragged batch edge, small ones.
+# Gauss-Seidel rows' (127, 16, 512), GoogleStock's and (31, 130, 512) (the
+# recurrence on interior_sweep's plan, wh streamed), timed beside
+# interior_sweep and cuDNN; the two routes' edge (H 32 and 33), a ragged
+# batch edge, small ones.
 FLOOR_SHAPES = [(2047, 16, 64), (127, 16, 512), (9, 10, 4224),
-                (31, 130, 512), (13, 5, 1000), (4, 7, 37), (1, 3, 1)]
-FLOOR_TIMED = 3
+                (31, 130, 512), (511, 32, 96), (511, 33, 96), (13, 5, 1000),
+                (4, 7, 37), (1, 3, 1)]
+FLOOR_TIMED = 4
 # The floor's operations per element and step beside its 8H-long product:
 # the 4 projection adds, five activations and the c and h updates.
 FLOOR_OPS = 25
@@ -719,7 +726,8 @@ def kernel_row(name, shape, kernel, plain, library, tol, bound_ms_by, flush,
 
 KERNEL_NAMES = ('warp_chol_kernel', 'blocked_solve_kernel',
                 'blocked_inverse_kernel', 'interior_sweep_kernel',
-                'jacobi_sweep_kernel', 'floor_sweep_kernel')
+                'jacobi_sweep_kernel', 'floor_sweep_kernel',
+                'floor_warp_kernel')
 
 
 def ptxas_summary(out):
@@ -943,13 +951,31 @@ def cudnn_lstm(xproj, wh):
     return call
 
 
+def floor_instance(plan, hidden, ptxas):
+    """The name, registers and spills of the floor kernel instance that
+    `plan` launches."""
+    name = (f'floor_warp_kernel<{plan.lanes}>' if plan.route == 'warp' else
+            f'floor_sweep_kernel<{plan.sweep.rows},'
+            f'{int(plan.sweep.resident < hidden)}>')
+    return dict(instance=name, **ptxas.get(name, {}))
+
+
+def _floor_err(got, want, shape, what):
+    err = float((got - want).abs().max())
+    if not (bool(torch.isfinite(got).all()) and err <= KERNEL_ATOL):
+        raise AssertionError(f'{what} disagrees with the plain version at '
+                             f'{list(shape)}: max abs err {err}')
+    return err
+
+
 def phase_floor(flush, ptxas):
     """The floor probe as a user runs it, with the launch counts zeroed
     just before and read just after; then floor_sweep against its plain
     version at FLOOR_SHAPES, the first FLOOR_TIMED rows timed beside
-    interior_sweep at the same shape and plan and beside cuDNN's LSTM
-    (held to the kernel at KERNEL_ATOL first).  Returns the rows and the
-    probe's launch counts."""
+    interior_sweep at the same shape, beside the floor's recurrence on
+    interior_sweep's tile plan (H <= 32, held to the plain version first)
+    and beside cuDNN's LSTM (held to the kernel at KERNEL_ATOL first).
+    Returns the rows and the probe's launch counts."""
     from admm_lstm_torch import gs_floor
     from admm_lstm_torch.kernels import gate_sweep as gs
     if not torch.backends.cudnn.is_available():
@@ -961,25 +987,21 @@ def phase_floor(flush, ptxas):
     log(f'[floor] gs_floor at its defaults: launches {launches}')
     need(launches, 'floor_sweep', gs_floor.CHAIN * (gs_floor.REPEATS + 1),
          'floor')
+    cuda = torch.device('cuda')
     rows = []
     for k, shape in enumerate(FLOOR_SHAPES):
         steps, hidden, batch = shape
         xproj, wh = floor_inputs(*shape, seed=60 + k)
-        plan = gs.card_sweep_plan(torch.device('cuda'), hidden, batch)
-        instance = ptxas.get(f'floor_sweep_kernel<{plan.rows},'
-                             f'{int(plan.resident < hidden)}>', {})
+        plan = gs.card_floor_plan(cuda, hidden, batch)
+        info = dict(plan=dict(plan._asdict(),
+                              sweep=plan.sweep and plan.sweep._asdict()),
+                    **floor_instance(plan, hidden, ptxas))
         kernel = lambda: gs.floor_sweep(xproj, wh)
         plain = lambda: gs.floor_sweep_plain(xproj, wh)
         if k >= FLOOR_TIMED:
-            got, want = kernel(), plain()
-            err = float((got - want).abs().max())
-            row = dict(shape=list(shape), max_abs_err=err,
-                       plan=plan._asdict(), **instance)
+            row = dict(shape=list(shape), max_abs_err=_floor_err(
+                kernel(), plain(), shape, 'floor_sweep'), **info)
             log(f'[floor] floor_sweep {row}')
-            if not (bool(torch.isfinite(got).all()) and err <= KERNEL_ATOL):
-                raise AssertionError(f'floor_sweep disagrees with its plain '
-                                     f'version at {list(shape)}: max abs '
-                                     f'err {err}')
             rows.append(row)
             continue
         library = cudnn_lstm(xproj, wh)
@@ -993,8 +1015,7 @@ def phase_floor(flush, ptxas):
         row = kernel_row(
             'floor_sweep', shape, kernel, plain, library, KERNEL_ATOL,
             floor_bound(*shape), flush,
-            info=dict(plan=plan._asdict(), **instance,
-                      cudnn_max_abs_err=lib_err,
+            info=dict(info, cudnn_max_abs_err=lib_err,
                       cudnn_version=torch.backends.cudnn.version(),
                       one_step_ms=cuda_ms(lambda: gs.floor_sweep(*one), 50,
                                           flush),
@@ -1012,13 +1033,29 @@ def phase_floor(flush, ptxas):
         row['interior_ms_per_step'] = (
             row['interior_ms'] - row['interior_one_step_ms']) / (steps - 1)
         row['chain_share'] = row['ms_per_step'] / row['interior_ms_per_step']
-        log(f'[floor] floor_sweep {list(shape)} plan {row["plan"]}: '
-            f'{row["ms"]} ms, {row["ms_per_step"] * 1e3} us a step; '
-            f'interior_sweep {row["interior_ms"]} ms, '
-            f'{row["interior_ms_per_step"] * 1e3} us a step; chain share '
-            f'{row["chain_share"]}; warm (L2) {row["warm_ms"]} and '
-            f'{row["interior_warm_ms"]} ms; cuDNN LSTM {row["library_ms"]} '
-            f'ms; bound {row["bound_ms"]} ms ({row["bound_by"]})')
+        if plan.route == 'warp':
+            # The other route at the same shape: the recurrence on
+            # interior_sweep's tile plan.
+            onplan = gs.floor_sweep_plan(gs.card_sweep_plan(cuda, hidden,
+                                                            batch))
+            row['onplan_max_abs_err'] = _floor_err(
+                gs.floor_sweep(xproj, wh, plan=onplan), plain(), shape,
+                'floor_sweep on interior_sweep\'s plan')
+            row['onplan_ms'] = cuda_ms(
+                lambda: gs.floor_sweep(xproj, wh, plan=onplan), 50, flush)
+            row['onplan_ms_per_step'] = (row['onplan_ms'] - cuda_ms(
+                lambda: gs.floor_sweep(*one, plan=onplan), 50, flush)) / (
+                    steps - 1)
+        log(f'[floor] floor_sweep {list(shape)} plan {row["plan"]} '
+            f'({row["instance"]}, regs {row.get("regs")}, spill stores '
+            f'{row.get("spill_stores")}): {row["ms"]} ms, '
+            f'{row["ms_per_step"] * 1e3} us a step; on interior_sweep\'s '
+            f'plan {row.get("onplan_ms")} ms; interior_sweep '
+            f'{row["interior_ms"]} ms, {row["interior_ms_per_step"] * 1e3} '
+            f'us a step; chain share {row["chain_share"]}; warm (L2) '
+            f'{row["warm_ms"]} and {row["interior_warm_ms"]} ms; cuDNN LSTM '
+            f'{row["library_ms"]} ms; bound {row["bound_ms"]} ms '
+            f'({row["bound_by"]})')
         rows.append(row)
     return rows, launches
 
@@ -2501,7 +2538,8 @@ def main() -> int:
                     'plan', 'ms_per_step', 'warm_ms', 'copy_ms', 'gb_per_s',
                     'blocks_per_sm', 'spill_stores', 'spill_loads',
                     'vec1_ms', 'interior_ms', 'interior_ms_per_step',
-                    'chain_share', 'interior_warm_ms', 'cudnn_max_abs_err'):
+                    'chain_share', 'interior_warm_ms', 'cudnn_max_abs_err',
+                    'onplan_ms', 'onplan_ms_per_step', 'instance'):
             if key in main_row:
                 kernels[-1][key] = main_row[key]
         if name in ill:

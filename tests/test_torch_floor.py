@@ -1,8 +1,9 @@
 """The Gauss-Seidel serial-floor probe (admm_lstm_torch.kernels.gate_sweep.
 floor_sweep and admm_lstm_torch.gs_floor): the plain version against the
 JAX probe's Pallas kernel run in interpret mode and against the JAX
-package's LSTM forward, the wrapper's checks, and the probe's command
-line.  The CUDA kernel itself is held against the plain version in
+package's LSTM forward, the kernels' launch plan (floor_plan), the
+wrapper's checks, and the probe's command line.  The CUDA kernels
+themselves are held against the plain version in
 tests/test_torch_gpu.py."""
 
 import functools
@@ -20,7 +21,12 @@ from jax.experimental import pallas as pl
 
 from admm_lstm_tpu.models import lstm as jl
 from admm_lstm_torch import gs_floor
-from admm_lstm_torch.kernels.gate_sweep import floor_sweep, floor_sweep_plain
+from admm_lstm_torch.kernels.gate_sweep import (FLOOR_AHEAD,
+                                                FLOOR_MAX_WARPS,
+                                                FLOOR_WARP_MAX_H,
+                                                floor_plan, floor_sweep,
+                                                floor_sweep_plain,
+                                                sweep_plan)
 
 torch.set_num_threads(1)
 
@@ -56,6 +62,8 @@ def _inputs(steps, hidden, batch, seed):
     (20, 8, 16),
     (33, 5, 8),        # steps not a multiple of the JAX time block (16)
     (16, 16, 24),
+    (17, 32, 8),       # the widest H of the warp-synchronous kernel
+    (17, 33, 8),       # the narrowest on interior_sweep's tile plan
 ])
 def test_torch_floor_plain_matches_pallas(steps, hidden, batch):
     xproj, wh = _inputs(steps, hidden, batch, seed=steps)
@@ -85,6 +93,52 @@ def test_torch_floor_plain_matches_lstm_history(seq_len, inp, hidden, batch):
     got = floor_sweep_plain(torch.from_numpy(np.ascontiguousarray(xproj)),
                             torch.from_numpy(wh))
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
+
+
+# The H100's SM count and the shared memory a block may opt in to.
+H100_SMS, H100_SMEM = 132, 232_448
+
+
+@pytest.mark.parametrize('batch', [1, 37, 64, 4224])
+@pytest.mark.parametrize('hidden',
+                         [1, 3, 5, 7, 10, 16, 17, 32, 33, 64, 130, 2048])
+def test_torch_floor_plan(hidden, batch):
+    """Up to 32 hidden units the warp-synchronous kernel: H lanes a
+    column, 32 // H columns a warp, a product H rounded up to a power of
+    two long, a grid that covers B with no empty block, one warp a block
+    while the warps fit the SMs one each; above, interior_sweep's tile
+    plan."""
+    plan = floor_plan(hidden, batch, H100_SMS, H100_SMEM)
+    assert 0 <= plan.smem <= H100_SMEM
+    if hidden > FLOOR_WARP_MAX_H:
+        sweep = sweep_plan(hidden, batch, H100_SMS, H100_SMEM)
+        assert plan.route == 'sweep' and plan.sweep == sweep
+        assert (plan.lanes, plan.warps, plan.cols) == (0, 0, 0)
+        assert (plan.grid, plan.smem) == (sweep.grid, sweep.smem)
+        assert sweep.grid * sweep.tb >= batch
+        return
+    assert plan.route == 'warp' and plan.sweep is None
+    assert plan.lanes in (1, 2, 4, 8, 16, 32)
+    assert plan.lanes >= hidden and (plan.lanes == 1
+                                     or plan.lanes // 2 < hidden)
+    assert plan.cols == 32 // hidden
+    warps = -(-batch // plan.cols)
+    assert 1 <= plan.warps <= FLOOR_MAX_WARPS
+    assert plan.warps == 1 or warps > H100_SMS
+    per_block = plan.warps * plan.cols
+    assert plan.grid * per_block >= batch > (plan.grid - 1) * per_block
+    # FLOOR_AHEAD + 1 slots of 4 floats a thread
+    assert plan.smem == 16 * (FLOOR_AHEAD + 1) * 32 * plan.warps
+
+
+@pytest.mark.parametrize('hidden,batch,sms', [
+    (0, 64, 132), (2049, 64, 132), (4096, 1, 132), (16, 0, 132),
+    (16, 64, 0),
+])
+def test_torch_floor_plan_refuses(hidden, batch, sms):
+    """An empty sweep, a card without SMs, or H beyond the kernels."""
+    with pytest.raises(ValueError):
+        floor_plan(hidden, batch, sms, H100_SMEM)
 
 
 def test_torch_floor_wrapper_on_cpu_is_the_plain_version():

@@ -20,10 +20,12 @@ from admm_lstm_torch.kernels.cholesky import (chol_inverse,
                                               chol_inverse_plain, chol_solve,
                                               chol_solve_plain)
 from admm_lstm_torch.kernels.gate_sweep import (JacobiPlan,
+                                                card_floor_plan,
                                                 card_jacobi_plan,
                                                 card_sweep_plan,
                                                 floor_sweep,
                                                 floor_sweep_plain,
+                                                floor_sweep_plan,
                                                 interior_sweep,
                                                 interior_sweep_plain,
                                                 jacobi_sweep,
@@ -139,8 +141,8 @@ def test_torch_cuda_step_kernel_matches_plain_loop(cuda):
 @pytest.mark.parametrize('steps,hidden,batch', chip_smoke.FLOOR_SHAPES)
 def test_torch_cuda_floor_matches_plain(cuda, steps, hidden, batch):
     """chip_smoke.py's [floor] shapes: the probe's default, (127, 16,
-    512), GoogleStock's, wh streamed, a ragged batch edge, small ones;
-    one launch counted per call."""
+    512), GoogleStock's, wh streamed, the routes' edge (H 32 and 33), a
+    ragged batch edge, small ones; one launch counted per call."""
     xproj, wh = chip_smoke.floor_inputs(steps, hidden, batch, seed=steps)
     before = floor_sweep.launches
     got = floor_sweep(xproj, wh)
@@ -151,6 +153,41 @@ def test_torch_cuda_floor_matches_plain(cuda, steps, hidden, batch):
     assert got.shape == (steps, hidden, batch)
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize('steps,hidden,batch', [
+    (33, 1, 70),       # one lane a column, 32 columns a warp
+    (40, 2, 33),
+    (17, 4, 9),
+    (65, 17, 300),     # 32 lanes, wh in shared memory, several warps a block
+    (9, 10, 4224),
+])
+def test_torch_cuda_floor_warp_widths(cuda, steps, hidden, batch):
+    """Every lane width of the warp-synchronous kernel, and its route
+    against the recurrence on interior_sweep's tile plan."""
+    plan = card_floor_plan(cuda, hidden, batch)
+    assert plan.route == 'warp'
+    xproj, wh = chip_smoke.floor_inputs(steps, hidden, batch, seed=hidden)
+    want = floor_sweep_plain(xproj, wh)
+    onplan = floor_sweep_plan(card_sweep_plan(cuda, hidden, batch))
+    for p in (plan, onplan):
+        before = floor_sweep.launches
+        got = floor_sweep(xproj, wh, plan=p)
+        torch.cuda.synchronize()
+        assert floor_sweep.launches == before + 1
+        assert float((got - want).abs().max()) <= ATOL
+
+
+def test_torch_cuda_floor_refuses_a_wrong_plan(cuda):
+    """A plan the kernel does not take raises: no fallback, no launch."""
+    xproj, wh = chip_smoke.floor_inputs(5, 16, 64, seed=0)
+    plan = card_floor_plan(cuda, 16, 64)
+    before = floor_sweep.launches
+    for bad in (plan._replace(lanes=32), plan._replace(grid=plan.grid - 1),
+                plan._replace(warps=8), plan._replace(smem=512)):
+        with pytest.raises(RuntimeError):
+            floor_sweep(xproj, wh, plan=bad)
+    assert floor_sweep.launches == before
 
 
 def _jacobi_inputs(steps, hidden, batch, device, offset=0):

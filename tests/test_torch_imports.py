@@ -68,12 +68,14 @@ def test_torch_port_sources_exist():
                                     'utils/observe.py',
                                     'utils/logging.py',
                                     'utils/plotting.py',
-                                    'gs_floor.py'])
+                                    'gs_floor.py',
+                                    'floor_ab.py'])
 def test_torch_turbo_leg_modules_are_guarded(module):
     """The slice-2 modules, the stacked variant, the legacy variants, the
     gradient baselines, the comparison harness, the data-parallel
     modules, the scenario batch, CLI, visualize and observability
-    modules, and the floor probe are among the sources the guard walks."""
+    modules, and the floor probe and its variant timer are among the
+    sources the guard walks."""
     path = os.path.join(ROOT, 'admm_lstm_torch', module)
     assert path in _sources()
     assert _bad_imports(path) == []
