@@ -14,8 +14,9 @@ TF32 flags from `ADMMConfig.matmul_precision` for the work they run and
 restore them afterwards.
 
 `train_scenarios` trains S independent problems (the multi-ticker
-scenario batch) one after another; the JAX package vmaps them into one
-program.
+scenario batch) in one batched program, as the JAX package vmaps them:
+one state with the candidate axis (core/state.py), each scenario with its
+own data and initial weights.
 
 `train_sharded` is data-parallel consensus ADMM over `torch.distributed`
 (parallel/): one process per rank, each holding a contiguous block of
@@ -37,8 +38,9 @@ import torch
 
 from admm_lstm_torch.core.init import init_admm_state
 from admm_lstm_torch.core.residuals import admm_residuals
-from admm_lstm_torch.core.state import ADMMState
-from admm_lstm_torch.core.step import make_admm_step, rules_for, run_epochs
+from admm_lstm_torch.core.state import ADMMState, unstack
+from admm_lstm_torch.core.step import (candidate_axis_refusal, make_admm_step,
+                                       rules_for, run_epochs)
 from admm_lstm_torch.models.lstm import (LSTMParams, init_lstm_params,
                                          train_val_mse_im)
 from admm_lstm_torch.utils.config import (AUTO_FIELDS, ADMMConfig,
@@ -58,10 +60,12 @@ def batch_minor(train_x, train_y, val_x, val_y):
     """The epoch's inputs, made once per run: x_im (T, I, B), y_im (O, B),
     xall_im (T, I, B + Bv) with the validation inputs appended along the
     batch (train and validation losses ride one forward) and vy_im
-    (O, Bv)."""
-    x_im = train_x.permute(1, 2, 0).contiguous()
-    xall_im = torch.cat([x_im, val_x.permute(1, 2, 0)], dim=-1).contiguous()
-    return x_im, train_y.T.contiguous(), xall_im, val_y.T.contiguous()
+    (O, Bv); each with a leading S axis where the data has one (the
+    scenario batch's (S, B, T, I), (S, B, O))."""
+    x_im = train_x.movedim(-3, -1).contiguous()
+    xall_im = torch.cat([x_im, val_x.movedim(-3, -1)], dim=-1).contiguous()
+    return (x_im, train_y.transpose(-2, -1).contiguous(), xall_im,
+            val_y.transpose(-2, -1).contiguous())
 
 
 class ADMMBasedOptimizer:
@@ -661,17 +665,20 @@ def train_scenarios(xs, ys, vxs, vys,
     `init_lstm_params` from `scenario_generator(config.seed, s)`).
 
     The JAX package vmaps the S instances into one program, its line
-    searches masked per instance.  Here they train one after another on
-    `device`, each through `run_epochs` and its kernels, so each
-    scenario's numbers are those of a run alone, as JAX's are.  The
-    losses come from `train_val_mse_im`'s one forward (JAX calls
-    `mse_loss` twice; the values agree) and stay on the device until
-    every scenario has run.
+    searches masked per instance.  So does this one, on `device`: one
+    state with the candidate axis, `run_epochs` over it (one interior
+    sweep launch an epoch for all S), the line searches per scenario, so
+    each scenario's numbers are those of a run alone, as JAX's are.
+    Configs whose epoch takes no candidate axis yet
+    (`core.step.candidate_axis_refusal`) train the scenarios one after
+    another; the log line names the route.  The losses come from
+    `train_val_mse_im`'s one forward (JAX calls `mse_loss` twice; the
+    values agree) and stay on the device until every scenario has run.
 
     Returns 'name', 'train_loss' and 'val_loss' (numpy (S, epochs+1)),
     'params' (LSTMParams with a leading S axis), 'state' (the list of the
-    S final ADMMStates: `epoch` is a host int, so they do not stack) and
-    'seconds'.
+    S final ADMMStates, sliced from the batched one: `epoch` is one host
+    int) and 'seconds'.
     """
     rules = rules_for(config)
     device = resolve_device(device)
@@ -684,29 +691,36 @@ def train_scenarios(xs, ys, vxs, vys,
                                   xs.shape[3], config.hidden_size,
                                   ys.shape[2], device=device)
                  for s in range(n_scen)]
-    else:
-        inits = [LSTMParams(*(w[s] for w in params)).to(device)
-                 for s in range(n_scen)]
+        params = LSTMParams(*(torch.stack(leaves) for leaves in zip(*inits)))
+    params = params.to(device)
+    refusal = candidate_axis_refusal(rules)
+
+    def run(p, x, y, vx, vy):
+        """-> (final state, (epochs + 1, [S]) train and val losses)."""
+        x_im, y_im, xall_im, vy_im = batch_minor(x, y, vx, vy)
+        state = init_admm_state(p, x, parameter_set, config)
+        initial = train_val_mse_im(state.params, xall_im, y_im, vy_im)
+        state, hist = run_epochs(state, config.epochs, x_im, y_im, xall_im,
+                                 vy_im, rules)
+        return state, [torch.cat([initial[k][None], hist[name]])
+                       for k, name in enumerate(('train_loss', 'val_loss'))]
 
     timer = Timer()
-    states, train_traj, val_traj = [], [], []
     with matmul_precision(config.matmul_precision):
         timer.start()
-        for s in range(n_scen):
-            x_im, y_im, xall_im, vy_im = batch_minor(xs[s], ys[s], vxs[s],
-                                                     vys[s])
-            state = init_admm_state(inits[s], xs[s], parameter_set, config)
-            initial = train_val_mse_im(state.params, xall_im, y_im, vy_im)
-            state, hist = run_epochs(state, config.epochs, x_im, y_im,
-                                     xall_im, vy_im, rules)
-            states.append(state)
-            train_traj.append(torch.cat([initial[0][None],
-                                         hist['train_loss']]))
-            val_traj.append(torch.cat([initial[1][None], hist['val_loss']]))
-        train_np = torch.stack(train_traj).cpu().numpy()
-        val_np = torch.stack(val_traj).cpu().numpy()
+        if refusal is None:
+            state, traj = run(params, xs, ys, vxs, vys)
+            states, traj = unstack(state), [t.T for t in traj]
+        else:
+            runs = [run(LSTMParams(*(w[s] for w in params)), xs[s], ys[s],
+                        vxs[s], vys[s]) for s in range(n_scen)]
+            states = [r[0] for r in runs]
+            traj = [torch.stack([r[1][k] for r in runs]) for k in (0, 1)]
+        train_np, val_np = (t.cpu().numpy() for t in traj)
         timer.pause()
-    info(f'{n_scen} scenarios x {config.epochs} epochs, one after another: '
+    route = ('in one batched program' if refusal is None else
+             f'one after another ({refusal})')
+    info(f'{n_scen} scenarios x {config.epochs} epochs {route}: '
          f'{timer.get_elapsed_time():.2f}s; final val '
          f'{[round(float(v), 6) for v in val_np[:, -1]]}')
     return {

@@ -107,15 +107,17 @@ def generate_parser() -> argparse.ArgumentParser:
                              '--checkpoint_dir (full optimizer state)')
     parser.add_argument('--tune_rho', default=0, type=int, metavar='ROUNDS',
                         help='Run ROUNDS of successive-halving rho '
-                             'refinement before training and use the winner')
+                             'refinement before training and use the '
+                             'winner (each round\'s candidates as one '
+                             'batched program, tune.refine_rho)')
     parser.add_argument('--mesh', default=0, type=int,
                         help='Data-parallel training over this many ranks, '
                              'one process each (0 = one process); NCCL '
                              'when each rank has a card of its own, else '
                              'gloo')
     parser.add_argument('--scenarios', default=0, type=int, metavar='S',
-                        help='Train S independent scenario batches, one '
-                             'after another (YahooFinance multi-ticker '
+                        help='Train S independent scenario batches in one '
+                             'batched program (YahooFinance multi-ticker '
                              'config, api.train_scenarios)')
     parser.add_argument('--record_matlab_data', action='store_true',
                         help='Export validation losses as a .mat file')
@@ -344,7 +346,10 @@ def main(argv=None) -> int:
                                    config=cfg, epochs=min(30, args.epoch),
                                    rounds=args.tune_rho, device=device)
                 ps = tuned['best_parameter_set']
-                info(f'rho search ({args.tune_rho} rounds): best val '
+                info(f'rho search ({args.tune_rho} rounds of '
+                     f'{len(tuned["candidates"])} candidates, each round '
+                     f'one batched program where the config takes the '
+                     f'candidate axis): best val '
                      f'{tuned["best_val_loss"]:.8f} with rho {ps.rho}')
             kw = dict(record_residuals=args.residuals,
                       checkpoint_dir=args.checkpoint_dir,

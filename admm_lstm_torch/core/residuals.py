@@ -20,6 +20,10 @@ adapts rho the same way.
 
 `rules` is anything with the StepRules fields `consensus`, `model` and
 `shard_time` (None: one process).
+
+With the candidate axis (core/state.py; one process only) every residual
+is (S,), each candidate's RMS over its own slabs, and `balanced_rho`
+adapts each candidate's rho on its own.
 """
 
 from __future__ import annotations
@@ -40,9 +44,9 @@ def _axes(rules):
     return rules.consensus, rules.model, rules.shard_time
 
 
-def _sum_square(x: torch.Tensor) -> torch.Tensor:
+def _sum_square(x: torch.Tensor, dims) -> torch.Tensor:
     x = x.float()  # accumulate in f32 under bf16 slab storage
-    return torch.sum(x * x)
+    return torch.sum(x * x) if dims is None else torch.sum(x * x, dim=dims)
 
 
 def _rms(slabs: Dict[str, torch.Tensor], outs: Dict[str, torch.Tensor],
@@ -50,13 +54,16 @@ def _rms(slabs: Dict[str, torch.Tensor], outs: Dict[str, torch.Tensor],
     """{name: RMS over the whole state} of this rank's blocks of the slab
     families (over H and the rows) and the (O, B) families (over the rows
     only; None where another rank counts them), from one all-reduce per
-    axis."""
+    axis; (S,) each with the candidate axis."""
     rows, model, _ = _axes(rules)
-    sums = model.all_sum(torch.stack([_sum_square(x)
+    batched = next(iter(slabs.values())).dim() == 4
+    slab_dims, out_dims = ((-3, -2, -1), (-2, -1)) if batched else (None,
+                                                                    None)
+    sums = model.all_sum(torch.stack([_sum_square(x, slab_dims)
                                       for x in slabs.values()]))
-    zero = sums.new_zeros(())
+    zero = sums.new_zeros(sums.shape[1:])
     sums = torch.cat([sums, torch.stack([zero if x is None else
-                                         _sum_square(x)
+                                         _sum_square(x, out_dims)
                                          for x in outs.values()])])
     sums = rows.all_sum(sums).unbind()
     counts = [slab_count] * len(slabs) + [out_count] * len(outs)
@@ -70,7 +77,7 @@ def _global_counts(state: ADMMState, rows: int, rules):
     cons, model, shard_time = _axes(rules)
     batch = state.batch_size * (1 if shard_time else cons.world)
     hidden = state.hidden_size * model.world
-    return rows * hidden * batch, state.gates.a.shape[0] * batch
+    return rows * hidden * batch, state.gates.a.shape[-2] * batch
 
 
 def _counts_y(rules) -> bool:
@@ -102,7 +109,7 @@ def admm_residuals_im(state: ADMMState, x_im: torch.Tensor, rules=None
     cons, model, shard_time = _axes(rules)
     g = state.gates
     p = state.params
-    seq_len = x_im.shape[0]
+    seq_len = x_im.shape[-3]
     lo, hi = 0, seq_len + 1
     h_prev, c_prev = g.h, g.c
     if shard_time:
@@ -111,11 +118,15 @@ def admm_residuals_im(state: ADMMState, x_im: torch.Tensor, rules=None
         if prev is not None:
             h_prev = torch.cat([prev[0:1], g.h])
             c_prev = torch.cat([prev[1:2], g.c])
-    h_prev, c_prev = model.all_gather(h_prev[:-1], 1), c_prev[:-1]
+    h_prev = model.all_gather(h_prev[..., :-1, :, :], -2)
+    c_prev = c_prev[..., :-1, :, :]
     first = 1 if lo == 0 else 0
-    now = lambda s: s[first:]
-    pre = (torch.einsum('tdb,gdh->gthb', x_im[max(lo, 1) - 1:hi - 1], p.wx)
-           + torch.einsum('tub,guh->gthb', h_prev.to(p.wh.dtype), p.wh))
+    now = lambda s: s[..., first:, :, :]
+    x_rows = x_im[..., max(lo, 1) - 1:hi - 1, :, :]
+    pre = (torch.einsum('...tdb,...gdh->...gthb', x_rows, p.wx)
+           + torch.einsum('...tub,...guh->...gthb', h_prev.to(p.wh.dtype),
+                          p.wh))
+    pre = pre.unbind(-4)
     acts = (torch.sigmoid(pre[0]), torch.sigmoid(pre[1]),
             torch.tanh(pre[2]), torch.sigmoid(pre[3]))
     gates_now = (now(g.i), now(g.f), now(g.g), now(g.o))
@@ -126,7 +137,7 @@ def admm_residuals_im(state: ADMMState, x_im: torch.Tensor, rules=None
     outs = {'r_y': None}
     if _counts_y(rules):
         outs['r_y'] = g.a - model.all_sum(torch.einsum(
-            'hb,ho->ob', g.h[-1].to(p.wy.dtype), p.wy))
+            '...hb,...ho->...ob', g.h[..., -1, :, :].to(p.wy.dtype), p.wy))
     slab_count, out_count = _global_counts(state, seq_len, rules)
     return _rms(diffs, outs, slab_count, out_count, rules)
 

@@ -12,11 +12,20 @@ Counterpart of `admm_lstm_tpu/core/state.py`, with the same layout:
   * The four gate weights are stacked (4, I, H) / (4, H, H).
 
 `epoch` is a host int: the training loop knows it without a device sync.
+
+The candidate axis: a state may carry S independent ADMM instances (the
+rho grid of tune.search_rho, the scenarios of api.train_scenarios) on a
+leading axis of every leaf, slabs (S, T+1, H, B), `a` (S, O, B), weights
+(S, 4, I, H) ..., each rho an (S,) tensor and the ridges (S, 4) and (S,),
+with one host `epoch` shared by the instances.  It is the JAX package's
+`vmap` over the state written out (`broadcast_state`, `take`, and
+core/init.py for per-candidate weights); `ADMMState.candidates` says
+whether a state has the axis.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -49,7 +58,8 @@ class DualSlabs(NamedTuple):
 
 
 class Penalties(NamedTuple):
-    """The 7 rho penalty coefficients as 0-d tensors."""
+    """The 7 rho penalty coefficients as 0-d tensors ((S,) with the
+    candidate axis)."""
 
     i: torch.Tensor
     f: torch.Tensor
@@ -60,7 +70,8 @@ class Penalties(NamedTuple):
     y: torch.Tensor
 
     def stacked_ifgo(self) -> torch.Tensor:
-        return torch.stack([self.i, self.f, self.g, self.o])
+        """(4,) rho i, f, g, o ((S, 4) with the candidate axis)."""
+        return torch.stack([self.i, self.f, self.g, self.o], dim=-1)
 
 
 class Ridges(NamedTuple):
@@ -81,15 +92,57 @@ class ADMMState(NamedTuple):
 
     @property
     def seq_len(self) -> int:
-        return self.gates.i.shape[0] - 1
+        return self.gates.i.shape[-3] - 1
 
     @property
     def batch_size(self) -> int:
-        return self.gates.i.shape[2]
+        return self.gates.i.shape[-1]
 
     @property
     def hidden_size(self) -> int:
-        return self.gates.i.shape[1]
+        return self.gates.i.shape[-2]
+
+    @property
+    def candidates(self) -> Optional[int]:
+        """S, the length of the leading candidate axis, or None for one
+        instance."""
+        return self.gates.i.shape[0] if self.gates.i.dim() == 4 else None
+
+
+def _rebuild(state: ADMMState, fn) -> ADMMState:
+    """`fn` applied to every tensor leaf; `epoch` kept."""
+    params, gates, duals, rho, beta = (
+        type(t)(*map(fn, t)) for t in (state.params, state.gates,
+                                       state.duals, state.rho, state.beta))
+    return ADMMState(params, gates, duals, rho, beta, state.epoch)
+
+
+def broadcast_state(state: ADMMState, count: int,
+                    rho: Optional[Penalties] = None) -> ADMMState:
+    """`count` copies of a state without the candidate axis on a new
+    leading axis, each leaf a contiguous tensor of its own; `rho`, if
+    given, holds the (count,) penalties of the candidates."""
+    out = _rebuild(state, lambda t: t.expand((count,) + t.shape).contiguous())
+    return out if rho is None else out._replace(rho=rho)
+
+
+def take(state: ADMMState, index) -> ADMMState:
+    """Candidate `index` (an int: a state without the axis) or candidates
+    `index` (a slice: a state with it) of a state with the axis."""
+    return _rebuild(state, lambda t: t[index])
+
+
+def unstack(state: ADMMState) -> List[ADMMState]:
+    """The S states of a state with the candidate axis."""
+    return [take(state, s) for s in range(state.candidates)]
+
+
+def penalties_from_vectors(vectors, dtype=torch.float32,
+                           device='cpu') -> Penalties:
+    """(S,) penalties of S candidates from their (S, 7) rho vectors in
+    RHO_KEYS order."""
+    table = torch.as_tensor(vectors, dtype=dtype).to(device)
+    return Penalties(*table.unbind(-1))
 
 
 def penalties_from(params: ParameterSet, dtype=torch.float32,

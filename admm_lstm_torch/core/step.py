@@ -59,12 +59,26 @@ own columns of the wide weights.  The Gauss-Seidel sweep's serial chain
 needs all of h_{t-1} at every step, so under tensor parallelism it runs on
 slabs gathered to the whole H on every 'model' rank, each keeping its
 block, as the JAX package runs its unsharded kernel on gathered operands.
+
+The candidate axis (core/state.py) runs S independent instances in one
+epoch, the JAX package's `vmap` of this epoch written out: every slab,
+weight and product carries a leading S axis (`...`-einsums, broadcasting
+matmuls, rho viewed as (S, 1, ...) by `_per_candidate`); the data is
+shared by the candidates (no leading axis) or per candidate; the line
+searches search per candidate with one host read per block for all of
+them (solvers/prox_linear.py); the interior sweep is one launch of the
+kernel over every candidate.  It takes the Gauss-Seidel sweep with the
+prox-linear weight stages in one process: `candidate_axis_refusal` says
+what it does not take yet (the exact weight solve, the Jacobi sweep,
+sharded layouts), and the entry points run those configs one candidate
+after another.  A state without the axis takes the same code with the
+same numbers as before the axis existed.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -89,15 +103,24 @@ def gate_is_tanh(n: int, per_gate: int, device) -> torch.Tensor:
     return torch.arange(n, device=device) // per_gate == 2
 
 
+def _per_candidate(rho: Penalties, dims: int) -> Penalties:
+    """rho broadcasting over `dims` trailing axes of a candidate: each
+    (S,) leaf viewed as (S, 1, ..., 1); 0-d leaves (no candidate axis) as
+    they are."""
+    return Penalties(*(r.reshape(r.shape + (1,) * dims) if r.dim() else r
+                       for r in rho))
+
+
 def wide_targets(gates: GateSlabs, duals: DualSlabs, rho: Penalties,
                  first: int = 1) -> torch.Tensor:
     """The weight stages' gate targets dual/rho + gate (admm.py:309-310),
     rows t = 1..T, gate-folded: (T, 4H, B).  `first` is the slabs' first
     target row (0 for a time block that starts past row 0)."""
+    rho = _per_candidate(rho, 3)
     return torch.cat(
-        [d[first:] / r + g[first:] for g, d, r in
+        [d[..., first:, :, :] / r + g[..., first:, :, :] for g, d, r in
          ((gates.i, duals.i, rho.i), (gates.f, duals.f, rho.f),
-          (gates.g, duals.g, rho.g), (gates.o, duals.o, rho.o))], dim=1)
+          (gates.g, duals.g, rho.g), (gates.o, duals.o, rho.o))], dim=-2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,6 +214,19 @@ def rules_for(config: ADMMConfig) -> StepRules:
                      f'lives in admm_lstm_torch.variants')
 
 
+def candidate_axis_refusal(rules: StepRules) -> Optional[str]:
+    """Why the epoch does not take the candidate axis under `rules`, or
+    None where it does: the Gauss-Seidel sweep with the prox-linear
+    weight stages, in one process."""
+    if rules.exact_weight_solve:
+        return 'the exact weight solve has no candidate axis yet'
+    if rules.sweep_mode != 'gauss_seidel':
+        return 'the Jacobi sweep has no candidate axis yet'
+    if rules.consensus.world > 1 or rules.model.world > 1 or rules.shard_time:
+        return 'the candidate axis runs in one process (LOCAL consensus)'
+    return None
+
+
 def _sweep_uses_kernel(rules: StepRules, seq_len: int,
                        device: torch.device) -> bool:
     return (rules.use_pallas_sweep in (True, 'auto') and seq_len > 1
@@ -244,24 +280,27 @@ def _wy_update(state: ADMMState, h_last_full: torch.Tensor, last: bool,
     sum over H, and the Lipschitz Gram is of the whole h_T
     (`h_last_full`)."""
     wy = state.params.wy
+    rho_y = _per_candidate(state.rho, 2).y
     if last:
-        h_last = state.gates.h[-1]                  # (H, B) batch-minor
+        h_last = state.gates.h[..., -1, :, :]       # (H, B) batch-minor
         resid = rules.model.all_sum(
-            torch.einsum('hb,ho->ob', h_last, wy)) - state.gates.a
+            torch.einsum('...hb,...ho->...ob', h_last, wy)) - state.gates.a
         if rules.with_dual_y:
-            resid = resid - state.duals.y / state.rho.y
-        grad_sum = torch.einsum('hb,ob->ho', h_last, resid)
+            resid = resid - state.duals.y / rho_y
+        grad_sum = torch.einsum('...hb,...ob->...ho', h_last, resid)
         if rules.wy_lipschitz:
             grad_sum, gram = rules.batch.all_sum_packed(
-                grad_sum, h_last_full @ h_last_full.T)
+                grad_sum, h_last_full @ h_last_full.mT)
         else:
             grad_sum = rules.batch.all_sum(grad_sum)
-        grad = state.rho.y * grad_sum
-        theta = torch.tensor(rules.wy_theta, dtype=wy.dtype, device=wy.device)
+        grad = rho_y * grad_sum
+        theta = wy.new_full(state.rho.y.shape, rules.wy_theta)
         if rules.wy_lipschitz:
-            lip = state.rho.y * torch.linalg.eigvalsh(gram)[-1]
+            lip = state.rho.y * _largest_eigenvalue(gram)
             theta = torch.maximum(theta, lip)
         denom = theta + rules.wy_beta_factor * state.beta.wy
+        if theta.dim():                             # (S,) -> (S, 1, 1)
+            theta, denom = theta[:, None, None], denom[:, None, None]
         wy = (theta * wy - grad) / denom
     else:
         wy = torch.empty_like(wy)
@@ -270,14 +309,29 @@ def _wy_update(state: ADMMState, h_last_full: torch.Tensor, last: bool,
     return wy
 
 
+def _largest_eigenvalue(gram: torch.Tensor) -> torch.Tensor:
+    """lambda_max of a symmetric (H, H) Gram, or of each of a batch of
+    them; NaN for a Gram that is not finite (a candidate that diverged),
+    which is left out of the batched eigensolver, where it could make the
+    call raise or spoil the others."""
+    if gram.dim() == 2:
+        return torch.linalg.eigvalsh(gram)[-1]
+    finite = torch.isfinite(gram).all(-1).all(-1)
+    top = torch.linalg.eigvalsh(
+        torch.where(finite[:, None, None], gram, 0.0))[:, -1]
+    return torch.where(finite, top, torch.nan)
+
+
 def _to_wide(w: torch.Tensor) -> torch.Tensor:
     """(4, D, H) -> (D, 4H), gate-major columns."""
-    return w.permute(1, 0, 2).reshape(w.shape[1], 4 * w.shape[2])
+    return w.transpose(-3, -2).reshape(w.shape[:-3]
+                                       + (w.shape[-2], 4 * w.shape[-1]))
 
 
 def _from_wide(w_w: torch.Tensor, hidden: int) -> torch.Tensor:
     """(D, 4H) -> (4, D, H)."""
-    return w_w.reshape(w_w.shape[0], 4, hidden).permute(1, 0, 2).contiguous()
+    return w_w.reshape(w_w.shape[:-1] + (4, hidden)).transpose(
+        -3, -2).contiguous()
 
 
 def _weight_phase(state: ADMMState, x_im: torch.Tensor, old: _OldRows,
@@ -291,11 +345,11 @@ def _weight_phase(state: ADMMState, x_im: torch.Tensor, old: _OldRows,
     design rows are x and h at t-1; on a block of H the wide weights are
     this rank's columns g*H + h of each gate g, and the h-stage's design
     matrix is the old h with the whole H."""
-    seq_len = x_im.shape[0]
+    seq_len = x_im.shape[-3]
     hidden = state.hidden_size
     gates, duals, rho = state.gates, state.duals, state.rho
-    h_hist = old.h_full[:-1]       # (T, H, B) stale history incl. zero row
-    x_rows = x_im[max(old.lo, 1) - 1:old.hi - 1]
+    h_hist = old.h_full[..., :-1, :, :]   # (T, H, B) stale history, row 0 too
+    x_rows = x_im[..., max(old.lo, 1) - 1:old.hi - 1, :, :]
     rho_g = rho.stacked_ifgo()
 
     target_w = wide_targets(gates, duals, rho, 1 if old.lo == 0 else 0)
@@ -305,8 +359,8 @@ def _weight_phase(state: ADMMState, x_im: torch.Tensor, old: _OldRows,
     total_cols = 4 * hidden * rules.model.world
 
     wx_w, wh_w = _to_wide(state.params.wx), _to_wide(state.params.wh)
-    xproj = torch.einsum('tdb,dk->tkb', x_rows, wx_w)
-    hproj = torch.einsum('tdb,dk->tkb', h_hist, wh_w)
+    xproj = torch.einsum('...tdb,...dk->...tkb', x_rows, wx_w)
+    hproj = torch.einsum('...tdb,...dk->...tkb', h_hist, wh_w)
 
     def run_stage(m_inputs, proj_self, proj_other, w_w, beta_g, need_proj):
         """-> (new wide weights, fresh self-projection or None).  Under
@@ -345,6 +399,7 @@ def _timestep_primal_duals(pre, old, duals_t, c_prev, rho):
     is the (4, H, B) pre-activation block."""
     _, f_o, g_o, _, c_o, h_o = old
     lam_i, lam_f, lam_g, lam_o, lam_c, lam_h = duals_t
+    pre = pre.unbind(-3)
     act_i = torch.sigmoid(pre[0])
     act_f = torch.sigmoid(pre[1])
     act_g = torch.tanh(pre[2])
@@ -372,28 +427,31 @@ def _timestep_primal_duals(pre, old, duals_t, c_prev, rho):
 def _gauss_seidel(xproj: torch.Tensor, wh: torch.Tensor, old, duals, rho,
                   rho_vec: torch.Tensor, use_kernel: bool):
     """The interior steps t = 1..T-1 in order from h_0 = c_0 = 0: the 11
-    new slabs (T-1, H, B), i..h then the duals i..c."""
+    new slabs (T-1, H, B), i..h then the duals i..c (each with the leading
+    candidate axis of xproj (S, T-1, 4, H, B), if it has one; `rho` viewed
+    to broadcast over a candidate's (H, B))."""
     if use_kernel:
         new_gates, new_duals = gate_sweep.interior_sweep(xproj, wh, old,
                                                          duals, rho_vec)
         return new_gates + new_duals
     # Mirrors the JAX package's lax.scan (core/step.py:357-371,452-456).
-    steps, _, hidden, batch = xproj.shape
-    h_prev = xproj.new_zeros((hidden, batch))
-    c_prev = xproj.new_zeros((hidden, batch))
+    steps, _, hidden, batch = xproj.shape[-4:]
+    h_prev = xproj.new_zeros(xproj.shape[:-4] + (hidden, batch))
+    c_prev = torch.zeros_like(h_prev)
     rows = [[] for _ in range(11)]
     for t in range(steps):
-        old_t = tuple(s[t] for s in old)
-        duals_t = tuple(s[t] for s in duals)
-        pre = xproj[t] + torch.einsum('hb,ghk->gkb', h_prev, wh)
+        old_t = tuple(s[..., t, :, :] for s in old)
+        duals_t = tuple(s[..., t, :, :] for s in duals)
+        pre = xproj[..., t, :, :, :] + torch.einsum('...hb,...ghk->...gkb',
+                                                    h_prev, wh)
         prim, lam_n = _timestep_primal_duals(pre, old_t, duals_t, c_prev, rho)
         h_n = cf.h_interior_update(prim[3], torch.tanh(prim[4]), duals_t[5],
                                    rho.h)
         for acc, v in zip(rows, prim + (h_n,) + lam_n):
             acc.append(v)
         h_prev, c_prev = h_n, prim[4]
-    empty = xproj.new_zeros((0, hidden, batch))
-    return tuple(torch.stack(r) if r else empty for r in rows)
+    empty = xproj.new_zeros(xproj.shape[:-4] + (0, hidden, batch))
+    return tuple(torch.stack(r, dim=-3) if r else empty for r in rows)
 
 
 def _sweep(state: ADMMState, x_im: torch.Tensor, params_new: LSTMParams,
@@ -401,10 +459,11 @@ def _sweep(state: ADMMState, x_im: torch.Tensor, params_new: LSTMParams,
     """The t = 1..T sweep: this rank's interior steps (kernel or plain
     loop), then, on the rank that holds row T, the peeled final step, the
     `a` update and the duals (the y-dual too)."""
-    rho = state.rho
-    seq_len = x_im.shape[0]
+    rho = _per_candidate(state.rho, 2)      # over (H, B) or (O, B)
+    seq_len = x_im.shape[-3]
     batch = state.batch_size
     hidden = state.hidden_size
+    lead = state.gates.a.shape[:-2]         # (S,) with the candidate axis
     wh = params_new.wh
     lo, hi = old.lo, old.hi
     last = hi == seq_len + 1
@@ -413,15 +472,18 @@ def _sweep(state: ADMMState, x_im: torch.Tensor, params_new: LSTMParams,
 
     # Input-side projections of rows t0..t1-1 and, on the last block, T:
     # (n_int + last, 4, H, B).
-    xproj = torch.einsum('tdb,gdh->tghb', x_im[t0 - 1:t1 - 1 + last],
+    xproj = torch.einsum('...tdb,...gdh->...tghb',
+                         x_im[..., t0 - 1:t1 - 1 + last, :, :],
                          params_new.wx).contiguous()
     gates, duals = state.gates, state.duals
     old_slabs = (gates.i, gates.f, gates.g, gates.o, gates.c, gates.h)
     dual_slabs = (duals.i, duals.f, duals.g, duals.o, duals.c, duals.h)
-    rho_vec = torch.stack([rho.i, rho.f, rho.g, rho.o, rho.c, rho.h])
-    interior = lambda slabs: tuple(s[t0 - lo:t1 - lo] for s in slabs)
+    r = state.rho
+    rho_vec = torch.stack([r.i, r.f, r.g, r.o, r.c, r.h], dim=-1)
+    interior = lambda slabs: tuple(s[..., t0 - lo:t1 - lo, :, :]
+                                   for s in slabs)
     use_kernel = _sweep_uses_kernel(rules, seq_len, x_im.device)
-    empty = x_im.new_zeros((0, hidden, batch))
+    empty = x_im.new_zeros(lead + (0, hidden, batch))
     h_prev_full = None          # the fresh h at T-1 with the whole H
     if rules.sweep_mode == 'jacobi' and seq_len > 1:
         # Every interior timestep reads the PREVIOUS sweep's h[t-1] and
@@ -458,9 +520,9 @@ def _sweep(state: ADMMState, x_im: torch.Tensor, params_new: LSTMParams,
         if n_int:
             h_prev_full = scanned_full[5][-1]
     else:
-        scanned = _gauss_seidel(xproj[:n_int], wh, interior(old_slabs),
-                                interior(dual_slabs), rho, rho_vec,
-                                use_kernel)
+        scanned = _gauss_seidel(xproj[..., :n_int, :, :, :], wh,
+                                interior(old_slabs), interior(dual_slabs),
+                                rho, rho_vec, use_kernel)
 
     # The fresh (h, c) at T-1 for the final step: the block's last interior
     # row, the previous block's (a second halo) when row T is the last
@@ -477,23 +539,25 @@ def _sweep(state: ADMMState, x_im: torch.Tensor, params_new: LSTMParams,
     if last:
         # --- Final timestep t = T (admm.py:74-76: gates, a, duals). ---
         if n_int:
-            h_prev, c_prev = scanned[5][-1], scanned[4][-1]
+            h_prev = scanned[5][..., -1, :, :]
+            c_prev = scanned[4][..., -1, :, :]
         elif fresh is not None:
             h_prev, c_prev = fresh[0], fresh[1]
         else:
-            h_prev = c_prev = x_im.new_zeros((hidden, batch))
+            h_prev = c_prev = x_im.new_zeros(lead + (hidden, batch))
         if h_prev_full is None:
             h_prev_full = rules.model.all_gather(h_prev, 0)
-        old_T = tuple(s[-1] for s in old_slabs)
-        duals_T = tuple(s[-1] for s in dual_slabs)
-        pre_T = xproj[-1] + torch.einsum('hb,ghk->gkb', h_prev_full, wh)
+        old_T = tuple(s[..., -1, :, :] for s in old_slabs)
+        duals_T = tuple(s[..., -1, :, :] for s in dual_slabs)
+        pre_T = xproj[..., -1, :, :, :] + torch.einsum(
+            '...hb,...ghk->...gkb', h_prev_full, wh)
         (i_T, f_T, g_T, o_T, c_T), lam_T = _timestep_primal_duals(
             pre_T, old_T, duals_T, c_prev, rho)
         tanh_c_T = torch.tanh(c_T)
         wy = params_new.wy
         to_out = lambda v: rules.model.all_sum(
-            torch.einsum('hb,ho->ob', v, wy))
-        from_out = lambda r: torch.einsum('ob,ho->hb', r, wy)
+            torch.einsum('...hb,...ho->...ob', v, wy))
+        from_out = lambda r: torch.einsum('...ob,...ho->...hb', r, wy)
         h_T = h_final_update(
             old_T[5], o_T, tanh_c_T, duals_T[5], rho.h, wy, gates.a, rho.y,
             duals.y, with_dual_y=rules.with_dual_y, theta0=rules.h_theta0,
@@ -522,11 +586,12 @@ def _sweep(state: ADMMState, x_im: torch.Tensor, params_new: LSTMParams,
             a_new = rules.consensus.broadcast(a_new.contiguous(), src)
 
     # --- Reassemble the block's slabs: zero row 0 | interior | row T. ---
-    zero_row = x_im.new_zeros((1, hidden, batch))
+    zero_row = x_im.new_zeros(lead + (1, hidden, batch))
 
     def assemble(mid, last_row):
         return torch.cat(([zero_row] if lo == 0 else []) + [mid]
-                         + ([last_row[None]] if last else []), dim=0)
+                         + ([last_row.unsqueeze(-3)] if last else []),
+                         dim=-3)
 
     if not last:
         i_T = f_T = g_T = o_T = c_T = h_T = None
@@ -539,7 +604,7 @@ def _sweep(state: ADMMState, x_im: torch.Tensor, params_new: LSTMParams,
     # h-dual rows t < T are never written (admm.py:532-534).
     lam_h_slab = duals.h.clone()
     if last:
-        lam_h_slab[-1] = lam_h_T
+        lam_h_slab[..., -1, :, :] = lam_h_T
     lam_T_i, lam_T_f, lam_T_g, lam_T_o, lam_T_c = lam_T
     duals_new = DualSlabs(
         i=assemble(li_s, lam_T_i), f=assemble(lf_s, lam_T_f),
@@ -564,7 +629,13 @@ def admm_step_im(state: ADMMState, x_im: torch.Tensor, y_im: torch.Tensor,
                  rules: StepRules) -> ADMMState:
     """`admm_step` on batch-minor (T, I, B) inputs and (O, B) targets
     (this rank's block of the batch under data parallelism, whole under
-    time sharding)."""
+    time sharding).  A state with the candidate axis takes inputs and
+    targets shared by its candidates or with a leading S axis of their
+    own, under rules that `candidate_axis_refusal` accepts."""
+    if state.candidates is not None:
+        refusal = candidate_axis_refusal(rules)
+        if refusal:
+            raise ValueError(f'a state with the candidate axis: {refusal}')
     # Storage-dtype policy (ADMMConfig.dtype='bfloat16'): slabs are stored
     # at reduced precision, ALL math runs in f32.
     slab_dtype = state.gates.i.dtype
@@ -573,9 +644,10 @@ def admm_step_im(state: ADMMState, x_im: torch.Tensor, y_im: torch.Tensor,
             gates=GateSlabs(*(s.float() for s in state.gates)),
             duals=DualSlabs(*(s.float() for s in state.duals)))
 
-    seq_len = x_im.shape[0]
+    seq_len = x_im.shape[-3]
     old = _old_rows(state, seq_len, rules)
-    wy_new = _wy_update(state, old.h_full[-1], old.hi == seq_len + 1, rules)
+    wy_new = _wy_update(state, old.h_full[..., -1, :, :],
+                        old.hi == seq_len + 1, rules)
     state = state._replace(params=state.params._replace(wy=wy_new))
 
     wx_new, wh_new = _weight_phase(state, x_im, old, rules)
@@ -619,7 +691,7 @@ def epoch_step(state: ADMMState, x_im: torch.Tensor, y_im: torch.Tensor,
     if with_residuals:
         metrics.update(admm_residuals_im(state, x_im, rules))
         metrics.update(dual_residuals(state, prev_gates, rules,
-                                      x_im.shape[0]))
+                                      x_im.shape[-3]))
     return state, metrics
 
 

@@ -109,6 +109,20 @@
 //    resident ones, each ascending.
 // The ragged batch edge and the padded rows are masked in the kernel.
 //
+// The candidate axis.  The JAX package vmaps its epoch over S independent
+// ADMM instances (the rho search's grid, the scenario batch), and under
+// vmap the Pallas sweep takes a leading grid axis.  Here the grid's second
+// axis is the candidate: block (x, y) sweeps batch tile x of candidate y,
+// so a block never straddles two candidates and each candidate's ragged
+// batch edge is masked as above.  Candidate y's xproj, output slabs, wh,
+// padded wh and rho row start y strides past candidate 0's: the strides of
+// the contiguous (S, steps, H, B) outputs, (S, 4, H, H), (S, H, hp, 4) and
+// (S, 6) tensors, and for xproj and the 12 input slabs the strides the
+// caller gives (slices of the epoch's (S, T, 4, H, B) projection and of
+// its (S, T+1, H, B) state slabs, each contiguous within a candidate).  The tile plan is picked for S * B
+// columns (sweep_plan's `candidates`).  Without the axis (S = 1) the
+// kernel and its plan are the ones above, with every offset 0.
+//
 // Floor design (H <= 32).  H lanes own a batch column, 32 / H columns a
 // warp (the lanes past the last whole column run as a column that stores
 // nothing); lane j holds row j's c and h in registers.  Where the
@@ -207,6 +221,16 @@ struct SweepArgs {
   int hp;                    // wh's padded row length, R * blockDim.y
   int resident;              // k-rows 0 .. resident-1 of wh stay in shared memory
   int chunk;                 // the rest streams in chunks of this many k-rows
+  // Candidate strides in floats (gridDim.y candidates; all 0 without the
+  // candidate axis): xproj, the 12 input slabs, the 11 outputs, wh, whp,
+  // rho.
+  size_t cand_x, cand_in, cand_out, cand_wh, cand_whp, cand_rho;
+};
+
+// Where this block's candidate starts in the slabs: xproj, the inputs and
+// the outputs.
+struct CandOffsets {
+  size_t x, in, out;
 };
 
 struct JacobiArgs {
@@ -363,24 +387,27 @@ __device__ __forceinline__ void recurrent_product(const float* w,
   }
 }
 
-// The carry-free inputs of element (s, j, b): xproj i, f, g, o, then (the
-// full step) the old f, g, c, h and the six duals (timestep_math's `old`);
-// zeros outside the slabs (!ok), so the math of a padded row or column
-// stays finite.
+// The carry-free inputs of element (s, j, b) of the block's candidate
+// (offsets `c`): xproj i, f, g, o, then (the full step) the old f, g, c, h
+// and the six duals (timestep_math's `old`); zeros outside the slabs (!ok),
+// so the math of a padded row or column stays finite.
 template <class Step>
-__device__ __forceinline__ void load_step(const SweepArgs& a, int s, int j,
+__device__ __forceinline__ void load_step(const SweepArgs& a,
+                                          const CandOffsets& c, int s, int j,
                                           int b, bool ok,
                                           float v[Step::LOADS]) {
   const size_t slab = (size_t)a.H * a.B;
   const size_t e = (size_t)s * slab + (size_t)j * a.B + b;
-  const float* const x = a.xproj + e + 3 * (size_t)s * slab;  // (s, 0, j, b)
+  const float* const x =
+      a.xproj + c.x + e + 3 * (size_t)s * slab;               // (s, 0, j, b)
 #pragma unroll
   for (int g = 0; g < 4; ++g) v[g] = ok ? __ldg(x + g * slab) : 0.0f;
   if constexpr (Step::LOADS > 4) {
-    const float* src[10] = {a.in[1] + e, a.in[2] + e, a.in[4] + e,
-                            a.in[5] + e, a.in[6] + e, a.in[7] + e,
-                            a.in[8] + e, a.in[9] + e, a.in[10] + e,
-                            a.in[11] + e};
+    const size_t ei = c.in + e;
+    const float* src[10] = {a.in[1] + ei, a.in[2] + ei, a.in[4] + ei,
+                            a.in[5] + ei, a.in[6] + ei, a.in[7] + ei,
+                            a.in[8] + ei, a.in[9] + ei, a.in[10] + ei,
+                            a.in[11] + ei};
 #pragma unroll
     for (int k = 0; k < 10; ++k) v[4 + k] = ok ? __ldg(src[k]) : 0.0f;
   }
@@ -390,14 +417,15 @@ __device__ __forceinline__ void load_step(const SweepArgs& a, int s, int j,
 // STORES-1] (the full step: new gates i..h, then duals i..c; the floor: h),
 // masked by ok.
 template <int R, class Step>
-__device__ __forceinline__ void store_step(const SweepArgs& a, int s, int j0,
-                                           int b, const bool ok[R],
+__device__ __forceinline__ void store_step(const SweepArgs& a,
+                                           const CandOffsets& c, int s,
+                                           int j0, int b, const bool ok[R],
                                            const float res[R][Step::STORES]) {
   const size_t slab = (size_t)a.H * a.B;
 #pragma unroll
   for (int q = 0; q < R; ++q)
     if (ok[q]) {
-      const size_t e = (size_t)s * slab + (size_t)(j0 + q) * a.B + b;
+      const size_t e = c.out + (size_t)s * slab + (size_t)(j0 + q) * a.B + b;
 #pragma unroll
       for (int k = 0; k < Step::STORES; ++k) a.out[k][e] = res[q][k];
     }
@@ -417,6 +445,12 @@ __device__ __forceinline__ void sweep(const SweepArgs& a, float* const smem) {
   const int tx = threadIdx.x, j0 = threadIdx.y * R;
   const int nthreads = tb * blockDim.y, tid = threadIdx.y * tb + tx;
   const int b = blockIdx.x * tb + tx;
+  // The block's candidate, blockIdx.y, and where its operands start.
+  const size_t cand = blockIdx.y;
+  const CandOffsets co{cand * a.cand_x, cand * a.cand_in, cand * a.cand_out};
+  const float* const wh = a.wh + cand * a.cand_wh;
+  const float* const whp =
+      a.whp == nullptr ? nullptr : a.whp + cand * a.cand_whp;
 
   // The streamed k-rows kres .. H-1 cycle through the ring in nck chunks
   // per step; the first two are put in flight first.
@@ -426,7 +460,7 @@ __device__ __forceinline__ void sweep(const SweepArgs& a, float* const smem) {
     for (int i = 0; i < AHEAD; ++i) {
       if (i < total_chunks) {
         const int k1 = kres + (i % nck) * kc;
-        stream_wh(ring + i * chunk_floats, a.whp, k1, min(kc, H - k1), hp,
+        stream_wh(ring + i * chunk_floats, whp, k1, min(kc, H - k1), hp,
                   tid, nthreads);
       }
       cp_async_commit();
@@ -434,13 +468,13 @@ __device__ __forceinline__ void sweep(const SweepArgs& a, float* const smem) {
   }
   // The resident rows, once: from the padded layout where there is one,
   // else gathered from wh (4, H, H), zero past H.
-  if (a.whp != nullptr) {
-    stream_wh(smem, a.whp, 0, kres, hp, tid, nthreads);
+  if (whp != nullptr) {
+    stream_wh(smem, whp, 0, kres, hp, tid, nthreads);
   } else {
     for (int e = tid; e < kres * 4 * hp; e += nthreads) {
       const int kj = e >> 2, k = kj / hp, j = kj - k * hp, g = e & 3;
       if (j < H)
-        cp_async4(smem + e, a.wh + ((size_t)g * H + k) * H + j);
+        cp_async4(smem + e, wh + ((size_t)g * H + k) * H + j);
       else
         smem[e] = 0.0f;
     }
@@ -449,7 +483,7 @@ __device__ __forceinline__ void sweep(const SweepArgs& a, float* const smem) {
   for (int e = tid; e < H * tb; e += nthreads) hbuf[e] = 0.0f;   // h_0 = 0
 
   Rho rho{};
-  if constexpr (Step::LOADS > 4) rho = load_rho(a.rho);
+  if constexpr (Step::LOADS > 4) rho = load_rho(a.rho + cand * a.cand_rho);
   float pf[R][Step::LOADS];   // this thread's prefetched inputs, row by row
   float cst[R];      // c_{s-1}, c_0 = 0
   bool ok[R];        // row j0 + q and column b lie in the slabs
@@ -457,7 +491,7 @@ __device__ __forceinline__ void sweep(const SweepArgs& a, float* const smem) {
   for (int q = 0; q < R; ++q) {
     cst[q] = 0.0f;
     ok[q] = j0 + q < H && b < B;
-    load_step<Step>(a, 0, j0 + q, b, ok[q], pf[q]);
+    load_step<Step>(a, co, 0, j0 + q, b, ok[q], pf[q]);
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -486,7 +520,7 @@ __device__ __forceinline__ void sweep(const SweepArgs& a, float* const smem) {
         }
         if (n + AHEAD < total_chunks) {
           const int k2 = kres + ((c + AHEAD) % nck) * kc;
-          stream_wh(ring + ((buf + AHEAD) % WH_BUFS) * chunk_floats, a.whp, k2,
+          stream_wh(ring + ((buf + AHEAD) % WH_BUFS) * chunk_floats, whp, k2,
                     min(kc, H - k2), hp, tid, nthreads);
         }
         cp_async_commit();
@@ -502,7 +536,7 @@ __device__ __forceinline__ void sweep(const SweepArgs& a, float* const smem) {
     // no barrier from here to the end of the step, so the warps drift apart
     // and one warp's math and memory traffic overlap another's product.
     if constexpr (DEFER) {
-      if (s > 0) store_step<R, Step>(a, s - 1, j0, b, ok, pend);
+      if (s > 0) store_step<R, Step>(a, co, s - 1, j0, b, ok, pend);
     }
     recurrent_product<R>(smem + j0 * 4, hp_s + tx, kres, tb, hp, acc);
 
@@ -520,18 +554,18 @@ __device__ __forceinline__ void sweep(const SweepArgs& a, float* const smem) {
 #pragma unroll
         for (int k = 0; k < Step::STORES; ++k) pend[q][k] = res[k];
       } else if (ok[q]) {
-        const size_t e = (size_t)s * H * B + (size_t)j * B + b;
+        const size_t e = co.out + (size_t)s * H * B + (size_t)j * B + b;
 #pragma unroll
         for (int k = 0; k < Step::STORES; ++k) a.out[k][e] = res[k];
       }
       if (j < H) hn[j * tb + tx] = res[Step::H_AT];
       cst[q] = res[Step::C_AT];
-      if (s + 1 < a.steps) load_step<Step>(a, s + 1, j, b, ok[q], pf[q]);
+      if (s + 1 < a.steps) load_step<Step>(a, co, s + 1, j, b, ok[q], pf[q]);
     }
     if constexpr (STREAM) cp_async_wait<AHEAD - 1>();   // next step's chunk 0
     __syncthreads();
   }
-  if constexpr (DEFER) store_step<R, Step>(a, a.steps - 1, j0, b, ok, pend);
+  if constexpr (DEFER) store_step<R, Step>(a, co, a.steps - 1, j0, b, ok, pend);
 }
 
 template <int R, bool STREAM>
@@ -785,14 +819,16 @@ cudaError_t launch_sweep(const SweepArgs& a, dim3 grid, dim3 block,
 
 // Checks the tile plan of kernels/gate_sweep.py::sweep_plan that `a`
 // (steps, H, B, hp, resident, chunk, whp), `tb`, `rows` and `smem` carry
-// and launches it: the floor kernel if FLOOR, else the Gauss-Seidel
-// kernel.  Returns cudaErrorInvalidValue for a plan the kernels do not
-// take, else cudaGetLastError() after the launch (0 = launched).
+// and launches it over `cands` candidates (a's strides): the floor kernel
+// if FLOOR, else the Gauss-Seidel kernel.  Returns cudaErrorInvalidValue
+// for a plan the kernels do not take, else cudaGetLastError() after the
+// launch (0 = launched).
 template <bool FLOOR>
 cudaError_t launch_plan(const SweepArgs& a, int tb, int rows, int smem,
-                        cudaStream_t st) {
+                        int cands, cudaStream_t st) {
   const int hidden = a.H, hp = a.hp, resident = a.resident, chunk = a.chunk;
   if (a.steps < 1 || hidden < 1 || a.B < 1) return cudaErrorInvalidValue;
+  if (cands < 1 || cands > 65535) return cudaErrorInvalidValue;
   if (tb < 1 || tb > 32 || (32 % tb) != 0) return cudaErrorInvalidValue;
   if (rows != 1 && rows != 2 && rows != 4) return cudaErrorInvalidValue;
   const int groups = (hidden + rows - 1) / rows;
@@ -809,7 +845,7 @@ cudaError_t launch_plan(const SweepArgs& a, int tb, int rows, int smem,
   if ((size_t)smem != need) return cudaErrorInvalidValue;
 
   const dim3 block(tb, groups);
-  const dim3 grid((a.B + tb - 1) / tb);
+  const dim3 grid((a.B + tb - 1) / tb, cands);
   switch (rows * 2 + streamed) {
     case 2: return launch_sweep<1, false, FLOOR>(a, grid, block, need, st);
     case 3: return launch_sweep<1, true, FLOOR>(a, grid, block, need, st);
@@ -865,17 +901,32 @@ int gate_sweep_limits(int* sms, int* smem_optin) {
 // i,f,g,o,c,h), `outs` 11 (gates i..h, duals i..c).  Returns
 // cudaErrorInvalidValue for a plan this kernel does not take, else
 // cudaGetLastError() after the launch (0 = launched).
+//
+// With the candidate axis, `cands` candidates: wh (cands, 4, H, H), whp
+// (cands, H, hp, 4), rho (cands, 6) and the outputs (cands, steps, H, B),
+// each contiguous; candidate c's xproj starts at xproj + c * cand_x floats
+// and its input slab k at ins[k] + c * cand_in, contiguous (steps, 4, H,
+// B) and (steps, H, B) from there.  cands = 1 is the sweep without the
+// axis (the strides unused).
 int gate_sweep_interior(const void* xproj, const void* wh, const void* whp,
                         const void* rho, const void* const* ins,
                         void* const* outs, int steps, int hidden, int batch,
                         int tb, int rows, int hp, int resident, int chunk,
-                        int smem, void* stream) {
+                        int smem, int cands, long long cand_x,
+                        long long cand_in, void* stream) {
+  if (cand_x < 0 || cand_in < 0) return cudaErrorInvalidValue;
   SweepArgs a = sweep_args(xproj, wh, whp, steps, hidden, batch, hp,
                            resident, chunk);
   a.rho = static_cast<const float*>(rho);
   for (int k = 0; k < 12; ++k) a.in[k] = static_cast<const float*>(ins[k]);
   for (int k = 0; k < 11; ++k) a.out[k] = static_cast<float*>(outs[k]);
-  return launch_plan<false>(a, tb, rows, smem,
+  a.cand_x = (size_t)cand_x;
+  a.cand_in = (size_t)cand_in;
+  a.cand_out = (size_t)steps * hidden * batch;
+  a.cand_wh = 4 * (size_t)hidden * hidden;
+  a.cand_whp = (size_t)hidden * hp * 4;
+  a.cand_rho = 6;
+  return launch_plan<false>(a, tb, rows, smem, cands,
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -890,7 +941,7 @@ int gate_sweep_floor(const void* xproj, const void* wh, const void* whp,
   SweepArgs a = sweep_args(xproj, wh, whp, steps, hidden, batch, hp,
                            resident, chunk);
   a.out[0] = static_cast<float*>(h);
-  return launch_plan<true>(a, tb, rows, smem,
+  return launch_plan<true>(a, tb, rows, smem, 1,
                            static_cast<cudaStream_t>(stream));
 }
 

@@ -3,7 +3,10 @@ CUDA kernels for Hopper and their plain PyTorch versions.
 
 `interior_sweep` replaces
 `admm_lstm_tpu/kernels/gate_sweep.py::pallas_interior_sweep`, with the
-same argument and return contract.  For t = 1..T-1, serially in time and
+same argument and return contract, and takes an optional leading
+candidate axis: S independent sweeps in one launch, as the JAX package's
+`vmap` gives the Pallas kernel a leading grid axis (core/state.py says
+what the axis is).  For t = 1..T-1, serially in time and
 independently per batch column: the recurrent pre-activations
 pre_g = xproj[t, g] + wh[g]^T h_{t-1}, the closed forms for i, f, g, o,
 the c prox-linear step (theta = 1/2), the interior h, and the five dual
@@ -97,10 +100,11 @@ def _fit(hidden: int, tb: int, hp: int, smem_limit: int):
 
 
 def _tile_plan(hidden: int, batch: int, tb: int, rows: int,
-              smem_limit: int):
+              smem_limit: int, candidates: int = 1):
     """The plan of one tile width and rows per thread, or None if the
     kernel does not take it (too many threads, or h alone overfills shared
-    memory).  Rows past H are padded with zeros to a multiple of R (hp)."""
+    memory).  Rows past H are padded with zeros to a multiple of R (hp).
+    The grid covers `candidates` times the batch's tiles."""
     groups = -(-hidden // rows)
     if tb * groups > _MAX_THREADS[rows]:
         return None
@@ -109,36 +113,42 @@ def _tile_plan(hidden: int, batch: int, tb: int, rows: int,
     if fit is None:
         return None
     resident, chunk, smem = fit
-    return SweepPlan(tb, rows, tb * groups, hp, -(-batch // tb), resident,
-                     chunk, rows > 1 or resident < hidden, smem)
+    return SweepPlan(tb, rows, tb * groups, hp, candidates * -(-batch // tb),
+                     resident, chunk, rows > 1 or resident < hidden, smem)
 
 
-def sweep_plan(hidden: int, batch: int, sms: int,
-               smem_limit: int) -> SweepPlan:
+def sweep_plan(hidden: int, batch: int, sms: int, smem_limit: int,
+               candidates: int = 1) -> SweepPlan:
     """The tile plan of `interior_sweep` at hidden size H and batch B on a
-    card with `sms` SMs and `smem_limit` bytes of shared memory per block.
+    card with `sms` SMs and `smem_limit` bytes of shared memory per block,
+    over `candidates` (S) sweeps at once: a block takes a tile of one
+    candidate's batch, so the grid is S times the batch's tiles, and the
+    plan is picked for S * B columns (S = 1: the sweep without the axis).
 
-    Tiles: of those in SWEEP_TILES that give at least min(sms, ceil(B / 8))
-    blocks, the one with the fewest waves of one block per SM (a block
-    that holds wh fills an SM's shared memory), then the one whose last
-    wave fills the SMs best, the widest of equals.  Rows per thread: the
-    fewest that fit the tile in the kernel's threads, at least 2 from
-    H = 32, where the recurrent product's shared loads outweigh the math
-    (at one row a thread, the math, a chain of transcendentals and IEEE
-    divisions, is the step's latency).  wh is resident if it fits beside
-    h, else partly streamed (`_fit`), and goes to the kernel padded where
-    a thread takes more than one row or wh streams.  Steps do not enter
-    the plan.  Raises ValueError for H beyond the kernel (above 2048)."""
+    Tiles: of those in SWEEP_TILES that give at least min(sms, S *
+    ceil(B / 8)) blocks, the one with the fewest waves of one block per
+    SM (a block that holds wh fills an SM's shared memory), then the one
+    whose last wave fills the SMs best, the widest of equals.  Rows per
+    thread: the fewest that fit the tile in the kernel's threads, at
+    least 2 from H = 32, where the recurrent product's shared loads
+    outweigh the math (at one row a thread, the math, a chain of
+    transcendentals and IEEE divisions, is the step's latency).  wh is
+    resident if it fits beside h, else partly streamed (`_fit`), and goes
+    to the kernel padded where a thread takes more than one row or wh
+    streams.  Steps do not enter the plan.  Raises ValueError for H
+    beyond the kernel (above 2048)."""
     if hidden < 1 or batch < 1:
         raise ValueError(f'empty sweep: H {hidden}, B {batch}')
+    if candidates < 1:
+        raise ValueError(f'no candidates: {candidates}')
     least = 1 if hidden < 32 else 2
-    target = min(sms, -(-batch // 8))
+    target = min(sms, candidates * -(-batch // 8))
     best = None
     for tb in SWEEP_TILES:
-        if -(-batch // tb) < target:
+        if candidates * -(-batch // tb) < target:
             continue
         plan = next((p for p in (_tile_plan(hidden, batch, tb, rows,
-                                           smem_limit)
+                                           smem_limit, candidates)
                                  for rows in _MAX_THREADS if rows >= least)
                      if p is not None), None)
         if plan is None:
@@ -156,11 +166,13 @@ def sweep_plan(hidden: int, batch: int, sms: int,
 def padded_wh(wh: torch.Tensor, hp: int) -> torch.Tensor:
     """The kernel's layout of wh (4, H, H): (H, hp, 4), wh[g][k][j] at
     [k][j][g] and zero for j >= H, so a chunk of k-rows is one contiguous
-    range and the four gates of one (k, j) are one 16-byte load.  One copy
-    kernel where hp = H (the zero fill only where there is padding)."""
+    range and the four gates of one (k, j) are one 16-byte load; (S, H,
+    hp, 4) for the candidate axis's (S, 4, H, H).  One copy kernel where
+    hp = H (the zero fill only where there is padding)."""
     hidden = wh.shape[-1]
-    out = (wh.new_zeros if hp > hidden else wh.new_empty)((hidden, hp, 4))
-    out[:, :hidden].copy_(wh.permute(1, 2, 0))
+    out = (wh.new_zeros if hp > hidden else wh.new_empty)(
+        wh.shape[:-3] + (hidden, hp, 4))
+    out[..., :hidden, :].copy_(wh.movedim(-3, -1))
     return out
 
 
@@ -188,11 +200,12 @@ def _card_limits(index: int) -> Tuple[int, int]:
     return _LIMITS[index]
 
 
-def card_sweep_plan(device: torch.device, hidden: int,
-                    batch: int) -> SweepPlan:
+def card_sweep_plan(device: torch.device, hidden: int, batch: int,
+                    candidates: int = 1) -> SweepPlan:
     """`sweep_plan` with the SM count and shared-memory limit of `device`,
     read from the CUDA runtime once per card."""
-    return sweep_plan(hidden, batch, *_card_limits(_card_index(device)))
+    return sweep_plan(hidden, batch, *_card_limits(_card_index(device)),
+                      candidates)
 
 
 # The widest H of the floor's warp-synchronous kernel, its most warps a
@@ -397,7 +410,16 @@ def interior_sweep_plain(xproj: torch.Tensor, wh: torch.Tensor,
       rho_vec: (6,) rho i, f, g, o, c, h.
     Returns:
       (6 new gate slabs i..h, 5 new dual slabs i..c), each (T-1, H, B).
+
+    With the candidate axis every argument and result has a leading S
+    axis (rho_vec (S, 6)), and each candidate's sweep runs on its own.
     """
+    if xproj.dim() == 5:
+        per = [interior_sweep_plain(xproj[s], wh[s], [g[s] for g in gates],
+                                    [d[s] for d in duals], rho_vec[s])
+               for s in range(xproj.shape[0])]
+        return tuple(tuple(torch.stack(leaf) for leaf in zip(*part))
+                     for part in zip(*per))
     steps, _, hidden, batch = xproj.shape
     h_prev = xproj.new_zeros((hidden, batch))
     c_prev = xproj.new_zeros((hidden, batch))
@@ -478,45 +500,77 @@ def _check_slabs(name, tensors, slabs, steps, hidden, batch):
                          f'{tensors[0].device}')
 
 
-def _check_common(name, proj, gates, duals, rho_vec):
+def _check_common(name, proj, gates, duals, rho_vec, lead=()):
     if len(gates) != 6 or len(duals) != 6:
         raise ValueError(f'need 6 gate and 6 dual slabs, got {len(gates)} '
                          f'and {len(duals)}')
-    if proj.dim() != 4 or proj.shape[1] != 4:
+    if proj.dim() != 4 + len(lead) or proj.shape[len(lead) + 1] != 4:
         raise ValueError(f'{name}: the projection must be (T-1, 4, H, B), '
                          f'got {tuple(proj.shape)}')
-    if tuple(rho_vec.shape) != (6,):
-        raise ValueError(f'rho_vec must be (6,), got {tuple(rho_vec.shape)}')
+    if tuple(rho_vec.shape) != lead + (6,):
+        raise ValueError(f'rho_vec must be {lead + (6,)}, got '
+                         f'{tuple(rho_vec.shape)}')
 
 
-def _check(xproj, wh, gates, duals, rho_vec):
-    _check_common('interior_sweep', xproj, gates, duals, rho_vec)
-    steps, _, hidden, batch = xproj.shape
-    if tuple(wh.shape) != (4, hidden, hidden):
-        raise ValueError(f'wh must be (4, {hidden}, {hidden}), '
+def _check(xproj, wh, gates, duals, rho_vec) -> Tuple[int, int, int]:
+    """Checks `interior_sweep`'s arguments; returns the candidates (1
+    without the axis) and the candidate strides in floats of xproj and of
+    the input slabs (0 without the axis).  With the axis xproj and the 12
+    input slabs need only be contiguous within a candidate, the slabs
+    with one candidate stride (slices of the state's (S, T+1, H, B) slabs
+    and of the epoch's (S, T, 4, H, B) projection are)."""
+    lead = tuple(xproj.shape[:1]) if xproj.dim() == 5 else ()
+    _check_common('interior_sweep', xproj, gates, duals, rho_vec, lead)
+    steps, _, hidden, batch = xproj.shape[-4:]
+    if tuple(wh.shape) != lead + (4, hidden, hidden):
+        raise ValueError(f'wh must be {lead + (4, hidden, hidden)}, '
                          f'got {tuple(wh.shape)}')
-    _check_slabs('interior_sweep', (xproj, wh, rho_vec, *gates, *duals),
-                 (*gates, *duals), steps, hidden, batch)
+    if not lead:
+        _check_slabs('interior_sweep', (xproj, wh, rho_vec, *gates, *duals),
+                     (*gates, *duals), steps, hidden, batch)
+        return 1, 0, 0
+    slabs = (*gates, *duals)
+    _check_slabs('interior_sweep', (xproj[0], wh, rho_vec), (), steps,
+                 hidden, batch)
+    for sl in slabs:
+        if tuple(sl.shape) != lead + (steps, hidden, batch):
+            raise ValueError(f'slabs must be {lead + (steps, hidden, batch)}'
+                             f', got {tuple(sl.shape)}')
+        if sl.device != xproj.device or sl.dtype != torch.float32:
+            raise ValueError('interior_sweep: every slab must be float32 on '
+                             f'{xproj.device}')
+    # One candidate has no stride to follow.
+    stride = slabs[0].stride(0) if lead[0] > 1 else 0
+    if (any(not sl[0].is_contiguous() for sl in slabs)
+            or any(sl.stride(0) != stride for sl in slabs if lead[0] > 1)):
+        raise ValueError('interior_sweep: every slab must be contiguous '
+                         'within a candidate, with one candidate stride')
+    return lead[0], xproj.stride(0) if lead[0] > 1 else 0, stride
 
 
-def _launch(symbol, first, operands, rho_vec, gates, duals, extra=()):
-    """Allocates the 11 outputs, shaped and placed as the slabs of `first`,
-    and launches `symbol` on the current stream of its card: `operands`
-    are the leading tensors (None for a null pointer), then rho, the slabs
-    and the outputs, steps, H, B and the ints `extra`."""
-    steps, _, hidden, batch = first.shape
-    outs = [torch.empty((steps, hidden, batch), dtype=torch.float32,
-                        device=first.device) for _ in range(11)]
+def _launch(symbol, first, operands, rho_vec, gates, duals, extra=(),
+            wide=()):
+    """Allocates the 11 outputs, shaped and placed as the slabs of `first`
+    (with its leading candidate axis, if any), and launches `symbol` on
+    the current stream of its card: `operands` are the leading tensors
+    (None for a null pointer), then rho, the slabs and the outputs, steps,
+    H, B, the ints `extra` and the 64-bit ints `wide`."""
+    steps, _, hidden, batch = first.shape[-4:]
+    outs = [torch.empty(first.shape[:-4] + (steps, hidden, batch),
+                        dtype=torch.float32, device=first.device)
+            for _ in range(11)]
     ins_arr = (ctypes.c_void_p * 12)(*(s.data_ptr() for s in (*gates, *duals)))
     outs_arr = (ctypes.c_void_p * 11)(*(o.data_ptr() for o in outs))
     vp = ctypes.c_void_p
     launch(_LIB, symbol,
            [vp] * (len(operands) + 1) + [ctypes.POINTER(vp)] * 2
-           + [ctypes.c_int] * (3 + len(extra)), first.device,
+           + [ctypes.c_int] * (3 + len(extra))
+           + [ctypes.c_longlong] * len(wide),
+           first.device,
            *(None if t is None else t.data_ptr() for t in operands),
            rho_vec.data_ptr(), ins_arr, outs_arr, steps, hidden, batch,
-           *extra, detail=f'steps {steps}, H {hidden}, B {batch}'
-                          + (f', plan {extra}' if extra else ''))
+           *extra, *wide, detail=f'shape {tuple(first.shape)}'
+                                 + (f', plan {extra}' if extra else ''))
     return tuple(outs[:6]), tuple(outs[6:])
 
 
@@ -526,19 +580,27 @@ def interior_sweep(xproj: torch.Tensor, wh: torch.Tensor,
                    rho_vec: torch.Tensor) -> Tuple[Slabs, Slabs]:
     """Interior timesteps t = 1..T-1 of the Gauss-Seidel sweep.
 
-    Same arguments and returns as `interior_sweep_plain`.  CUDA tensors go
-    to the CUDA kernel (which adds one to `interior_sweep.launches` per
-    launch); CPU tensors go to the plain version.
+    Same arguments and returns as `interior_sweep_plain`, with or without
+    the leading candidate axis: xproj (S, T-1, 4, H, B), wh (S, 4, H, H),
+    rho_vec (S, 6), slabs (S, T-1, H, B), xproj and each slab contiguous
+    within a candidate (a slice of the state's (S, T+1, H, B) slabs is),
+    the slabs with one candidate stride, all S in one launch on
+    `card_sweep_plan`'s plan for S * B columns.  CUDA
+    tensors go to the CUDA kernel (which adds one to
+    `interior_sweep.launches` per launch, with or without the axis); CPU
+    tensors go to the plain version.
     """
-    _check(xproj, wh, gates, duals, rho_vec)
+    cands, xproj_stride, slab_stride = _check(xproj, wh, gates, duals,
+                                              rho_vec)
     if xproj.device.type == 'cpu':
         return interior_sweep_plain(xproj, wh, gates, duals, rho_vec)
-    _, _, hidden, batch = xproj.shape
-    plan = card_sweep_plan(xproj.device, hidden, batch)
+    _, _, hidden, batch = xproj.shape[-4:]
+    plan = card_sweep_plan(xproj.device, hidden, batch, cands)
     whp = padded_wh(wh, plan.hp) if plan.padded else None
     out = _launch('gate_sweep_interior', xproj, (xproj, wh, whp), rho_vec,
                   gates, duals, (plan.tb, plan.rows, plan.hp, plan.resident,
-                                 plan.chunk, plan.smem))
+                                 plan.chunk, plan.smem, cands),
+                  (xproj_stride, slab_stride))
     interior_sweep.launches += 1
     return out
 

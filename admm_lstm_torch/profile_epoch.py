@@ -5,6 +5,7 @@
         [--data googlestock|yahoofinance|dna1|smsspam|gefcom2012wind|har]
         [--layers N [--hidden2 H2]]
         [--variant fast|admm_l|admm_s|sgd|adam|adagrad]
+        [--candidates S [--scenarios]]
 
 Trains on the CUDA card with the chosen configuration (the default
 fast-ADMM run, ADMMConfig.turbo() or ADMMConfig.auto(); 3 warm-up epochs,
@@ -29,7 +30,15 @@ epoch (variants/admm_l.py, admm_s.py: the step and the two losses, from
 the reference's seeded init, the default rules), `sgd|adam|adagrad` one
 full-batch step of a gradient baseline at its default learning rate with
 its two losses (variants/grad_based.py); --config, --layers and
---data har do not apply to them.  It needs a CUDA card.
+--data har do not apply to them.  `--candidates S` profiles one epoch of
+S candidates on the candidate axis (core/state.py), the default config:
+the first S points of `tune.candidate_grid` (repeated past its 27) on the
+chosen dataset, shared by the candidates, as `tune.search_rho` trains
+them (GoogleStock's grid: `--candidates 27`); with `--scenarios`, S
+folds of YahooFinance with their own seed-split initial weights under
+the CLI's `--scenarios` config (fast, `wy_lipschitz`), as
+`api.train_scenarios` trains them.  Its line adds the per
+candidate-epoch wall and busy ms.  It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -60,7 +69,15 @@ def main(argv=None) -> int:
     parser.add_argument('--hidden2', type=int, default=0)
     parser.add_argument('--variant', default='fast',
                         choices=['fast', *LEGACY])
+    parser.add_argument('--candidates', type=int, default=0)
+    parser.add_argument('--scenarios', action='store_true')
     args = parser.parse_args(argv)
+    if args.candidates and (args.config != 'default' or args.layers > 1
+                            or args.variant != 'fast' or args.data == 'har'):
+        parser.error('--candidates takes the default config, one layer, the '
+                     'fast variant and a bundled dataset')
+    if args.scenarios and not args.candidates:
+        parser.error('--scenarios needs --candidates S')
     if args.layers >= 2 and (args.config != 'default' or args.data == 'har'):
         parser.error('--layers >= 2 takes the default config and a bundled '
                      'dataset')
@@ -118,20 +135,67 @@ def main(argv=None) -> int:
             return state
     else:
         hiddens = [args.hidden]
-        params = init_lstm_params(torch.Generator().manual_seed(0),
-                                  tx.shape[2], args.hidden, ty.shape[1],
-                                  device=dev)
-        state = init_admm_state(params, f(tx), ps, cfg)
+        if args.scenarios:
+            cfg, (x_im, y_im, xall, vy_im), state = scenario_batch(
+                args.candidates, args.hidden, dev)
+            rules = rules_for(cfg)
+            set_matmul_precision(cfg.matmul_precision)
+        else:
+            params = init_lstm_params(torch.Generator().manual_seed(0),
+                                      tx.shape[2], args.hidden, ty.shape[1],
+                                      device=dev)
+            state = init_admm_state(params, f(tx), ps, cfg)
+            if args.candidates:
+                state = rho_grid(state, ps, args.candidates)
 
         def epoch(state):
             return epoch_step(state, x_im, y_im, xall, vy_im, rules)[0]
 
+    prof = profile_epochs(epoch, state, args.epochs)
+    if args.candidates:
+        for k in ('wall_ms_per_epoch', 'device_busy_ms_per_epoch'):
+            prof[k.replace('_epoch', '_candidate_epoch')] = (
+                prof[k] / args.candidates)
     print(json.dumps({
         'device': torch.cuda.get_device_name(0),
-        'config': args.config, 'data': args.data, 'epochs': args.epochs,
+        'config': args.config, 'data': 'yahoofinance scenario folds'
+        if args.scenarios else args.data, 'epochs': args.epochs,
         'hidden': args.hidden, 'hiddens': hiddens, 'variant': args.variant,
-        **profile_epochs(epoch, state, args.epochs)}))
+        'candidates': args.candidates, **prof}))
     return 0
+
+
+def rho_grid(state, ps, count: int):
+    """`state` (without the candidate axis) broadcast over the first
+    `count` points of `tune.candidate_grid(ps)`, repeated past its end."""
+    import numpy as np
+
+    from admm_lstm_torch.core.state import (broadcast_state,
+                                            penalties_from_vectors)
+    from admm_lstm_torch.tune import candidate_grid
+    grid = np.resize(candidate_grid(ps), (count, 7))
+    return broadcast_state(state, count, penalties_from_vectors(
+        grid, device=state.gates.h.device))
+
+
+def scenario_batch(count: int, hidden: int, dev):
+    """(config, batch-minor inputs, state) of `count` YahooFinance folds
+    under the CLI's --scenarios config, each with the initial weights
+    `api.train_scenarios` draws for it."""
+    from admm_lstm_torch.api import batch_minor, scenario_generator
+    from admm_lstm_torch.core.init import init_admm_state
+    from admm_lstm_torch.data.yahoo_finance import load_scenarios
+    from admm_lstm_torch.models.lstm import LSTMParams, init_lstm_params
+    from admm_lstm_torch.params import parameter_set
+    from admm_lstm_torch.utils.config import ADMMConfig
+    cfg = ADMMConfig(hidden_size=hidden, wy_lipschitz=True)
+    xs, ys, vxs, vys = (torch.from_numpy(a).to(dev) for a in
+                        load_scenarios(num_scenarios=count, seed=0))
+    inits = [init_lstm_params(scenario_generator(0, s), xs.shape[3], hidden,
+                              ys.shape[2], device=dev) for s in range(count)]
+    params = LSTMParams(*(torch.stack(w) for w in zip(*inits)))
+    state = init_admm_state(params, xs, parameter_set('YahooFinance'), cfg)
+    return cfg, batch_minor(xs, ys, vxs, vys), state
 
 
 def legacy_epoch(variant: str, hidden: int, tx, ty, vx, vy):
@@ -174,7 +238,6 @@ def profile_epochs(epoch, state, epochs: int) -> dict:
     and without the profiler), device-busy ms, idle share, device
     operations, host syncs, reads and host-to-device copies per epoch, and
     the ten costliest kernels' device ms per epoch."""
-    from torch.profiler import ProfilerActivity, profile
 
     def run(state, n):
         for _ in range(n):
@@ -186,11 +249,36 @@ def profile_epochs(epoch, state, epochs: int) -> dict:
     t0 = time.perf_counter()
     state = run(state, epochs)
     plain_wall_ms = (time.perf_counter() - t0) * 1e3 / epochs
+    prof = device_profile(lambda: run(state, epochs))
+    per = {k: v / epochs for k, v in prof.items() if k != 'kernels_ms'}
+    top = sorted(prof['kernels_ms'].items(), key=lambda kv: -kv[1])[:10]
+    return {
+        'wall_ms_per_epoch': plain_wall_ms,
+        'wall_ms_per_epoch_profiled': per['wall_ms'],
+        'device_busy_ms_per_epoch': per['busy_ms'],
+        'device_idle_share': max(0.0, 1.0 - per['busy_ms'] / per['wall_ms']),
+        'device_ops_per_epoch': per['device_ops'],
+        'host_syncs_per_epoch': per['host_syncs'],
+        'reads_per_epoch': per['reads'],
+        'memcpy_calls_per_epoch': per['memcpy_calls'],
+        'top_kernels_ms_per_epoch': {k: v / epochs for k, v in top},
+    }
+
+
+def device_profile(fn) -> dict:
+    """Runs `fn` (work that ends in a synchronize) once under
+    torch.profiler: its wall ms (host clock), device-busy ms (CUDA
+    kernels, memcpy and memset), device operations, host syncs
+    (`cudaStreamSynchronize`), reads (`aten::_local_scalar_dense`),
+    host-to-device copy calls (`cudaMemcpyAsync`) and each kernel's
+    device ms ('kernels_ms')."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        state = run(state, epochs)
-        wall_ms = (time.perf_counter() - t0) * 1e3 / epochs
+        fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
 
     kernels = {}
     busy_us, launches = 0.0, 0
@@ -207,20 +295,12 @@ def profile_epochs(epoch, state, epochs: int) -> dict:
         busy_us += dur
         launches += 1
         name = evt.name[:100]
-        kernels[name] = kernels.get(name, 0.0) + dur
-    busy_ms = busy_us / 1e3 / epochs
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    return {
-        'wall_ms_per_epoch': plain_wall_ms,
-        'wall_ms_per_epoch_profiled': wall_ms,
-        'device_busy_ms_per_epoch': busy_ms,
-        'device_idle_share': max(0.0, 1.0 - busy_ms / wall_ms),
-        'device_ops_per_epoch': launches / epochs,
-        'host_syncs_per_epoch': host['cudaStreamSynchronize'] / epochs,
-        'reads_per_epoch': host['aten::_local_scalar_dense'] / epochs,
-        'memcpy_calls_per_epoch': host['cudaMemcpyAsync'] / epochs,
-        'top_kernels_ms_per_epoch': {k: v / 1e3 / epochs for k, v in top},
-    }
+        kernels[name] = kernels.get(name, 0.0) + dur / 1e3
+    return {'wall_ms': wall_ms, 'busy_ms': busy_us / 1e3,
+            'device_ops': launches,
+            'host_syncs': host['cudaStreamSynchronize'],
+            'reads': host['aten::_local_scalar_dense'],
+            'memcpy_calls': host['cudaMemcpyAsync'], 'kernels_ms': kernels}
 
 
 if __name__ == '__main__':

@@ -17,6 +17,10 @@ never execute):
 * ``c`` (admm.py:405-436): the loop tests the candidate ``current_c``,
   initialized to ``c`` itself, so the first test is ``f(c) > f(c)``:
   never true.  Hence theta = 1/2 always.
+
+Every rule is elementwise in its slabs and broadcasts its rho and beta:
+with the candidate axis (core/state.py) the caller passes each as an
+(S, 1, 1) view, one value a candidate, over (S, H, B) slabs.
 """
 
 from __future__ import annotations
@@ -64,10 +68,10 @@ def wy_update(wy, h_last, a, rho_y, beta_wy, lam_y, with_dual_y: bool):
     """Readout update with the constant theta = 1/2 (admm.py:246-280),
     batch-minor: h_last (H, B), a and lam_y (O, B).  The stacked variant
     uses it for every solver variant (JAX closed_form.wy_update)."""
-    resid = torch.einsum('hb,ho->ob', h_last, wy) - a
+    resid = torch.einsum('...hb,...ho->...ob', h_last, wy) - a
     if with_dual_y:
         resid = resid - lam_y / rho_y
-    gradient = rho_y * torch.einsum('hb,ob->ho', h_last, resid)
+    gradient = rho_y * torch.einsum('...hb,...ob->...ho', h_last, resid)
     theta = 0.5
     return (theta * wy - gradient) / (theta + beta_wy)
 

@@ -27,6 +27,16 @@ tensor parallelism (`model`) a rank holds only its columns of each gate,
 so the per-gate sums of the weight stage and the final-h search's sums
 over H are all-reduced over the 'model' ranks as well, and every rank
 takes the same theta.
+
+With the candidate axis (core/state.py; one process only) each of the S
+instances searches on its own, as under the JAX package's `vmap` of the
+masked loops: the weight stage's thetas are (S, 4) and one host read per
+block covers all S x 4 of them; the final-h search's theta is (S,), a
+`doubling_search` over the doublings that the host counts in f32
+(`final_h_tests`), so each candidate takes the theta of its run alone,
+untested cap included, with one host read per block of BLOCK_K.  A
+candidate whose sums are NaN accepts at once (NaN > x is False) and never
+holds the others in a loop.
 """
 
 from __future__ import annotations
@@ -72,10 +82,23 @@ def weight_stage_update_wide(m_inputs: torch.Tensor, proj_self: torch.Tensor,
     linearity, so the next stage needs no re-projection.  `seq_len` is
     the global T, whatever rows this rank holds; `model` all-reduces the
     per-gate sums over the ranks that hold the other columns.
+
+    Candidate axis: slabs (S, T, 4H, B), weights (S, D, 4H), rho_g and
+    beta_g (S, 4), theta (S, 4); m_inputs (T, D, B) may be shared by the
+    candidates (the x side on shared data).
     """
     dtype = weights_w.dtype
     hidden = weights_w.shape[-1] // 4
-    rho_cols = torch.repeat_interleave(rho_g, hidden)      # (4H,)
+
+    def per_gate(v):
+        """(..., 4H) -> (..., 4) block sums."""
+        return v.reshape(v.shape[:-1] + (4, hidden)).sum(-1)
+
+    def cols(v):
+        """(..., 4) per gate -> (..., 4H) per column."""
+        return torch.repeat_interleave(v, hidden, dim=-1)
+
+    rho_cols = cols(rho_g)                                 # (4H,)
     tanh_b = tanh_cols[:, None]                            # (4H, 1) bool
 
     # sigmoid(x) = (1 + tanh(x/2)) / 2: both gate families are
@@ -91,48 +114,46 @@ def weight_stage_update_wide(m_inputs: torch.Tensor, proj_self: torch.Tensor,
     def act(x):
         return a_cols + b_cols * torch.tanh(s_cols * x)
 
-    def per_gate(v):
-        """(4H,) -> (4,) block sums."""
-        return v.reshape(4, hidden).sum(-1)
 
     pre = proj_self + proj_other
     u = torch.tanh(s_cols * pre)
     act_pre, dact_pre = a_cols + b_cols * u, c_cols * (1.0 - u * u)
     resid = act_pre - target_w
     grad_sum, sq_cols = consensus.all_sum_packed(
-        torch.einsum('tdb,tkb->dk', m_inputs, resid * dact_pre),
-        torch.sum(resid * resid, dim=(0, 2)))
-    grad = rho_cols * grad_sum
-    grad_proj = torch.einsum('tdb,dk->tkb', m_inputs, grad)
+        torch.einsum('...tdb,...tkb->...dk', m_inputs, resid * dact_pre),
+        torch.sum(resid * resid, dim=(-3, -1)))
+    grad = rho_cols.unsqueeze(-2) * grad_sum
+    grad_proj = torch.einsum('...tdb,...dk->...tkb', m_inputs, grad)
 
     # <grad, diff> + T/2 * theta * |diff|^2 with diff = grad/theta
     # collapses to (1 + T/2) * S / theta, S = sum(grad^2) per gate.
     sq_gate, grad_sq = model.all_sum_packed(
-        per_gate(sq_cols), per_gate(torch.sum(grad * grad, dim=0)))
+        per_gate(sq_cols), per_gate(torch.sum(grad * grad, dim=-2)))
     f_at_w = 0.5 * rho_g * sq_gate
     est_coef = (1.0 + 0.5 * seq_len) * grad_sq
 
     def fails(cands):
-        """(K, 4) candidate thetas -> (K, 4) table of those that fail."""
+        """(K, [S,] 4) candidate thetas -> the table of those that fail."""
         sums = []
         for th in cands:
-            th_cols = torch.repeat_interleave(th, hidden)[:, None]
+            th_cols = cols(th)[..., None].unsqueeze(-3)   # ([S,] 1, 4H, 1)
             r = act(pre + grad_proj / th_cols) - target_w
-            sums.append(per_gate(torch.sum(r * r, dim=(0, 2))))
+            sums.append(per_gate(torch.sum(r * r, dim=(-3, -1))))
         original = 0.5 * rho_g * model.all_sum(
             consensus.all_sum(torch.stack(sums)))
         return original > f_at_w + est_coef / cands
 
     theta, iters = doubling_search(
-        fails, torch.ones(4, dtype=dtype, device=weights_w.device), max_iters)
+        fails, torch.ones(rho_g.shape, dtype=dtype, device=weights_w.device),
+        max_iters)
     theta = theta / 2.0
 
     scale = 0.5 * rho_g * seq_len * theta                 # (4,)
-    scale_cols = torch.repeat_interleave(scale, hidden)
-    denom_cols = torch.repeat_interleave(beta_g + scale, hidden)
-    new_w = (scale_cols * weights_w - grad) / denom_cols
-    proj_new = ((scale_cols[:, None] * proj_self - grad_proj)
-                / denom_cols[:, None])
+    scale_cols, denom_cols = cols(scale), cols(beta_g + scale)
+    new_w = ((scale_cols.unsqueeze(-2) * weights_w - grad)
+             / denom_cols.unsqueeze(-2))
+    proj_new = ((scale_cols[..., None].unsqueeze(-3) * proj_self - grad_proj)
+                / denom_cols[..., None].unsqueeze(-3))
     return WideStageResult(weights=new_w, proj_new=proj_new, theta=theta,
                            iters=iters)
 
@@ -172,6 +193,20 @@ def doubling_search(fails, theta0: torch.Tensor, max_iters: int):
     return theta, k
 
 
+def final_h_tests(theta0: float, theta_max: float, max_iters: int) -> int:
+    """How many thetas the final-h search tests when every test fails:
+    theta0 * 2^k for k < n, n = min(max_iters, the doublings from theta0
+    to the first theta >= theta_max), counted in f32 as the loop doubles
+    (at least one doubling, so theta0 >= theta_max gives n = 1)."""
+    theta, n = np.float32(theta0), 0
+    while n < max_iters:
+        n += 1
+        theta = np.float32(theta * 2)
+        if theta >= theta_max:
+            break
+    return n
+
+
 class HFinalResult(NamedTuple):
     h: torch.Tensor
     theta: torch.Tensor
@@ -202,12 +237,21 @@ def h_final_update(h_old, o_new, tanh_c_new, lam_h, rho_h, wy, a_old,
     to the batch-major (B, H) / (B, O) convention; the epoch passes
     batch-minor closures.  Under tensor parallelism `to_out` all-reduces
     its partial sum over H, and `model` the search's sums over H.
+
+    Candidate axis: h-like (S, H, B), rho_h and rho_y as (S, 1, 1) views,
+    theta (S,), searched by `doubling_search` over `final_h_tests`
+    thetas, the loop's own, so each candidate takes its theta alone.
     """
     if to_out is None:
         to_out = lambda v: v @ wy
     if from_out is None:
         from_out = lambda r: r @ wy.T
     dtype = h_old.dtype
+    batched = h_old.dim() == 3
+    if batched:      # each candidate's sums, kept to broadcast over its slab
+        total = lambda v: torch.sum(v, dim=(-2, -1), keepdim=True)
+    else:
+        total = torch.sum
     target = a_old
     if with_dual_y:
         target = target + lam_y / rho_y
@@ -216,14 +260,14 @@ def h_final_update(h_old, o_new, tanh_c_new, lam_h, rho_h, wy, a_old,
     resid0 = hw0 - target
     grad = (rho_h if grad_uses_rho_h else rho_y) * from_out(resid0)
 
-    f_at_h = 0.5 * rho_y * consensus.all_sum(torch.sum(resid0 * resid0))
+    f_at_h = 0.5 * rho_y * consensus.all_sum(total(resid0 * resid0))
     prox_num_fixed = rho_h * o_new * tanh_c_new - lam_h - grad
     # probe(theta) @ wy is affine in the hoisted products: the loop is
     # matmul-free.
     pnf_wy = to_out(prox_num_fixed)
     grad_wy = to_out(grad)
 
-    def accept_fails(theta):
+    def fails(theta):
         if probe_is_grad_over_theta:
             beta, beta_wy = grad / theta, grad_wy / theta
         else:
@@ -231,13 +275,27 @@ def h_final_update(h_old, o_new, tanh_c_new, lam_h, rho_h, wy, a_old,
             beta_wy = (theta * hw0 + pnf_wy) / (theta + rho_h)
         r = beta_wy - target
         diff = beta - h_old
-        cross, sq_diff = model.all_sum_packed(torch.sum(grad * diff),
-                                              torch.sum(diff * diff))
-        sq_r, cross, sq_diff = consensus.all_sum_packed(torch.sum(r * r),
+        cross, sq_diff = model.all_sum_packed(total(grad * diff),
+                                              total(diff * diff))
+        sq_r, cross, sq_diff = consensus.all_sum_packed(total(r * r),
                                                         cross, sq_diff)
         original = 0.5 * rho_y * sq_r
         estimated = f_at_h + cross + 0.5 * theta * sq_diff
-        return bool(original > estimated)                 # the host sync
+        return original > estimated
+
+    if batched:
+        theta, k = doubling_search(
+            lambda cands: torch.stack([fails(th) for th in cands]),
+            h_old.new_full(h_old.shape[:-2] + (1, 1),
+                           float(np.float32(theta0))),
+            final_h_tests(theta0, theta_max, max_iters))
+        theta = theta / 2.0
+        h_new = (theta * h_old + prox_num_fixed) / (theta + rho_h)
+        return HFinalResult(h=h_new, theta=theta.reshape(h_old.shape[:-2]),
+                            iters=k)
+
+    def accept_fails(theta):
+        return bool(fails(theta))                         # the host sync
 
     # theta doubles exactly in f32, so the host keeps its own f32 copy and
     # the stop test needs no sync.

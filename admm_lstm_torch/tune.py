@@ -8,16 +8,22 @@ candidate trains from the same initial weights and the same initial
 ADMM state, differing only in rho, and the candidates are ranked by
 their final validation loss (a non-finite loss ranks last).
 
-The JAX package trains the whole grid as one vmapped program.  The
-port's kernels take no candidate axis and its line searches sync the
-host, so the port trains the candidates one after another through the
-same epoch code as `api.train` (`core/step.admm_step_im`, or
-`variants/stacked.stacked_admm_step_im`), with the CUDA kernels on CUDA
-tensors.  Each candidate's numbers are those of a run alone, as the JAX
-package's masked line searches make them.  With one candidate at a time
-there is no group to halve when the card runs out of memory (the JAX
-package's `_run_in_groups`), so a CUDA out-of-memory error propagates,
-naming the candidate that raised it.
+The JAX package trains the whole grid as one vmapped program
+(`_vmapped_rho_search`).  So does `search_rho` here: one state with the
+candidate axis (core/state.py) from the same initial weights and state,
+rho from the candidates, `epochs` batched epochs of the same epoch code
+as `api.train` (`core/step.admm_step_im`, its interior sweep one kernel
+launch over every candidate on CUDA tensors), then one batched loss.  The
+line searches search per candidate, so each candidate's numbers are those
+of a run alone, as the JAX package's masked loops make them.  When the
+card runs out of memory the group of candidates halves and each half
+trains on its own (`_run_in_groups`, as the JAX package's).
+
+Configs whose epoch takes no candidate axis yet
+(`core/step.candidate_axis_refusal`: the exact weight solve, the Jacobi
+sweep) and the stacked variant's searches train their candidates one
+after another, each through `_run_in_groups` alone.  The choice is made
+from the config, and the log line names the route that ran.
 """
 
 from __future__ import annotations
@@ -30,11 +36,14 @@ import torch
 
 from admm_lstm_torch.api import _as_tensor, batch_minor
 from admm_lstm_torch.core.init import init_admm_state
-from admm_lstm_torch.core.state import Penalties
-from admm_lstm_torch.core.step import admm_step_im, rules_for
+from admm_lstm_torch.core.state import (broadcast_state,
+                                        penalties_from_vectors)
+from admm_lstm_torch.core.step import (admm_step_im, candidate_axis_refusal,
+                                       rules_for)
 from admm_lstm_torch.models.lstm import init_lstm_params, train_val_mse_im
 from admm_lstm_torch.utils.config import RHO_KEYS, ADMMConfig, ParameterSet
 from admm_lstm_torch.utils.device import matmul_precision, resolve_device
+from admm_lstm_torch.utils.logging import info, warning
 
 
 def candidate_grid(base: ParameterSet,
@@ -91,39 +100,67 @@ def search_rho(train_x, train_y, val_x, val_y, base: ParameterSet,
                                      config)
         x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x,
                                                  val_y)
-        # The step never writes its input state, so every candidate
-        # starts from the same base_state.
-        losses = _train_candidates(
-            'search_rho', candidates,
-            lambda n, cand: base_state._replace(rho=_penalties(cand,
-                                                               device)),
-            lambda state: admm_step_im(state, x_im, y_im, rules),
-            lambda p: train_val_mse_im(p, xall_im, y_im, vy_im), epochs)
+        refusal = candidate_axis_refusal(rules)
+
+        def train_group(lo, hi):
+            """Candidates lo..hi-1 from base_state (which the step never
+            writes), as one batched program where the epoch takes the
+            candidate axis, else the one candidate alone."""
+            rho = penalties_from_vectors(candidates[lo:hi], device=device)
+            if refusal is None:
+                state = broadcast_state(base_state, hi - lo, rho)
+            else:
+                state = base_state._replace(rho=type(rho)(*(r[0]
+                                                            for r in rho)))
+            for _ in range(epochs):
+                state = admm_step_im(state, x_im, y_im, rules)
+            return torch.stack(train_val_mse_im(state.params, xall_im, y_im,
+                                                vy_im), dim=-1).reshape(-1, 2)
+
+        losses = _train_all('search_rho', candidates, epochs, train_group,
+                            refusal)
     return _ranked(candidates, losses, base)
 
 
-def _penalties(cand, device) -> Penalties:
-    return Penalties(*(torch.tensor(v, dtype=torch.float32, device=device)
-                       for v in cand))
+def _train_all(name, candidates, epochs, train_group, refusal):
+    """The (N, 2) train and validation losses of every candidate on the
+    host: all N as one batched program if `refusal` is None, else one
+    after another (`refusal` says why), each through `_run_in_groups`.
+    `train_group(lo, hi)` trains candidates lo..hi-1 and returns their
+    (hi - lo, 2) losses."""
+    n = len(candidates)
+    if refusal is None:
+        info(f'{name}: {n} candidates x {epochs} epochs in one batched '
+             f'program')
+        losses = _run_in_groups(name, candidates, train_group, 0, n)
+    else:
+        info(f'{name}: {n} candidates x {epochs} epochs, one after another '
+             f'({refusal})')
+        losses = torch.cat([_run_in_groups(name, candidates, train_group, k,
+                                           k + 1) for k in range(n)])
+    return losses.cpu().numpy()
 
 
-def _train_candidates(name, candidates, make_state, step, losses, epochs):
-    """Trains each candidate in turn: `make_state(n, cand)`, `epochs`
-    calls of `step`, then `losses(params)` -> (train, val).  Returns the
-    (N, 2) losses on the host; a CUDA out-of-memory error propagates with
-    a note naming the candidate."""
-    out = []
-    for n, cand in enumerate(candidates):
-        try:
-            state = make_state(n, cand)
-            for _ in range(epochs):
-                state = step(state)
-            out.append(torch.stack(losses(state.params)))
-        except torch.cuda.OutOfMemoryError as e:
-            e.add_note(f'{name}: rho candidate {n} of {len(candidates)} '
-                       f'({cand.tolist()}) ran out of device memory')
+def _run_in_groups(name, candidates, train_group, lo, hi):
+    """`train_group(lo, hi)`; where the card runs out of memory, the
+    cached blocks are freed, the group halves and each half runs the same
+    way (JAX tune.py:153-178).  A single candidate that does not fit
+    raises the CUDA out-of-memory error with a note naming its index."""
+    try:
+        return train_group(lo, hi)
+    except torch.cuda.OutOfMemoryError as e:
+        if hi - lo == 1:
+            e.add_note(f'{name}: rho candidate {lo} of {len(candidates)} '
+                       f'({candidates[lo].tolist()}) ran out of device '
+                       f'memory')
             raise
-    return torch.stack(out).cpu().numpy()
+    # Past the except block the failed group's tensors are unreferenced.
+    torch.cuda.empty_cache()
+    mid = (lo + hi) // 2
+    warning(f'{name}: candidates {lo}..{hi - 1} ran out of device memory '
+            f'as one group; halving it')
+    return torch.cat([_run_in_groups(name, candidates, train_group, lo, mid),
+                      _run_in_groups(name, candidates, train_group, mid, hi)])
 
 
 def _ranked(candidates, losses, base: ParameterSet) -> Dict[str, object]:
@@ -188,18 +225,20 @@ def search_rho_stacked(train_x, train_y, val_x, val_y, base: ParameterSet,
         x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x,
                                                  val_y)
 
-        def make_state(n, cand):
-            state = base_state._replace(rho=_penalties(cand, device))
+        def train_one(n, _):
+            state = base_state._replace(rho=penalties_from_vectors(
+                candidates[n], device=device))
             if z_candidates is not None:
                 state = state._replace(rho_z=torch.tensor(
                     z_candidates[n], dtype=torch.float32, device=device))
-            return state
+            for _ in range(epochs):
+                state = stacked_admm_step_im(state, x_im, y_im, rules)
+            return torch.stack(stacked_train_val_mse_im(
+                state.params, xall_im, y_im, vy_im))[None]
 
-        losses = _train_candidates(
-            'search_rho_stacked', candidates, make_state,
-            lambda state: stacked_admm_step_im(state, x_im, y_im, rules),
-            lambda p: stacked_train_val_mse_im(p, xall_im, y_im, vy_im),
-            epochs)
+        losses = _train_all('search_rho_stacked', candidates, epochs,
+                            train_one, 'the stacked variant has no '
+                            'candidate axis yet')
     out = _ranked(candidates, losses, base)
     if z_candidates is not None:
         out['best_z'] = float(z_candidates[out['order'][0]])

@@ -11,7 +11,12 @@ Phases, each fatal on failure:
                version and (where one exists) the one-call PyTorch
                yardstick with CUDA events (L2 flushed before every launch);
                for the Gauss-Seidel sweep also its tile plan and its time
-               per step past the first (ms_per_step);
+               per step past the first (ms_per_step), and with the
+               candidate axis (CANDIDATE_SHAPES: the GoogleStock rho grid,
+               the YahooFinance scenario batch) held to its plain version
+               and to S launches without the axis (bit-equal on the same
+               plan), timed beside those launches, with its plan and the
+               registers and spills of its instance;
                for the Jacobi sweep also its plan, registers and spills,
                GB/s, its L2-resident time (warm_ms), a device copy of the
                same bytes (copy_ms), and, where it takes float4s, the
@@ -55,9 +60,14 @@ Phases, each fatal on failure:
                  SMSSpam (I=95, O=2) and GEFCOM2012Wind, 5 epochs from
                  numpy-seeded weights, held to the JAX package's losses;
   5. tune    - search_rho on GoogleStock over the default 27-point grid, 30
-               epochs a candidate: the JAX package's best rho, every
-               candidate's validation loss, 810 interior_sweep launches,
-               and the search's wall seconds;
+               epochs a candidate, as one batched program: the JAX
+               package's best rho, every candidate's validation loss, 30
+               interior_sweep launches (one an epoch for the grid), the
+               search's host syncs, busy ms and idle share under the
+               profiler, and its wall seconds beside the 27 candidates'
+               runs alone (api.train, timed in the same call), candidate 0
+               and the best candidate held to their runs alone at rtol
+               1e-4;
   6. resume  - YahooFinance 10 epochs straight against 5 checkpointed
                (async) and resumed from the directory to 10: losses,
                weights and the whole final state equal bit for bit;
@@ -103,13 +113,18 @@ Phases, each fatal on failure:
  10. scenarios - api.train_scenarios on the CLI's --scenarios 4 config
                (YahooFinance in 4 folds of 340, fast, H 10, wy_lipschitz)
                for 30 epochs from the JAX package's seed-split inits
-               (tests/golden/torch_scenarios_init_s4.npz), held to the
-               JAX package's losses (SCEN_RTOL says how), 120
-               interior_sweep launches, and a TF32 run of the same that
-               the hold must refuse; the JAX bench's
-               yahoo_scenarios_loose (no_dual_y, 200 epochs a fold) timed,
-               with the profiler's busy ms, idle share and host syncs of
-               a scenario epoch with and without the Lipschitz step; the
+               (tests/golden/torch_scenarios_init_s4.npz), in one batched
+               program, held to the JAX package's losses (SCEN_RTOL says
+               how), 30 interior_sweep launches (one an epoch for the
+               four), and a TF32 run of the same, each scenario a
+               program of its own, that the hold must refuse (the
+               four-scenario program's TF32 run logged beside it); the
+               JAX bench's yahoo_scenarios_loose (no_dual_y,
+               200 epochs a fold) timed in scenario-epochs/s beside the
+               figure of the scenarios one after another, with the
+               profiler's busy ms, idle share and host syncs of a scenario
+               epoch with and without the Lipschitz step and of one
+               batched epoch of the four; the
                CLI (--scenarios 4 -e 5 --save --record_matlab_data) and
                visualize over its models, in a temporary directory, the
                models' predictions on the card held to the CPU's; a
@@ -183,6 +198,9 @@ SWEEP_SHAPES = [(9, 10, 4224), (13, 5, 1000), (31, 130, 512),
                 (59, 10, 1360), (56, 10, 85), (24, 10, 487), (23, 10, 10522),
                 # a YahooFinance scenario (4 folds of 340)
                 (59, 10, 340)]
+# interior_sweep with the candidate axis (S, steps, H, B): the GoogleStock
+# rho grid (27 candidates) and the YahooFinance scenario batch (4 folds).
+CANDIDATE_SHAPES = [(27, 9, 10, 4224), (4, 59, 10, 340)]
 JACOBI_SHAPES = [(9, 10, 4224), (9, 128, 2048), (13, 5, 1000),
                  (5, 7, 1001),     # H * B odd: the V = 1 instance
                  # the seqpar phase's two time blocks and the tp phase's H
@@ -313,6 +331,10 @@ TUNE_VAL = [
 TUNE_BEST_RHO = {'i': 1.0, 'f': 1.0, 'g': 1.0, 'o': 1.0,
                  'c': 0.001600000075995922, 'h': 0.0022499999031424522,
                  'y': 0.0002809999859891832}
+# A batched candidate's final losses against its run alone (api.train):
+# the same f32 math, each candidate's sums taken on its own, over 30
+# epochs.
+TUNE_ALONE_RTOL = 1e-4
 # The resume phase: YahooFinance, the default config, RESUME_EPOCHS
 # epochs straight through against RESUME_AT epochs checkpointed and the
 # rest resumed; equal bit for bit.
@@ -515,6 +537,11 @@ SCEN_JUMP_FROM = 27
 # folds of the YahooFinance training windows (340 each), no_dual_y,
 # wy_lipschitz, 200 epochs.
 SCEN_SPEED_EPOCHS = 200
+# The same run's scenario-epochs/s with the scenarios one after another
+# (before the candidate axis), the lowest and highest of the chip runs in
+# PERF.md on H100 80GB HBM3 at 700 W, for the line beside the batched
+# program's.
+SCEN_SPEED_BEFORE = (24.2, 40.0)
 
 
 def log(msg):
@@ -858,11 +885,86 @@ def jacobi_row(shape, seed, flush, ptxas):
     return row
 
 
+def candidate_inputs(cands, steps, hidden, batch, seed):
+    """S candidates' sweep inputs at sweep_inputs' scales, rho differing
+    per candidate; the 12 slabs are rows 1..steps of (S, steps + 2, H, B)
+    tensors and xproj the first steps rows of an (S, steps + 1, 4, H, B)
+    one, as the epoch slices them."""
+    per = [sweep_inputs(steps, hidden, batch, seed + s) for s in range(cands)]
+
+    def in_state(k):
+        full = torch.zeros((cands, steps + 2, hidden, batch), device='cuda')
+        full[:, 1:-1] = torch.stack([(p[2] + p[3])[k] for p in per])
+        return full[:, 1:-1]
+
+    slabs = [in_state(k) for k in range(12)]
+    rho = torch.stack([p[4] * (1.0 + 0.25 * s) for s, p in enumerate(per)])
+    xfull = torch.zeros((cands, steps + 1, 4, hidden, batch), device='cuda')
+    xfull[:, :-1] = torch.stack([p[0] for p in per])
+    return (xfull[:, :-1],
+            torch.stack([p[1] for p in per]), tuple(slabs[:6]),
+            tuple(slabs[6:]), rho)
+
+
+def candidate_row(shape, seed, flush, ptxas):
+    """interior_sweep with the candidate axis at (S, steps, H, B): held to
+    its plain version, and to S launches without the axis (bit-equal where
+    the plan's tiles, rows and wh split are those of one candidate, else
+    at KERNEL_ATOL); timed L2 flushed beside its bound (S times one
+    sweep's), the plain version and the S launches alone (`alone_ms`);
+    its plan and the registers and spills of the instance it takes."""
+    from admm_lstm_torch.kernels import gate_sweep as gs
+    cands, steps, hidden, batch = shape
+    args = candidate_inputs(*shape, seed)
+    plan = gs.card_sweep_plan(torch.device('cuda'), hidden, batch, cands)
+    one = gs.card_sweep_plan(torch.device('cuda'), hidden, batch)
+    instance = (f'interior_sweep_kernel<{plan.rows},'
+                f'{int(plan.resident < hidden)}>')
+    bound_ms, bound_by = sweep_bound(steps, hidden, batch)
+    xproj, wh, gates, duals, rho = args
+    alone_args = [(xproj[s].contiguous(), wh[s],
+                   tuple(g[s].contiguous() for g in gates),
+                   tuple(d[s].contiguous() for d in duals), rho[s])
+                  for s in range(cands)]
+
+    def alone():
+        return [gs.interior_sweep(*a) for a in alone_args]
+
+    row = kernel_row('interior_sweep[candidates]', shape,
+                     lambda: gs.interior_sweep(*args),
+                     lambda: gs.interior_sweep_plain(*args), None,
+                     KERNEL_ATOL, (cands * bound_ms, bound_by), flush,
+                     info=dict(plan=plan._asdict(), alone_plan=one._asdict(),
+                               instance=instance, **ptxas.get(instance, {})))
+    got = _flat(gs.interior_sweep(*args))
+    same = plan._replace(grid=0) == one._replace(grid=0)
+    err = 0.0
+    for s, want in enumerate(alone()):
+        for a, b in zip(got, _flat(want)):
+            if same and not torch.equal(a[s], b):
+                raise AssertionError(f'interior_sweep[candidates] at {shape}:'
+                                     f' candidate {s} differs from its launch'
+                                     f' alone on the same plan')
+            err = max(err, float((a[s] - b).abs().max()))
+    if not err <= KERNEL_ATOL:
+        raise AssertionError(f'interior_sweep[candidates] at {shape}: '
+                             f'{err} from the launches alone')
+    row['alone_max_abs_err'] = err
+    row['alone_bit_equal'] = same
+    row['alone_ms'] = cuda_ms(alone, 20, flush)
+    log(f'[kernels] interior_sweep[candidates] {list(shape)} plan '
+        f'{row["plan"]} (alone {row["alone_plan"]}), {instance} '
+        f'{ptxas.get(instance)}, ms {row["ms"]}, {cands} launches alone '
+        f'{row["alone_ms"]}, bound {row["bound_ms"]}, against the launches '
+        f'alone {"bit-equal" if same else err}')
+    return row
+
+
 def phase_kernels(flush, ptxas):
     from admm_lstm_torch.kernels import cholesky as ch
     from admm_lstm_torch.kernels import gate_sweep as gs
-    rows = {k: [] for k in ('interior_sweep', 'jacobi_sweep', 'chol_solve',
-                            'chol_inverse')}
+    rows = {k: [] for k in ('interior_sweep', 'interior_sweep[candidates]',
+                            'jacobi_sweep', 'chol_solve', 'chol_inverse')}
     for k, shape in enumerate(SWEEP_SHAPES):
         steps, hidden, batch = shape
         args = sweep_inputs(*shape, seed=k)
@@ -882,6 +984,9 @@ def phase_kernels(flush, ptxas):
         log(f'[kernels] interior_sweep {list(shape)} plan {row["plan"]} '
             f'(wh {row["wh"]}), ms_per_step {row["ms_per_step"]}')
         rows['interior_sweep'].append(row)
+    for k, shape in enumerate(CANDIDATE_SHAPES):
+        rows['interior_sweep[candidates]'].append(
+            candidate_row(shape, 60 + 100 * k, flush, ptxas))
     for k, shape in enumerate(JACOBI_SHAPES):
         rows['jacobi_sweep'].append(jacobi_row(shape, 10 + k, flush, ptxas))
     for k, shape in enumerate(SOLVE_SHAPES):
@@ -1338,24 +1443,32 @@ def phase_datasets():
     return launches
 
 
-def phase_tune(tx, ty, vx, vy, ps, weights):
-    """search_rho on GoogleStock over the default 27-point grid, against
-    the JAX package's best rho and each candidate's validation loss."""
-    from admm_lstm_torch import tune
+def phase_tune(tx, ty, vx, vy, ps, weights, card):
+    """search_rho on GoogleStock over the default 27-point grid as one
+    batched program: the JAX package's best rho and each candidate's
+    validation loss, EPOCHS interior_sweep launches (one an epoch for the
+    grid), its host syncs, busy ms and idle share (a second run under the
+    profiler), and its wall seconds beside the 27 candidates' runs alone
+    (api.train each, timed here); candidate 0's and the best candidate's
+    batched losses held to their runs alone at TUNE_ALONE_RTOL."""
+    from admm_lstm_torch import api, tune
     from admm_lstm_torch.models.lstm import params_from_dict
-    from admm_lstm_torch.utils.config import ADMMConfig
+    from admm_lstm_torch.profile_epoch import device_profile
+    from admm_lstm_torch.utils.config import RHO_KEYS, ADMMConfig
+    cfg = ADMMConfig(hidden_size=10)
+    search = lambda: tune.search_rho(tx, ty, vx, vy, ps, cfg, epochs=EPOCHS,
+                                     params=params_from_dict(weights),
+                                     device='cuda')
     kernels = _zero_launches()
     t0 = time.perf_counter()
-    res = tune.search_rho(tx, ty, vx, vy, ps, ADMMConfig(hidden_size=10),
-                          epochs=EPOCHS, params=params_from_dict(weights),
-                          device='cuda')
+    res = search()
     seconds = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
     n = len(res['val_losses'])
-    log(f'[tune] search_rho GoogleStock, {n} candidates x {EPOCHS} epochs: '
-        f'{seconds:.3f} s wall (host clock), best rho {res["best_rho"]} '
-        f'val {res["best_val_loss"]:.6f} (JAX package: {TUNE_BEST_RHO}), '
-        f'launches {launches}')
+    log(f'[tune] search_rho GoogleStock, {n} candidates x {EPOCHS} epochs in '
+        f'one batched program on {card}: {seconds:.3f} s wall (host clock), '
+        f'best rho {res["best_rho"]} val {res["best_val_loss"]:.6f} (JAX '
+        f'package: {TUNE_BEST_RHO}), launches {launches}')
     log('[tune] val losses in grid order '
         + json.dumps([float(v) for v in res['val_losses']]))
     got, want = np.asarray(res['val_losses']), np.asarray(TUNE_VAL)
@@ -1369,11 +1482,44 @@ def phase_tune(tx, ty, vx, vy, ps, weights):
     if res['best_rho'] != TUNE_BEST_RHO:
         raise AssertionError(f'search_rho chose {res["best_rho"]}, the JAX '
                              f'package {TUNE_BEST_RHO}')
-    if launches['interior_sweep'] != n * EPOCHS:
+    if launches['interior_sweep'] != EPOCHS:
         raise AssertionError(f'search_rho: interior_sweep launched '
                              f'{launches["interior_sweep"]} times, expected '
-                             f'{n * EPOCHS}')
-    return launches, seconds
+                             f'{EPOCHS} (one an epoch for the grid)')
+    prof = device_profile(search)
+    prof.pop('kernels_ms')
+    prof['idle_share'] = max(0.0, 1.0 - prof['busy_ms'] / prof['wall_ms'])
+    log(f'[tune] the search under torch.profiler: {json.dumps(prof)}; per '
+        f'epoch: {prof["host_syncs"] / EPOCHS} syncs, '
+        f'{prof["device_ops"] / EPOCHS} operations, '
+        f'{prof["busy_ms"] / EPOCHS:.4f} ms busy')
+
+    # The 27 runs alone, as the search ran them before the candidate axis.
+    alone, t0 = [], time.perf_counter()
+    for cand in res['candidates']:
+        pset = type(ps)(rho=dict(zip(RHO_KEYS, map(float, cand))),
+                        beta=dict(ps.beta))
+        run = api.train(tx, ty, vx, vy, pset, cfg.replace(epochs=EPOCHS),
+                        params=params_from_dict(weights), log_every=0,
+                        device='cuda')
+        alone.append((run['train_loss'][-1], run['val_loss'][-1]))
+    alone_seconds = time.perf_counter() - t0
+    held = sorted({0, int(res['order'][0])})
+    for k in held:
+        np.testing.assert_allclose(
+            [res['train_losses'][k], res['val_losses'][k]], alone[k],
+            rtol=TUNE_ALONE_RTOL,
+            err_msg=f'search_rho candidate {k} against its run alone')
+    gaps = [float(np.max(np.abs(np.asarray(a) - (t, v)) / np.abs(a)))
+            for a, t, v in zip(alone, res['train_losses'],
+                               res['val_losses'])]
+    log(f'[tune] {n} runs alone (api.train, {EPOCHS} epochs each): '
+        f'{alone_seconds:.3f} s wall against {seconds:.3f} s batched '
+        f'({alone_seconds / seconds:.2f}x); candidates {held} held to their '
+        f'runs alone at rtol {TUNE_ALONE_RTOL}; every candidate\'s largest '
+        f'relative gap to its run alone {max(gaps):.3g}')
+    return launches, dict(seconds=seconds, alone_seconds=alone_seconds,
+                          profile=prof, largest_alone_gap=max(gaps))
 
 
 def phase_resume():
@@ -1887,14 +2033,18 @@ def _wy_safeguard(states, theta):
 
 def _scenario_speed(card):
     """The JAX bench's yahoo_scenarios_loose through train_scenarios on
-    the card, and torch.profiler's view of one scenario epoch (epoch_step:
-    the epoch and its losses) with and without the Lipschitz step."""
+    the card (one batched program, one interior_sweep launch an epoch),
+    beside the scenario-epochs/s of the scenarios one after another
+    (SCEN_SPEED_BEFORE); torch.profiler's view of one scenario epoch
+    (epoch_step: the epoch and its losses) with and without the Lipschitz
+    step, and of one batched epoch of the SCEN_COUNT scenarios under the
+    CLI's config (profile_epoch --candidates SCEN_COUNT --scenarios)."""
     from admm_lstm_torch import api
     from admm_lstm_torch.core.init import init_admm_state
     from admm_lstm_torch.core.step import epoch_step, rules_for
     from admm_lstm_torch.data import load_dataset
     from admm_lstm_torch.models.lstm import init_lstm_params
-    from admm_lstm_torch.profile_epoch import profile_epochs
+    from admm_lstm_torch.profile_epoch import profile_epochs, scenario_batch
     from admm_lstm_torch.utils.config import ADMMConfig
     (tx, ty, vx, vy), ps, _ = load_dataset('YahooFinance')
     fold, vfold = len(tx) // SCEN_COUNT, len(vx) // SCEN_COUNT
@@ -1910,11 +2060,12 @@ def _scenario_speed(card):
     n = SCEN_COUNT * SCEN_SPEED_EPOCHS
     if not np.all(np.isfinite(res['train_loss'])):
         raise AssertionError('scenario speed run: non-finite losses')
-    if launches['interior_sweep'] != n:
+    if launches['interior_sweep'] != SCEN_SPEED_EPOCHS:
         raise AssertionError(f'scenario speed run: launches {launches}')
     speed = dict(fold_batch=fold, epochs=SCEN_SPEED_EPOCHS,
                  seconds=res['seconds'],
                  scenario_epochs_per_s=n / res['seconds'],
+                 one_after_another_scenario_epochs_per_s=SCEN_SPEED_BEFORE,
                  ms_per_scenario_epoch=res['seconds'] * 1e3 / n,
                  final_train_loss=res['train_loss'][:, -1].tolist(),
                  wy_safeguard=_wy_safeguard(res['state'],
@@ -1935,6 +2086,14 @@ def _scenario_speed(card):
             state, 10)
         speed[f'profile_{name}'] = {k: v for k, v in prof.items()
                                     if k != 'top_kernels_ms_per_epoch'}
+    c, (x_im, y_im, xall_im, vy_im), state = scenario_batch(
+        SCEN_COUNT, 10, torch.device('cuda'))
+    rules = rules_for(c)
+    prof = profile_epochs(
+        lambda st: epoch_step(st, x_im, y_im, xall_im, vy_im, rules)[0],
+        state, 10)
+    speed['profile_batched_fast'] = {k: v for k, v in prof.items()
+                                     if k != 'top_kernels_ms_per_epoch'}
     log(f'[scenarios] speed (yahoo_scenarios_loose, {SCEN_COUNT} folds of '
         f'{fold}, {SCEN_SPEED_EPOCHS} epochs, no_dual_y + wy_lipschitz) on '
         f'{card}: {json.dumps(speed)}; launches {launches}')
@@ -2044,6 +2203,7 @@ def phase_scenarios(card):
     from admm_lstm_torch import api
     from admm_lstm_torch.core.step import rules_for
     from admm_lstm_torch.data.yahoo_finance import load_scenarios
+    from admm_lstm_torch.models.lstm import LSTMParams
     from admm_lstm_torch.params import parameter_set
     from admm_lstm_torch.utils.config import ADMMConfig
     xs, ys, vxs, vys = load_scenarios(num_scenarios=SCEN_COUNT, seed=0)
@@ -2057,20 +2217,34 @@ def phase_scenarios(card):
     launches = {name: k.launches for name, k in kernels.items()}
     train, val = res['train_loss'], res['val_loss']
     log(f'[scenarios] train_scenarios {SCEN_COUNT} x {SCEN_EPOCHS} epochs '
-        f'(fast, H 10, wy_lipschitz) on {card}: {res["seconds"]:.3f} s, '
-        f'launches {launches}; val trajectories {json.dumps(val.tolist())}')
+        f'in one batched program (fast, H 10, wy_lipschitz) on {card}: '
+        f'{res["seconds"]:.3f} s, launches {launches}; val trajectories '
+        f'{json.dumps(val.tolist())}')
     if not (np.all(np.isfinite(train)) and np.all(np.isfinite(val))):
         raise AssertionError('scenarios: non-finite losses')
-    if launches != dict(interior_sweep=SCEN_COUNT * SCEN_EPOCHS,
-                        jacobi_sweep=0, chol_solve=0, chol_inverse=0,
-                        floor_sweep=0):
+    if launches != dict(interior_sweep=SCEN_EPOCHS, jacobi_sweep=0,
+                        chol_solve=0, chol_inverse=0, floor_sweep=0):
         raise AssertionError(f'scenarios: launches {launches}')
     report = _hold_scenarios(train, val)
-    control = api.train_scenarios(xs, ys, vxs, vys, ps,
-                                  cfg.replace(matmul_precision='high'),
-                                  params=params, device='cuda')
-    control_gaps = [r['largest_gap_held'] for r in _scenario_report(
-        control['train_loss'], control['val_loss'])]
+    # The control: the same run with TF32 matmuls allowed must fail the
+    # hold.  In the four-scenario program cuBLAS takes FP32 kernels for
+    # the small batched products even so (TF32 moved that run by ~3% at
+    # most, past SCEN_RTOL only after epoch 10), so the control trains
+    # each scenario as a program of its own, whose products do take TF32;
+    # the four-scenario TF32 run's gaps are logged beside it.
+    tf32 = cfg.replace(matmul_precision='high')
+    batched_tf32 = api.train_scenarios(xs, ys, vxs, vys, ps, tf32,
+                                       params=params, device='cuda')
+    each = [api.train_scenarios(xs[s:s + 1], ys[s:s + 1], vxs[s:s + 1],
+                                vys[s:s + 1], ps, tf32,
+                                params=LSTMParams(*(w[s:s + 1]
+                                                    for w in params)),
+                                device='cuda') for s in range(SCEN_COUNT)]
+    control = {k: np.concatenate([r[k] for r in each])
+               for k in ('train_loss', 'val_loss')}
+    gaps = lambda run: [(r['largest_gap_held'], r['first_epoch_past_rtol'])
+                        for r in _scenario_report(run['train_loss'],
+                                                  run['val_loss'])]
     try:
         _hold_scenarios(control['train_loss'], control['val_loss'])
     except AssertionError as e:
@@ -2081,8 +2255,10 @@ def phase_scenarios(card):
                              'hold')
     theta = rules_for(cfg).wy_theta
     log(f'[scenarios] against the JAX package: {json.dumps(report)}; '
-        f'the TF32 control refused ({refused}), its largest gaps before '
-        f'a jump {control_gaps}; '
+        f'the TF32 control (each scenario a program of its own) refused '
+        f'({refused}), its (largest gap before a jump, first epoch past '
+        f'SCEN_RTOL) {gaps(control)}; the four-scenario program with TF32 '
+        f'allowed: {gaps(batched_tf32)}; '
         f'readout safeguard at the final states (theta {theta}): '
         f'{json.dumps(_wy_safeguard(res["state"], theta))}')
     speed_launches = _scenario_speed(card)
@@ -2493,12 +2669,13 @@ def main() -> int:
     launches.update({'path_a': phase_path_a(tx, ty, vx, vy, ps, weights),
                      'path_b': phase_path_b()})
     launches.update(phase_datasets())
-    launches['tune'], tune_seconds = phase_tune(tx, ty, vx, vy, ps, weights)
+    card = card_name_and_power()
+    launches['tune'], tune_times = phase_tune(tx, ty, vx, vy, ps, weights,
+                                              card)
     phase_resume()
     (launches['stacked'], launches['stacked_best'],
      stacked_seconds) = phase_stacked()
     launches['legacy'] = phase_legacy(tx, ty, vx, vy, ps, weights)
-    card = card_name_and_power()
     launches['scenarios'], launches['scenarios_speed'] = phase_scenarios(card)
     launches.update(phase_sharded(tx, ty, vx, vy, ps, weights, slice1_train,
                                   slice1_val, card))
@@ -2523,13 +2700,19 @@ def main() -> int:
         'floor_sweep': ('admm_lstm_torch/csrc/gate_sweep.cu',
                         'benchmarks/bench_gs_floor.py:77',
                         launches['floor']),
+        # The same kernel with the candidate axis: the TPU kernel under the
+        # JAX package's vmap; its launches on the rho search's path.
+        'interior_sweep[candidates]': ('admm_lstm_torch/csrc/gate_sweep.cu',
+                                       'admm_lstm_tpu/kernels/gate_sweep.py'
+                                       ':184', launches['tune']),
     }
     kernels = []
     for name, (source, replaces, counts) in meta.items():
         main_row = rows[name][0]
+        wrapper = name.split('[')[0]        # the wrapper that counts it
         kernels.append(dict(
             name=name, route='cuda', source=source, replaces=replaces,
-            launches=counts[name], max_abs_err=main_row['max_abs_err'],
+            launches=counts[wrapper], max_abs_err=main_row['max_abs_err'],
             ms=main_row['ms'], plain_ms=main_row['plain_ms'],
             bound_ms=main_row['bound_ms'], bound_by=main_row['bound_by'],
             library_ms=main_row['library_ms'], shape=main_row['shape'],
@@ -2539,15 +2722,18 @@ def main() -> int:
                     'blocks_per_sm', 'spill_stores', 'spill_loads',
                     'vec1_ms', 'interior_ms', 'interior_ms_per_step',
                     'chain_share', 'interior_warm_ms', 'cudnn_max_abs_err',
-                    'onplan_ms', 'onplan_ms_per_step', 'instance'):
+                    'onplan_ms', 'onplan_ms_per_step', 'instance',
+                    'alone_ms', 'alone_max_abs_err', 'alone_bit_equal',
+                    'alone_plan'):
             if key in main_row:
                 kernels[-1][key] = main_row[key]
         if name in ill:
             kernels[-1]['ill_conditioned'] = ill[name]
         kernels[-1]['launches_by_path'] = (
             {'floor': counts[name]} if name == 'floor_sweep' else
-            {path: counts[name] for path, counts in launches.items()})
-    log(f'[tune] search_rho wall seconds {tune_seconds!r} on {card}')
+            {path: counts[wrapper] for path, counts in launches.items()})
+    log(f'[tune] search_rho wall seconds {tune_times["seconds"]!r} batched, '
+        f'{tune_times["alone_seconds"]!r} for the runs alone, on {card}')
     log(f'[stacked] train_best_stacked wall seconds {stacked_seconds!r} on '
         f'{card}')
     print(json.dumps({'kernels': kernels}))

@@ -1,5 +1,7 @@
 """Tests of the port's CUDA kernels (the Gauss-Seidel and Jacobi sweeps,
-the serial-floor probe, the batched Cholesky solve and inverse), of the
+the Gauss-Seidel sweep with the candidate axis, the serial-floor probe,
+the batched Cholesky solve and inverse), of the rho search's batched
+program, of the
 legacy variants' epochs, of data-parallel ranks (gloo ranks sharing the
 card, one NCCL rank) and of the scenario batch on the card; they need a
 CUDA card and skip without one.  This file imports no JAX, so it also
@@ -113,6 +115,98 @@ def test_torch_cuda_sweep_matches_plain(cuda, steps, hidden, batch):
     want = interior_sweep_plain(*args)
     for a, b in zip(got[0] + got[1], want[0] + want[1]):
         torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
+
+
+def _batched_inputs(cands, steps, hidden, batch, seed, device):
+    """S candidates' sweep inputs, rho differing per candidate; the 12
+    slabs are rows 1..steps of (S, steps + 2, H, B) tensors and xproj the
+    first steps rows of an (S, steps + 1, 4, H, B) one, as the epoch
+    slices them."""
+    per = [_inputs(steps, hidden, batch, seed + s, device)
+           for s in range(cands)]
+
+    def in_state(k):
+        full = torch.zeros((cands, steps + 2, hidden, batch), device=device)
+        full[:, 1:-1] = torch.stack([(p[2] + p[3])[k] for p in per])
+        return full[:, 1:-1]
+
+    slabs = [in_state(k) for k in range(12)]
+    rho = torch.stack([p[4] * (1.0 + 0.5 * s) for s, p in enumerate(per)])
+    # xproj: the interior rows of an (S, steps + 1, 4, H, B) projection.
+    xfull = torch.zeros((cands, steps + 1, 4, hidden, batch), device=device)
+    xfull[:, :-1] = torch.stack([p[0] for p in per])
+    return (xfull[:, :-1],
+            torch.stack([p[1] for p in per]), tuple(slabs[:6]),
+            tuple(slabs[6:]), rho)
+
+
+BATCHED_SHAPES = [
+    (3, 9, 10, 100),
+    (27, 9, 10, 4224),   # the GoogleStock rho grid
+    (4, 59, 10, 340),    # the YahooFinance scenario batch
+    (2, 5, 40, 33),      # two rows a thread, padded wh, ragged B
+    (3, 4, 130, 64),     # wh streamed
+    (1, 6, 7, 50),       # one candidate on the axis
+]
+
+
+@pytest.mark.parametrize('cands,steps,hidden,batch', BATCHED_SHAPES)
+def test_torch_cuda_batched_sweep_matches_plain(cuda, cands, steps, hidden,
+                                                batch):
+    """The kernel with the candidate axis, one launch for all S, against
+    its plain version (each candidate's plain sweep)."""
+    args = _batched_inputs(cands, steps, hidden, batch, 3, cuda)
+    before = interior_sweep.launches
+    got = interior_sweep(*args)
+    torch.cuda.synchronize()
+    assert interior_sweep.launches == before + 1
+    want = interior_sweep_plain(*args)
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert a.shape == (cands, steps, hidden, batch)
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize('cands,steps,hidden,batch', BATCHED_SHAPES)
+def test_torch_cuda_batched_sweep_matches_launches_alone(cuda, cands, steps,
+                                                         hidden, batch):
+    """One launch with the axis against S launches without it: bit-equal
+    where the candidate's plan takes the same tiles and rows (the same
+    sums in the same order), within ATOL where it does not."""
+    args = _batched_inputs(cands, steps, hidden, batch, 5, cuda)
+    got = interior_sweep(*args)
+    plan = card_sweep_plan(cuda, hidden, batch, cands)
+    alone_plan = card_sweep_plan(cuda, hidden, batch)
+    same = plan._replace(grid=0) == alone_plan._replace(grid=0)
+    xproj, wh, gates, duals, rho = args
+    for s in range(cands):
+        want = interior_sweep(xproj[s].contiguous(), wh[s],
+                              tuple(g[s].contiguous() for g in gates),
+                              tuple(d[s].contiguous() for d in duals), rho[s])
+        for a, b in zip(got[0] + got[1], want[0] + want[1]):
+            if same:
+                assert torch.equal(a[s], b), s
+            else:
+                torch.testing.assert_close(a[s], b, atol=ATOL, rtol=0)
+
+
+def test_torch_cuda_batched_search_rho_matches_cpu(cuda):
+    """tune.search_rho on the card, one batched program (one interior
+    sweep launch an epoch for the whole grid), against the same search on
+    the CPU."""
+    from admm_lstm_torch import tune
+    tx, ty, vx, vy = synth(batch=200, seq_len=8, input_size=1,
+                           output_size=1, val_batch=40, seed=4)
+    params = init_lstm_params(torch.Generator().manual_seed(1), 1, 6, 1)
+    ps = parameter_set('Synthetic')
+    cpu = tune.search_rho(tx, ty, vx, vy, ps, ADMMConfig(hidden_size=6),
+                          epochs=4, params=params, device='cpu')
+    before = interior_sweep.launches
+    got = tune.search_rho(tx, ty, vx, vy, ps, ADMMConfig(hidden_size=6),
+                          epochs=4, params=params, device='cuda')
+    assert interior_sweep.launches - before == 4
+    np.testing.assert_allclose(got['val_losses'], cpu['val_losses'],
+                               rtol=1e-4)
+    assert got['best_rho'] == cpu['best_rho']
 
 
 def test_torch_cuda_step_kernel_matches_plain_loop(cuda):
@@ -574,9 +668,9 @@ def test_torch_cuda_nccl_refuses_ranks_sharing_a_card(cuda, tmp_path):
 
 
 def test_torch_cuda_train_scenarios_matches_cpu(cuda):
-    """api.train_scenarios on the card (the sweep kernel, one launch per
-    scenario per epoch) against the same run on the CPU (the plain
-    loop), 3 Synthetic scenarios x 3 epochs."""
+    """api.train_scenarios on the card (one batched program: one sweep
+    kernel launch an epoch for every scenario) against the same run on
+    the CPU (the plain loop), 3 Synthetic scenarios x 3 epochs."""
     from admm_lstm_torch import api
     from admm_lstm_torch.kernels import gate_sweep
     scen = [synth(batch=64, seq_len=12, input_size=1, output_size=1,
@@ -588,7 +682,7 @@ def test_torch_cuda_train_scenarios_matches_cpu(cuda):
     gate_sweep.interior_sweep.launches = 0
     # The default inits come from CPU generators: the same on both.
     got = api.train_scenarios(*data, ps, cfg, device='cuda')
-    assert gate_sweep.interior_sweep.launches == 9
+    assert gate_sweep.interior_sweep.launches == 3
     np.testing.assert_allclose(got['train_loss'], cpu['train_loss'],
                                rtol=1e-5)
     np.testing.assert_allclose(got['val_loss'], cpu['val_loss'], rtol=1e-5)

@@ -135,24 +135,58 @@ def test_torch_search_rho_nonfinite_candidates_rank_last(synthetic):
     assert np.isfinite(got['best_val_loss'])
 
 
-def test_torch_search_rho_out_of_memory_names_the_candidate(synthetic,
-                                                            monkeypatch):
-    """A CUDA out-of-memory error propagates with the candidate's index
-    (one candidate at a time: there is no group to halve)."""
-    tx, ty, vx, vy, w = synthetic
-    calls = []
+def _oom_when(monkeypatch, too_big):
+    """Makes the epoch raise a CUDA out-of-memory error for every state
+    that `too_big(state)` says does not fit; returns the candidate counts
+    of the groups that trained an epoch."""
+    real_step, groups = tune.admm_step_im, []
 
     def step(state, *args):
-        calls.append(1)
-        if len(calls) > EPOCHS:
+        if too_big(state):
             raise torch.cuda.OutOfMemoryError('CUDA out of memory')
+        groups.append(state.candidates)
         return real_step(state, *args)
 
-    real_step = tune.admm_step_im
     monkeypatch.setattr(tune, 'admm_step_im', step)
+    return groups
+
+
+def test_torch_search_rho_out_of_memory_halves_the_group(synthetic,
+                                                         monkeypatch):
+    """An out-of-memory error above a group of 4 candidates halves the
+    group until it fits (27 -> 13, 14 -> ... -> groups of 3 and 4), with
+    results equal to the unhalved run (JAX's `_run_in_groups`)."""
+    tx, ty, vx, vy, w = synthetic
+    args = (tx, ty, vx, vy, parameter_set('Synthetic'),
+            ADMMConfig(hidden_size=HIDDEN))
+    kw = dict(epochs=2, params=params_from_dict(w), device='cpu')
+    whole = tune.search_rho(*args, **kw)
+    groups = _oom_when(monkeypatch, lambda st: st.candidates > 4)
+    halved = tune.search_rho(*args, **kw)
+    assert sorted(set(groups)) == [3, 4]
+    assert sum(groups) == 27 * 2                 # every candidate, 2 epochs
+    for key in ('train_losses', 'val_losses', 'order'):
+        np.testing.assert_array_equal(halved[key], whole[key])
+    assert halved['best_rho'] == whole['best_rho']
+
+
+def test_torch_search_rho_out_of_memory_names_the_candidate(synthetic,
+                                                            monkeypatch):
+    """A candidate that does not fit even alone raises the CUDA
+    out-of-memory error with a note naming its index, after its groups
+    halved down to it."""
+    tx, ty, vx, vy, w = synthetic
+    base = parameter_set('Synthetic')
+    cands = tune.candidate_grid(base)
+    # Any group that holds candidate 1 (its (c, h, y) is unique) fails.
+    holds_1 = lambda st: bool(
+        (torch.isclose(st.rho.c, torch.tensor(cands[1, 4]))
+         & torch.isclose(st.rho.h, torch.tensor(cands[1, 5]))
+         & torch.isclose(st.rho.y, torch.tensor(cands[1, 6]))).any())
+    _oom_when(monkeypatch, holds_1)
     with pytest.raises(torch.cuda.OutOfMemoryError) as info:
-        tune.search_rho(tx, ty, vx, vy, parameter_set('Synthetic'),
-                        ADMMConfig(hidden_size=HIDDEN), epochs=EPOCHS,
-                        params=params_from_dict(w), device='cpu')
+        tune.search_rho(tx, ty, vx, vy, base, ADMMConfig(hidden_size=HIDDEN),
+                        epochs=EPOCHS, params=params_from_dict(w),
+                        device='cpu')
     assert any('rho candidate 1 of 27' in note
                for note in info.value.__notes__)
