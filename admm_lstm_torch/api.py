@@ -651,6 +651,17 @@ def scenario_generator(seed: int, scenario: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state))
 
 
+def scenario_inits(seed: int, count: int, input_size: int, hidden: int,
+                   output_size: int, device='cuda') -> LSTMParams:
+    """The default initial weights of `count` scenarios, stacked on a
+    leading axis: scenario s draws `init_lstm_params` from
+    `scenario_generator(seed, s)`."""
+    inits = [init_lstm_params(scenario_generator(seed, s), input_size,
+                              hidden, output_size, device=device)
+             for s in range(count)]
+    return LSTMParams(*(torch.stack(leaves) for leaves in zip(*inits)))
+
+
 def train_scenarios(xs, ys, vxs, vys,
                     parameter_set: ParameterSet | Dict,
                     config: ADMMConfig = ADMMConfig(),
@@ -661,8 +672,8 @@ def train_scenarios(xs, ys, vxs, vys,
 
     xs (S,B,T,I), ys (S,B,O), vxs (S,Bv,T,I), vys (S,Bv,O): one training
     problem per scenario.  `params`: the S initial weights as LSTMParams
-    whose leaves have a leading S axis (default: scenario s draws
-    `init_lstm_params` from `scenario_generator(config.seed, s)`).
+    whose leaves have a leading S axis (default: `scenario_inits` of
+    `config.seed`).
 
     The JAX package vmaps the S instances into one program, its line
     searches masked per instance.  So does this one, on `device`: one
@@ -687,11 +698,8 @@ def train_scenarios(xs, ys, vxs, vys,
     xs, ys, vxs, vys = (_as_tensor(a, device) for a in (xs, ys, vxs, vys))
     n_scen = xs.shape[0]
     if params is None:
-        inits = [init_lstm_params(scenario_generator(config.seed, s),
-                                  xs.shape[3], config.hidden_size,
-                                  ys.shape[2], device=device)
-                 for s in range(n_scen)]
-        params = LSTMParams(*(torch.stack(leaves) for leaves in zip(*inits)))
+        params = scenario_inits(config.seed, n_scen, xs.shape[3],
+                                config.hidden_size, ys.shape[2], device)
     params = params.to(device)
     refusal = candidate_axis_refusal(rules)
 

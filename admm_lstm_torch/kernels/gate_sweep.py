@@ -587,7 +587,8 @@ def interior_sweep(xproj: torch.Tensor, wh: torch.Tensor,
     the slabs with one candidate stride, all S in one launch on
     `card_sweep_plan`'s plan for S * B columns.  CUDA
     tensors go to the CUDA kernel (which adds one to
-    `interior_sweep.launches` per launch, with or without the axis); CPU
+    `interior_sweep.launches` per launch, with or without the axis, and
+    one to `interior_sweep.candidate_launches` per launch with it); CPU
     tensors go to the plain version.
     """
     cands, xproj_stride, slab_stride = _check(xproj, wh, gates, duals,
@@ -602,6 +603,8 @@ def interior_sweep(xproj: torch.Tensor, wh: torch.Tensor,
                                  plan.chunk, plan.smem, cands),
                   (xproj_stride, slab_stride))
     interior_sweep.launches += 1
+    if xproj.dim() == 5:
+        interior_sweep.candidate_launches += 1
     return out
 
 
@@ -690,5 +693,6 @@ def jacobi_sweep(pre: torch.Tensor, gates: Sequence[torch.Tensor],
 
 
 interior_sweep.launches = 0
+interior_sweep.candidate_launches = 0
 jacobi_sweep.launches = 0
 floor_sweep.launches = 0

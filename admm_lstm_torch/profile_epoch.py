@@ -182,18 +182,16 @@ def scenario_batch(count: int, hidden: int, dev):
     """(config, batch-minor inputs, state) of `count` YahooFinance folds
     under the CLI's --scenarios config, each with the initial weights
     `api.train_scenarios` draws for it."""
-    from admm_lstm_torch.api import batch_minor, scenario_generator
+    from admm_lstm_torch.api import batch_minor, scenario_inits
     from admm_lstm_torch.core.init import init_admm_state
     from admm_lstm_torch.data.yahoo_finance import load_scenarios
-    from admm_lstm_torch.models.lstm import LSTMParams, init_lstm_params
     from admm_lstm_torch.params import parameter_set
     from admm_lstm_torch.utils.config import ADMMConfig
     cfg = ADMMConfig(hidden_size=hidden, wy_lipschitz=True)
     xs, ys, vxs, vys = (torch.from_numpy(a).to(dev) for a in
                         load_scenarios(num_scenarios=count, seed=0))
-    inits = [init_lstm_params(scenario_generator(0, s), xs.shape[3], hidden,
-                              ys.shape[2], device=dev) for s in range(count)]
-    params = LSTMParams(*(torch.stack(w) for w in zip(*inits)))
+    params = scenario_inits(cfg.seed, count, xs.shape[3], hidden,
+                            ys.shape[2], dev)
     state = init_admm_state(params, xs, parameter_set('YahooFinance'), cfg)
     return cfg, batch_minor(xs, ys, vxs, vys), state
 

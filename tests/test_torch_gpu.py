@@ -108,36 +108,14 @@ def test_torch_cuda_sweep_matches_plain(cuda, steps, hidden, batch):
         plan = card_sweep_plan(cuda, hidden, batch)
         assert (plan.resident < hidden) == streamed
     args = _inputs(steps, hidden, batch, seed=steps, device=cuda)
-    before = interior_sweep.launches
+    before = (interior_sweep.launches, interior_sweep.candidate_launches)
     got = interior_sweep(*args)
     torch.cuda.synchronize()
-    assert interior_sweep.launches == before + 1
+    assert (interior_sweep.launches,
+            interior_sweep.candidate_launches) == (before[0] + 1, before[1])
     want = interior_sweep_plain(*args)
     for a, b in zip(got[0] + got[1], want[0] + want[1]):
         torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
-
-
-def _batched_inputs(cands, steps, hidden, batch, seed, device):
-    """S candidates' sweep inputs, rho differing per candidate; the 12
-    slabs are rows 1..steps of (S, steps + 2, H, B) tensors and xproj the
-    first steps rows of an (S, steps + 1, 4, H, B) one, as the epoch
-    slices them."""
-    per = [_inputs(steps, hidden, batch, seed + s, device)
-           for s in range(cands)]
-
-    def in_state(k):
-        full = torch.zeros((cands, steps + 2, hidden, batch), device=device)
-        full[:, 1:-1] = torch.stack([(p[2] + p[3])[k] for p in per])
-        return full[:, 1:-1]
-
-    slabs = [in_state(k) for k in range(12)]
-    rho = torch.stack([p[4] * (1.0 + 0.5 * s) for s, p in enumerate(per)])
-    # xproj: the interior rows of an (S, steps + 1, 4, H, B) projection.
-    xfull = torch.zeros((cands, steps + 1, 4, hidden, batch), device=device)
-    xfull[:, :-1] = torch.stack([p[0] for p in per])
-    return (xfull[:, :-1],
-            torch.stack([p[1] for p in per]), tuple(slabs[:6]),
-            tuple(slabs[6:]), rho)
 
 
 BATCHED_SHAPES = [
@@ -155,11 +133,13 @@ def test_torch_cuda_batched_sweep_matches_plain(cuda, cands, steps, hidden,
                                                 batch):
     """The kernel with the candidate axis, one launch for all S, against
     its plain version (each candidate's plain sweep)."""
-    args = _batched_inputs(cands, steps, hidden, batch, 3, cuda)
-    before = interior_sweep.launches
+    args = chip_smoke.candidate_inputs(cands, steps, hidden, batch, 3)
+    before = (interior_sweep.launches, interior_sweep.candidate_launches)
     got = interior_sweep(*args)
     torch.cuda.synchronize()
-    assert interior_sweep.launches == before + 1
+    assert (interior_sweep.launches,
+            interior_sweep.candidate_launches) == (before[0] + 1,
+                                                   before[1] + 1)
     want = interior_sweep_plain(*args)
     for a, b in zip(got[0] + got[1], want[0] + want[1]):
         assert a.shape == (cands, steps, hidden, batch)
@@ -172,7 +152,7 @@ def test_torch_cuda_batched_sweep_matches_launches_alone(cuda, cands, steps,
     """One launch with the axis against S launches without it: bit-equal
     where the candidate's plan takes the same tiles and rows (the same
     sums in the same order), within ATOL where it does not."""
-    args = _batched_inputs(cands, steps, hidden, batch, 5, cuda)
+    args = chip_smoke.candidate_inputs(cands, steps, hidden, batch, 5)
     got = interior_sweep(*args)
     plan = card_sweep_plan(cuda, hidden, batch, cands)
     alone_plan = card_sweep_plan(cuda, hidden, batch)
@@ -200,10 +180,11 @@ def test_torch_cuda_batched_search_rho_matches_cpu(cuda):
     ps = parameter_set('Synthetic')
     cpu = tune.search_rho(tx, ty, vx, vy, ps, ADMMConfig(hidden_size=6),
                           epochs=4, params=params, device='cpu')
-    before = interior_sweep.launches
+    before = (interior_sweep.launches, interior_sweep.candidate_launches)
     got = tune.search_rho(tx, ty, vx, vy, ps, ADMMConfig(hidden_size=6),
                           epochs=4, params=params, device='cuda')
-    assert interior_sweep.launches - before == 4
+    assert (interior_sweep.launches - before[0],
+            interior_sweep.candidate_launches - before[1]) == (4, 4)
     np.testing.assert_allclose(got['val_losses'], cpu['val_losses'],
                                rtol=1e-4)
     assert got['best_rho'] == cpu['best_rho']

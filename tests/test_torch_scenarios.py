@@ -229,9 +229,10 @@ def test_torch_scenario_cpu_run_passes_the_card_gate():
 
 
 def test_torch_scenario_gate_refuses_a_control():
-    """The gate has teeth after epoch 10: scenario 0 of the port's CPU run
-    with its weights rounded to float16 once after epoch 10 (a relative
-    change of at most 4.9e-4 per weight) is refused by the hold of the
+    """The gate has teeth after its strict epochs: scenario 0 of the port's
+    CPU run with its weights rounded to float16 once after epoch
+    SCEN_STRICT_EPOCHS (a relative change of at most 4.9e-4 per weight) is
+    refused by the hold of the
     epochs before a jump (SCEN_HELD_RTOL), not by the strict one; the
     other scenarios are JAX's own numbers."""
     from admm_lstm_torch.core.init import init_admm_state
