@@ -39,8 +39,7 @@ import torch
 from admm_lstm_torch.core.init import init_admm_state
 from admm_lstm_torch.core.residuals import admm_residuals
 from admm_lstm_torch.core.state import ADMMState, unstack
-from admm_lstm_torch.core.step import (candidate_axis_refusal, make_admm_step,
-                                       rules_for, run_epochs)
+from admm_lstm_torch.core.step import make_admm_step, rules_for, run_epochs
 from admm_lstm_torch.models.lstm import (LSTMParams, init_lstm_params,
                                          train_val_mse_im)
 from admm_lstm_torch.utils.config import (AUTO_FIELDS, ADMMConfig,
@@ -676,15 +675,14 @@ def train_scenarios(xs, ys, vxs, vys,
     `config.seed`).
 
     The JAX package vmaps the S instances into one program, its line
-    searches masked per instance.  So does this one, on `device`: one
-    state with the candidate axis, `run_epochs` over it (one interior
-    sweep launch an epoch for all S), the line searches per scenario, so
-    each scenario's numbers are those of a run alone, as JAX's are.
-    Configs whose epoch takes no candidate axis yet
-    (`core.step.candidate_axis_refusal`) train the scenarios one after
-    another; the log line names the route.  The losses come from
-    `train_val_mse_im`'s one forward (JAX calls `mse_loss` twice; the
-    values agree) and stay on the device until every scenario has run.
+    searches masked per instance, under any config.  So does this one, on
+    `device`: one state with the candidate axis, `run_epochs` over it
+    (one sweep launch an epoch for all S, Gauss-Seidel or Jacobi, and
+    under turbo()/auto() one batched Cholesky solve a weight stage), the
+    line searches per scenario, so each scenario's numbers are those of a
+    run alone, as JAX's are.  The losses come from `train_val_mse_im`'s
+    one forward (JAX calls `mse_loss` twice; the values agree) and stay
+    on the device until every scenario has run.
 
     Returns 'name', 'train_loss' and 'val_loss' (numpy (S, epochs+1)),
     'params' (LSTMParams with a leading S axis), 'state' (the list of the
@@ -701,42 +699,28 @@ def train_scenarios(xs, ys, vxs, vys,
         params = scenario_inits(config.seed, n_scen, xs.shape[3],
                                 config.hidden_size, ys.shape[2], device)
     params = params.to(device)
-    refusal = candidate_axis_refusal(rules)
-
-    def run(p, x, y, vx, vy):
-        """-> (final state, (epochs + 1, [S]) train and val losses)."""
-        x_im, y_im, xall_im, vy_im = batch_minor(x, y, vx, vy)
-        state = init_admm_state(p, x, parameter_set, config)
-        initial = train_val_mse_im(state.params, xall_im, y_im, vy_im)
-        state, hist = run_epochs(state, config.epochs, x_im, y_im, xall_im,
-                                 vy_im, rules)
-        return state, [torch.cat([initial[k][None], hist[name]])
-                       for k, name in enumerate(('train_loss', 'val_loss'))]
 
     timer = Timer()
     with matmul_precision(config.matmul_precision):
         timer.start()
-        if refusal is None:
-            state, traj = run(params, xs, ys, vxs, vys)
-            states, traj = unstack(state), [t.T for t in traj]
-        else:
-            runs = [run(LSTMParams(*(w[s] for w in params)), xs[s], ys[s],
-                        vxs[s], vys[s]) for s in range(n_scen)]
-            states = [r[0] for r in runs]
-            traj = [torch.stack([r[1][k] for r in runs]) for k in (0, 1)]
-        train_np, val_np = (t.cpu().numpy() for t in traj)
+        x_im, y_im, xall_im, vy_im = batch_minor(xs, ys, vxs, vys)
+        state = init_admm_state(params, xs, parameter_set, config)
+        initial = train_val_mse_im(state.params, xall_im, y_im, vy_im)
+        state, hist = run_epochs(state, config.epochs, x_im, y_im, xall_im,
+                                 vy_im, rules)
+        states = unstack(state)
+        train_np, val_np = (
+            torch.cat([initial[k][None], hist[name]]).T.cpu().numpy()
+            for k, name in enumerate(('train_loss', 'val_loss')))
         timer.pause()
-    route = ('in one batched program' if refusal is None else
-             f'one after another ({refusal})')
-    info(f'{n_scen} scenarios x {config.epochs} epochs {route}: '
-         f'{timer.get_elapsed_time():.2f}s; final val '
+    info(f'{n_scen} scenarios x {config.epochs} epochs in one batched '
+         f'program: {timer.get_elapsed_time():.2f}s; final val '
          f'{[round(float(v), 6) for v in val_np[:, -1]]}')
     return {
         'name': f'Scenario ADMM-LSTM [{config.variant}]',
         'train_loss': train_np,
         'val_loss': val_np,
-        'params': LSTMParams(*(torch.stack(leaves) for leaves in
-                               zip(*(st.params for st in states)))),
+        'params': state.params,
         'state': states,
         'seconds': timer.get_elapsed_time(),
     }

@@ -348,8 +348,7 @@ def main(argv=None) -> int:
                 ps = tuned['best_parameter_set']
                 info(f'rho search ({args.tune_rho} rounds of '
                      f'{len(tuned["candidates"])} candidates, each round '
-                     f'one batched program where the config takes the '
-                     f'candidate axis): best val '
+                     f'one batched program): best val '
                      f'{tuned["best_val_loss"]:.8f} with rho {ps.rho}')
             kw = dict(record_residuals=args.residuals,
                       checkpoint_dir=args.checkpoint_dir,

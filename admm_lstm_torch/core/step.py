@@ -66,13 +66,14 @@ weight and product carries a leading S axis (`...`-einsums, broadcasting
 matmuls, rho viewed as (S, 1, ...) by `_per_candidate`); the data is
 shared by the candidates (no leading axis) or per candidate; the line
 searches search per candidate with one host read per block for all of
-them (solvers/prox_linear.py); the interior sweep is one launch of the
-kernel over every candidate.  It takes the Gauss-Seidel sweep with the
-prox-linear weight stages in one process: `candidate_axis_refusal` says
-what it does not take yet (the exact weight solve, the Jacobi sweep,
-sharded layouts), and the entry points run those configs one candidate
-after another.  A state without the axis takes the same code with the
-same numbers as before the axis existed.
+them (solvers/prox_linear.py); the exact weight stage builds each
+candidate's Gram systems and solves all S x 4H of them in one batched
+solve (solvers/normal_eq.py); either sweep, Gauss-Seidel or Jacobi, is
+one launch of its kernel over every candidate.  It takes every config in
+one process; `candidate_axis_refusal` names what it does not take (the
+sharded layouts, which the JAX package does not vmap either).  A state
+without the axis takes the same code with the same numbers as before the
+axis existed.
 """
 
 from __future__ import annotations
@@ -216,12 +217,8 @@ def rules_for(config: ADMMConfig) -> StepRules:
 
 def candidate_axis_refusal(rules: StepRules) -> Optional[str]:
     """Why the epoch does not take the candidate axis under `rules`, or
-    None where it does: the Gauss-Seidel sweep with the prox-linear
-    weight stages, in one process."""
-    if rules.exact_weight_solve:
-        return 'the exact weight solve has no candidate axis yet'
-    if rules.sweep_mode != 'gauss_seidel':
-        return 'the Jacobi sweep has no candidate axis yet'
+    None where it does: every config in one process.  The sharded layouts
+    refuse it, as the JAX package vmaps no sharded run."""
     if rules.consensus.world > 1 or rules.model.world > 1 or rules.shard_time:
         return 'the candidate axis runs in one process (LOCAL consensus)'
     return None
@@ -364,17 +361,17 @@ def _weight_phase(state: ADMMState, x_im: torch.Tensor, old: _OldRows,
 
     def run_stage(m_inputs, proj_self, proj_other, w_w, beta_g, need_proj):
         """-> (new wide weights, fresh self-projection or None).  Under
-        exact_weight_solve each stage picks by its own width D (axis 1 of
+        exact_weight_solve each stage picks by its own width D (axis -2 of
         m_inputs): exact for D <= exact_solve_max_dim, prox-linear above."""
         if (rules.exact_weight_solve
-                and m_inputs.shape[1] <= rules.exact_solve_max_dim):
+                and m_inputs.shape[-2] <= rules.exact_solve_max_dim):
             new_w = gauss_newton_ridge_update_wide(
                 m_inputs, proj_self + proj_other, w_w, target_w, rho_g,
                 beta_g, tanh_cols, rules.matmul_precision,
                 use_pallas_chol=rules.use_pallas_chol,
                 consensus=rules.consensus, total_rows=total_rows,
                 total_cols=total_cols)
-            proj_new = (torch.einsum('tdb,dk->tkb', m_inputs, new_w)
+            proj_new = (torch.einsum('...tdb,...dk->...tkb', m_inputs, new_w)
                         if need_proj else None)
             return new_w, proj_new
         res = weight_stage_update_wide(m_inputs, proj_self, proj_other, w_w,
@@ -491,14 +488,19 @@ def _sweep(state: ADMMState, x_im: torch.Tensor, params_new: LSTMParams,
         # and the rest is one elementwise pass (JAX core/step.py:374-430).
         scanned = (empty,) * 11
         if n_int:
-            wh_flat = wh.permute(1, 0, 2).reshape(wh.shape[1], 4 * hidden)
-            rec = torch.matmul(wh_flat.T, old.h_full[:n_int])
-            pre_all = xproj[:n_int] + rec.reshape(n_int, 4, hidden, batch)
+            # (4H, H_in) against each row's h; with the candidate axis one
+            # product per candidate, broadcast over its rows.
+            w_rec = _to_wide(wh).mT
+            if lead:
+                w_rec = w_rec.unsqueeze(-3)
+            rec = torch.matmul(w_rec, old.h_full[..., :n_int, :, :])
+            pre_all = xproj[..., :n_int, :, :, :] + rec.reshape(
+                lead + (n_int, 4, hidden, batch))
             sweep = (gate_sweep.jacobi_sweep if use_kernel
                      else gate_sweep.jacobi_sweep_plain)
             new_gates, new_duals = sweep(
                 pre_all, interior(old_slabs), interior(dual_slabs),
-                old.h[:n_int], old.c[:n_int], rho_vec)
+                old.h[..., :n_int, :, :], old.c[..., :n_int, :, :], rho_vec)
             scanned = new_gates + new_duals
     elif rules.model.world > 1:
         # The serial chain needs all of h_{t-1} at every step: every

@@ -18,7 +18,8 @@
 // c_{s-1} (c_prev) and a pre-activation whose recurrent product was
 // hoisted out (one matmul over all timesteps, in PyTorch), so there is no
 // carry and every (s, j, b) element is independent.  h_prev is part of the
-// contract but does not enter the math once the product is hoisted.
+// contract but does not enter the math once the product is hoisted.  It
+// takes the same optional leading candidate axis as interior_sweep_kernel.
 //
 // Both kernels call one __device__ function, timestep_math, so the math
 // exists once.
@@ -173,6 +174,14 @@
 // registers, 8 at V = 1's 64, on an H100), or every item's block at once
 // where there are fewer; each thread then takes every
 // (grid * threads)-th item, at most `per_thread` of them.
+//  * The candidate axis (the TPU kernel under the JAX package's vmap: S
+//    independent sweeps, the rho search's or the scenario batch's): one
+//    launch walks the rows (candidate, step) of all S, candidate-major, so
+//    the plan covers S times the items; each item reads its candidate's
+//    rho (reloaded when a thread's walk crosses into the next candidate).
+//    A candidate's pre and input slabs start one caller-given stride
+//    after the previous one's (slices of the state's (S, T+1, H, B)
+//    slabs), and float4 holds while every stride is a multiple of 4.
 //  * No division per item: a thread divides once, for its first (s, o)
 //    and for the grid's stride in (s, o); after that it adds, and an
 //    offset is the step's base plus a 32-bit offset.
@@ -236,11 +245,15 @@ struct CandOffsets {
 struct JacobiArgs {
   const float* pre;          // (steps, 4, H, B)
   const float* c_prev;       // (steps, H, B) previous sweep's c_{s-1}
-  const float* rho;          // (6,) i, f, g, o, c, h
+  const float* rho;          // (6,) i, f, g, o, c, h; (cands, 6)
   const float* in[12];       // gates i,f,g,o,c,h then duals i,f,g,o,c,h
   float* out[11];            // gates i,f,g,o,c,h then duals i,f,g,o,c
   int steps;
   int n;                     // vectors of V floats in a slab, H * B / V
+  int cands;                 // candidates (1 without the candidate axis)
+  // Candidate strides in vectors of V floats (0 without the axis): pre,
+  // the 12 input slabs and c_prev, the outputs.
+  size_t cand_pre, cand_in, cand_out;
 };
 
 struct Rho {
@@ -716,16 +729,17 @@ __device__ __forceinline__ void set_lane(float4& v, int l, float x) {
 }
 __device__ __forceinline__ void set_lane(float& v, int, float x) { v = x; }
 
-// The 15 inputs of item (s, o), sn = s * n: pre i, f, g, o, then the old
-// f, g, c, h and the six duals (timestep_math's `old`), then c_prev;
-// through the read-only path.
+// The 15 inputs of item (s, o) of candidate c, sn = s * n: pre i, f, g,
+// o, then the old f, g, c, h and the six duals (timestep_math's `old`),
+// then c_prev; through the read-only path.
 template <int V>
-__device__ __forceinline__ void jacobi_load(const JacobiArgs& a, size_t sn,
-                                            int o,
+__device__ __forceinline__ void jacobi_load(const JacobiArgs& a, int c,
+                                            size_t sn, int o,
                                             typename Vec<V>::T v[15]) {
   using T = typename Vec<V>::T;
-  const size_t e = sn + o, n = a.n;
-  const T* pre = reinterpret_cast<const T*>(a.pre) + 4 * sn + o;
+  const size_t e = c * a.cand_in + sn + o, n = a.n;
+  const T* pre = reinterpret_cast<const T*>(a.pre) + c * a.cand_pre
+                 + 4 * sn + o;
   const float* const src[11] = {a.in[1], a.in[2], a.in[4], a.in[5],
                                 a.in[6], a.in[7], a.in[8], a.in[9],
                                 a.in[10], a.in[11], a.c_prev};
@@ -736,30 +750,44 @@ __device__ __forceinline__ void jacobi_load(const JacobiArgs& a, size_t sn,
     v[4 + k] = __ldg(reinterpret_cast<const T*>(src[k]) + e);
 }
 
+// Items walk the rows (c, s) of every candidate's slabs, candidate-major,
+// and the vector offsets o within a row.
 template <int V>
 __global__ void __launch_bounds__(JACOBI_THREADS)
 jacobi_sweep_kernel(const JacobiArgs a) {
   using T = typename Vec<V>::T;
-  const int n = a.n;
-  // This thread's first item and the grid's stride, both in (s, o): the
-  // only divisions.
+  const int n = a.n, steps = a.steps;
+  // This thread's first item and the grid's stride, both in (c, s, o):
+  // the only divisions.
   const int first = blockIdx.x * JACOBI_THREADS + threadIdx.x;
   const int stride = gridDim.x * JACOBI_THREADS;
-  int s = first / n, o = first - s * n;
-  const int ds = stride / n, dof = stride - ds * n;
-  if (s >= a.steps) return;
-  const Rho rho = load_rho(a.rho);
+  const int row = first / n, drow = stride / n;
+  int o = first - row * n;
+  const int dof = stride - drow * n;
+  int c = row / steps, s = row - c * steps;
+  const int dc = drow / steps, ds = drow - dc * steps;
+  if (c >= a.cands) return;
+  int rho_c = c;
+  Rho rho = load_rho(a.rho + 6 * c);
 
   T cur[15], nxt[15];
-  jacobi_load<V>(a, (size_t)s * n, o, cur);
+  jacobi_load<V>(a, c, (size_t)s * n, o, cur);
   while (true) {
-    int s2 = s + ds, o2 = o + dof;
+    int c2 = c + dc, s2 = s + ds, o2 = o + dof;
     if (o2 >= n) {
       o2 -= n;
       ++s2;
     }
-    const bool more = s2 < a.steps;
-    if (more) jacobi_load<V>(a, (size_t)s2 * n, o2, nxt);
+    if (s2 >= steps) {      // ds < steps, so one wrap at most
+      s2 -= steps;
+      ++c2;
+    }
+    const bool more = c2 < a.cands;
+    if (more) jacobi_load<V>(a, c2, (size_t)s2 * n, o2, nxt);
+    if (c != rho_c) {
+      rho_c = c;
+      rho = load_rho(a.rho + 6 * c);
+    }
 
     T res[11];
 #pragma unroll
@@ -774,11 +802,12 @@ jacobi_sweep_kernel(const JacobiArgs a) {
 #pragma unroll
       for (int k = 0; k < 11; ++k) set_lane(res[k], l, r[k]);
     }
-    const size_t e = (size_t)s * n + o;
+    const size_t e = c * a.cand_out + (size_t)s * n + o;
 #pragma unroll
     for (int k = 0; k < 11; ++k) reinterpret_cast<T*>(a.out[k])[e] = res[k];
 
     if (!more) break;
+    c = c2;
     s = s2;
     o = o2;
 #pragma unroll
@@ -1006,23 +1035,32 @@ int gate_sweep_jacobi_occupancy(int vec, int* blocks_per_sm, int* regs,
 
 // Launches the Jacobi sweep on `stream` with the plan of
 // kernels/gate_sweep.py::jacobi_plan: `vec` floats per access (4: every
-// slab and output pointer 16-byte aligned and H * B % 4 == 0),
-// `per_thread`, the most items a thread takes (ceil(steps * H * B / vec /
-// (grid * threads))), `threads` per block (JACOBI_THREADS) and `grid`
-// blocks.
+// slab and output pointer 16-byte aligned, H * B % 4 == 0 and every
+// candidate stride a multiple of 4), `per_thread`, the most items a thread
+// takes (ceil(cands * steps * H * B / vec / (grid * threads))), `threads`
+// per block (JACOBI_THREADS) and `grid` blocks.
 // `ins` and `outs` as above; pre is (steps, 4, H, B) and c_prev
-// (steps, H, B).  Returns cudaErrorInvalidValue for a plan this kernel
-// does not take, else cudaGetLastError() after the launch (0 = launched).
+// (steps, H, B) for each of `cands` candidates (1 without the candidate
+// axis), whose pre starts `cand_pre` floats after the previous
+// candidate's, its 12 input slabs and c_prev `cand_in` floats (both 0
+// without the axis); the outputs are contiguous, (cands, steps, H, B), and
+// rho is (cands, 6).  Returns
+// cudaErrorInvalidValue for a plan this kernel does not take, else
+// cudaGetLastError() after the launch (0 = launched).
 int gate_sweep_jacobi(const void* pre, const void* c_prev, const void* rho,
                       const void* const* ins, void* const* outs, int steps,
                       int hidden, int batch, int vec, int per_thread,
-                      int threads, int grid, void* stream) {
-  if (steps < 1 || steps >= (1 << 30) || hidden < 1 || batch < 1)
+                      int threads, int grid, int cands, long long cand_pre,
+                      long long cand_in, void* stream) {
+  if (steps < 1 || hidden < 1 || batch < 1 || cands < 1 ||
+      (long long)steps * cands >= (1LL << 30))
     return cudaErrorInvalidValue;
   const long long slab = (long long)hidden * batch;
   if ((vec != 1 && vec != 4) || slab % vec != 0 || slab / vec >= (1LL << 30))
     return cudaErrorInvalidValue;
-  const long long n = slab / vec, items = n * steps;
+  if (cand_pre < 0 || cand_in < 0 || cand_pre % vec || cand_in % vec)
+    return cudaErrorInvalidValue;
+  const long long n = slab / vec, items = n * steps * cands;
   const long long lanes = (long long)grid * threads;
   if (threads != JACOBI_THREADS || grid < 1 || lanes >= (1LL << 30) ||
       (lanes - threads) >= items || per_thread != (items + lanes - 1) / lanes)
@@ -1043,6 +1081,10 @@ int gate_sweep_jacobi(const void* pre, const void* c_prev, const void* rho,
   for (int k = 0; k < 11; ++k) a.out[k] = static_cast<float*>(outs[k]);
   a.steps = steps;
   a.n = (int)n;
+  a.cands = cands;
+  a.cand_pre = (size_t)(cand_pre / vec);
+  a.cand_in = (size_t)(cand_in / vec);
+  a.cand_out = (size_t)(n * steps);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 4)
     jacobi_sweep_kernel<4><<<grid, JACOBI_THREADS, 0, st>>>(a);

@@ -56,7 +56,7 @@ _THREADS = 'constexpr int JACOBI_THREADS = 128;'
 # item's 15 loads, then its math and stores.
 _NO_PREFETCH = r'''  while (s < a.steps) {
     T cur[15];
-    jacobi_load<V>(a, (size_t)s * n, o, cur);
+    jacobi_load<V>(a, 0, (size_t)s * n, o, cur);
     T res[11];
 #pragma unroll
     for (int l = 0; l < V; ++l) {
@@ -340,13 +340,13 @@ def _launcher(lib, args, plan):
     ins = (vp * 12)(*(t.data_ptr() for t in (*gates, *duals)))
     outs_arr = (vp * 11)(*(o.data_ptr() for o in outs))
     fn = lib.gate_sweep_jacobi
-    fn.argtypes = [vp] * 3 + [ctypes.POINTER(vp)] * 2 + [ctypes.c_int] * 7 \
-        + [vp]
+    fn.argtypes = [vp] * 3 + [ctypes.POINTER(vp)] * 2 + [ctypes.c_int] * 8 \
+        + [ctypes.c_longlong] * 2 + [vp]
     fn.restype = ctypes.c_int
 
     def call():
         err = fn(pre.data_ptr(), c_prev.data_ptr(), rho.data_ptr(), ins,
-                 outs_arr, steps, hidden, batch, *plan,
+                 outs_arr, steps, hidden, batch, *plan, 1, 0, 0,
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f'gate_sweep_jacobi: CUDA error {err}, plan '

@@ -15,7 +15,8 @@ ascents i, f, g, o, c, with h_0 = c_0 = 0.
 `jacobi_sweep` replaces `::pallas_jacobi_sweep`: the same per-timestep
 math for every interior t at once, from the previous sweep's c[t-1] and a
 pre-activation whose recurrent product the caller hoisted out, so every
-element is independent.
+element is independent.  It takes the same optional leading candidate
+axis, all S sweeps in one launch.
 
 `floor_sweep` replaces `benchmarks/bench_gs_floor.py::floor_sweep`, the
 probe of the Gauss-Seidel sweep's serial floor: the bare LSTM recurrence
@@ -298,31 +299,35 @@ class JacobiPlan(NamedTuple):
 
 def jacobi_plan(steps: int, hidden: int, batch: int, sms: int,
                 blocks_per_sm: Mapping[int, int],
-                aligned: bool) -> JacobiPlan:
-    """The launch plan of `jacobi_sweep` at (steps, H, B) on a card with
+                aligned: bool, candidates: int = 1) -> JacobiPlan:
+    """The launch plan of `jacobi_sweep` at (steps, H, B) for `candidates`
+    sweeps in one launch (the candidate axis; 1 without it) on a card with
     `sms` SMs, each holding `blocks_per_sm[v]` blocks of the kernel
     instance of vector width v (4 and 1) at once.
 
     V = 4 where every slab of a step starts on 16 bytes (H * B % 4 == 0
-    and the tensors are `aligned`) and its items fill one whole wave of
-    the card; else V = 1, whose four times as many threads each run a
-    quarter of the math chain, which is faster where V = 4 leaves slots
-    of the wave empty (`admm_lstm_torch/jacobi_ab.py` times both).  The
-    grid is one whole wave, `sms * blocks_per_sm[V]` blocks, all resident
-    together, where the items fill it, else one block per `threads`
-    items.  Each thread takes every (grid * threads)-th item, so the
-    threads' shares differ by at most one item.  Raises ValueError for an
-    empty sweep or a card that holds no block."""
-    if min(steps, hidden, batch) < 1:
-        raise ValueError(f'empty sweep: steps {steps}, H {hidden}, B {batch}')
+    and the tensors are `aligned`, candidate strides included) and the
+    items of all candidates fill one whole wave of the card; else V = 1,
+    whose four times as many threads each run a quarter of the math
+    chain, which is faster where V = 4 leaves slots of the wave empty
+    (`admm_lstm_torch/jacobi_ab.py` times both).  The grid is one whole
+    wave, `sms * blocks_per_sm[V]` blocks, all resident together, where
+    the items fill it, else one block per `threads` items.  Each thread
+    takes every (grid * threads)-th item, so the threads' shares differ
+    by at most one item.  Raises ValueError for an empty sweep or a card
+    that holds no block."""
+    if min(steps, hidden, batch, candidates) < 1:
+        raise ValueError(f'empty sweep: steps {steps}, H {hidden}, B {batch},'
+                         f' candidates {candidates}')
     if sms < 1 or min(blocks_per_sm[4], blocks_per_sm[1]) < 1:
         raise ValueError(f'no block fits: {sms} SMs, {dict(blocks_per_sm)} '
                          f'blocks an SM')
     slab = hidden * batch
+    rows = candidates * steps
     wave4 = sms * blocks_per_sm[4] * JACOBI_THREADS
-    vec = 4 if aligned and slab % 4 == 0 and steps * slab // 4 >= wave4 \
+    vec = 4 if aligned and slab % 4 == 0 and rows * slab // 4 >= wave4 \
         else 1
-    items = steps * slab // vec
+    items = rows * slab // vec
     grid = min(-(-items // JACOBI_THREADS), sms * blocks_per_sm[vec])
     return JacobiPlan(vec, -(-items // (grid * JACOBI_THREADS)),
                       JACOBI_THREADS, grid)
@@ -348,7 +353,8 @@ def jacobi_occupancy(device: torch.device, vec: int) -> Dict[str, int]:
 
 
 def card_jacobi_plan(device: torch.device, steps: int, hidden: int,
-                     batch: int, aligned: bool) -> JacobiPlan:
+                     batch: int, aligned: bool,
+                     candidates: int = 1) -> JacobiPlan:
     """`jacobi_plan` with the SM count of `device` and the blocks per SM
     of both kernel instances, read from the CUDA runtime once per card."""
     index = _card_index(device)
@@ -358,7 +364,7 @@ def card_jacobi_plan(device: torch.device, steps: int, hidden: int,
                 device, vec)['blocks_per_sm']
     return jacobi_plan(steps, hidden, batch, _card_limits(index)[0],
                        {vec: _OCCUPANCY[index, vec] for vec in (4, 1)},
-                       aligned)
+                       aligned, candidates)
 
 
 def _timestep_plain(pre, old, lams, cp, rho_vec):
@@ -453,9 +459,15 @@ def jacobi_sweep_plain(pre: torch.Tensor, gates: Sequence[torch.Tensor],
       rho_vec: (6,) rho i, f, g, o, c, h.
     Returns:
       (6 new gate slabs i..h, 5 new dual slabs i..c), each (T-1, H, B).
+
+    With the candidate axis every argument and result has a leading S
+    axis (rho_vec (S, 6)), and the pass broadcasts each candidate's rho
+    over its (T-1, H, B).
     """
     del h_prev
-    out = _timestep_plain(pre.unbind(1), gates, duals, c_prev, rho_vec)
+    if pre.dim() == 5:
+        rho_vec = rho_vec.T[:, :, None, None, None]   # (6, S, 1, 1, 1)
+    out = _timestep_plain(pre.unbind(-3), gates, duals, c_prev, rho_vec)
     return tuple(out[:6]), tuple(out[6:])
 
 
@@ -512,40 +524,50 @@ def _check_common(name, proj, gates, duals, rho_vec, lead=()):
                          f'{tuple(rho_vec.shape)}')
 
 
+def _check_axis(name, proj, others, slabs) -> Tuple[int, int, int]:
+    """Checks a sweep's projection (T-1, 4, H, B), its other tensors
+    `others` (shapes checked by the caller) and its slabs (T-1, H, B),
+    each with or without a leading candidate axis; returns the candidates
+    (1 without the axis) and the candidate strides in floats of the
+    projection and of the slabs (0 without the axis).  With the axis the
+    projection and each slab need only be contiguous within a candidate,
+    the slabs with one candidate stride (slices of the state's
+    (S, T+1, H, B) slabs and of the epoch's (S, T, 4, H, B) projection
+    are)."""
+    steps, _, hidden, batch = proj.shape[-4:]
+    if proj.dim() == 4:
+        _check_slabs(name, (proj, *others, *slabs), slabs, steps, hidden,
+                     batch)
+        return 1, 0, 0
+    cands = proj.shape[0]
+    _check_slabs(name, (proj[0], *others), (), steps, hidden, batch)
+    for sl in slabs:
+        if tuple(sl.shape) != (cands, steps, hidden, batch):
+            raise ValueError(f'slabs must be {(cands, steps, hidden, batch)}'
+                             f', got {tuple(sl.shape)}')
+        if sl.device != proj.device or sl.dtype != torch.float32:
+            raise ValueError(f'{name}: every slab must be float32 on '
+                             f'{proj.device}')
+    # One candidate has no stride to follow.
+    stride = slabs[0].stride(0) if cands > 1 else 0
+    if (any(not sl[0].is_contiguous() for sl in slabs)
+            or any(sl.stride(0) != stride for sl in slabs if cands > 1)):
+        raise ValueError(f'{name}: every slab must be contiguous within a '
+                         f'candidate, with one candidate stride')
+    return cands, proj.stride(0) if cands > 1 else 0, stride
+
+
 def _check(xproj, wh, gates, duals, rho_vec) -> Tuple[int, int, int]:
-    """Checks `interior_sweep`'s arguments; returns the candidates (1
-    without the axis) and the candidate strides in floats of xproj and of
-    the input slabs (0 without the axis).  With the axis xproj and the 12
-    input slabs need only be contiguous within a candidate, the slabs
-    with one candidate stride (slices of the state's (S, T+1, H, B) slabs
-    and of the epoch's (S, T, 4, H, B) projection are)."""
+    """Checks `interior_sweep`'s arguments; returns `_check_axis`'s
+    candidates and strides."""
     lead = tuple(xproj.shape[:1]) if xproj.dim() == 5 else ()
     _check_common('interior_sweep', xproj, gates, duals, rho_vec, lead)
-    steps, _, hidden, batch = xproj.shape[-4:]
+    hidden = xproj.shape[-2]
     if tuple(wh.shape) != lead + (4, hidden, hidden):
         raise ValueError(f'wh must be {lead + (4, hidden, hidden)}, '
                          f'got {tuple(wh.shape)}')
-    if not lead:
-        _check_slabs('interior_sweep', (xproj, wh, rho_vec, *gates, *duals),
-                     (*gates, *duals), steps, hidden, batch)
-        return 1, 0, 0
-    slabs = (*gates, *duals)
-    _check_slabs('interior_sweep', (xproj[0], wh, rho_vec), (), steps,
-                 hidden, batch)
-    for sl in slabs:
-        if tuple(sl.shape) != lead + (steps, hidden, batch):
-            raise ValueError(f'slabs must be {lead + (steps, hidden, batch)}'
-                             f', got {tuple(sl.shape)}')
-        if sl.device != xproj.device or sl.dtype != torch.float32:
-            raise ValueError('interior_sweep: every slab must be float32 on '
-                             f'{xproj.device}')
-    # One candidate has no stride to follow.
-    stride = slabs[0].stride(0) if lead[0] > 1 else 0
-    if (any(not sl[0].is_contiguous() for sl in slabs)
-            or any(sl.stride(0) != stride for sl in slabs if lead[0] > 1)):
-        raise ValueError('interior_sweep: every slab must be contiguous '
-                         'within a candidate, with one candidate stride')
-    return lead[0], xproj.stride(0) if lead[0] > 1 else 0, stride
+    return _check_axis('interior_sweep', xproj, (wh, rho_vec),
+                       (*gates, *duals))
 
 
 def _launch(symbol, first, operands, rho_vec, gates, duals, extra=(),
@@ -653,14 +675,29 @@ def floor_sweep(xproj: torch.Tensor, wh: torch.Tensor,
     return h
 
 
+def _check_jacobi(pre, gates, duals, h_prev, c_prev,
+                  rho_vec) -> Tuple[int, int, int]:
+    """Checks `jacobi_sweep`'s arguments (h_prev and c_prev are slabs
+    too); returns `_check_axis`'s candidates and strides."""
+    lead = tuple(pre.shape[:1]) if pre.dim() == 5 else ()
+    _check_common('jacobi_sweep', pre, gates, duals, rho_vec, lead)
+    return _check_axis('jacobi_sweep', pre, (rho_vec,),
+                       (h_prev, c_prev, *gates, *duals))
+
+
 def tensor_jacobi_plan(pre: torch.Tensor, gates: Sequence[torch.Tensor],
                        duals: Sequence[torch.Tensor],
                        c_prev: torch.Tensor) -> JacobiPlan:
-    """The plan `jacobi_sweep` takes by default for these CUDA tensors."""
-    steps, _, hidden, batch = pre.shape
-    aligned = all(t.data_ptr() % 16 == 0
-                  for t in (pre, c_prev, *gates, *duals))
-    return card_jacobi_plan(pre.device, steps, hidden, batch, aligned)
+    """The plan `jacobi_sweep` takes by default for these CUDA tensors,
+    with or without the candidate axis: float4 needs every slab of every
+    candidate on 16 bytes, so the candidate strides count too."""
+    steps, _, hidden, batch = pre.shape[-4:]
+    cands = pre.shape[0] if pre.dim() == 5 else 1
+    tensors = (pre, c_prev, *gates, *duals)
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    if cands > 1:
+        aligned = aligned and all(t.stride(0) % 4 == 0 for t in tensors)
+    return card_jacobi_plan(pre.device, steps, hidden, batch, aligned, cands)
 
 
 def jacobi_sweep(pre: torch.Tensor, gates: Sequence[torch.Tensor],
@@ -669,30 +706,36 @@ def jacobi_sweep(pre: torch.Tensor, gates: Sequence[torch.Tensor],
                  plan: Optional[JacobiPlan] = None) -> Tuple[Slabs, Slabs]:
     """Every interior timestep of the Jacobi sweep at once.
 
-    Same arguments and returns as `jacobi_sweep_plain`.  CUDA tensors go
-    to the CUDA kernel (which adds one to `jacobi_sweep.launches` per
-    launch) with `plan`, by default `card_jacobi_plan`'s: float4 accesses
-    where every slab is 16-byte aligned and the items fill the card, else
-    the same kernel one float at a time.  A plan the kernel does not take
+    Same arguments and returns as `jacobi_sweep_plain`, with or without
+    the leading candidate axis: pre (S, T-1, 4, H, B), rho_vec (S, 6),
+    slabs (S, T-1, H, B), pre and each slab contiguous within a candidate
+    (a slice of the state's (S, T+1, H, B) slabs is), the slabs with one
+    candidate stride, all S in one launch on `card_jacobi_plan`'s plan
+    for S times the items.  CUDA tensors go to the CUDA kernel (which
+    adds one to `jacobi_sweep.launches` per launch, with or without the
+    axis, and one to `jacobi_sweep.candidate_launches` per launch with it)
+    with `plan`, by default `tensor_jacobi_plan`'s: float4 accesses where
+    every slab is 16-byte aligned and the items fill the card, else the
+    same kernel one float at a time.  A plan the kernel does not take
     (float4 on a misaligned slab, a grid that does not cover the sweep)
     raises RuntimeError.  CPU tensors go to the plain version.
     """
-    _check_common('jacobi_sweep', pre, gates, duals, rho_vec)
-    steps, _, hidden, batch = pre.shape
-    _check_slabs('jacobi_sweep',
-                 (pre, rho_vec, h_prev, c_prev, *gates, *duals),
-                 (h_prev, c_prev, *gates, *duals), steps, hidden, batch)
+    cands, pre_stride, slab_stride = _check_jacobi(pre, gates, duals, h_prev,
+                                                   c_prev, rho_vec)
     if pre.device.type == 'cpu':
         return jacobi_sweep_plain(pre, gates, duals, h_prev, c_prev, rho_vec)
     if plan is None:
         plan = tensor_jacobi_plan(pre, gates, duals, c_prev)
     out = _launch('gate_sweep_jacobi', pre, (pre, c_prev), rho_vec, gates,
-                  duals, tuple(plan))
+                  duals, tuple(plan) + (cands,), (pre_stride, slab_stride))
     jacobi_sweep.launches += 1
+    if pre.dim() == 5:
+        jacobi_sweep.candidate_launches += 1
     return out
 
 
 interior_sweep.launches = 0
 interior_sweep.candidate_launches = 0
 jacobi_sweep.launches = 0
+jacobi_sweep.candidate_launches = 0
 floor_sweep.launches = 0

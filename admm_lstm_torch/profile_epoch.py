@@ -31,10 +31,11 @@ the reference's seeded init, the default rules), `sgd|adam|adagrad` one
 full-batch step of a gradient baseline at its default learning rate with
 its two losses (variants/grad_based.py); --config, --layers and
 --data har do not apply to them.  `--candidates S` profiles one epoch of
-S candidates on the candidate axis (core/state.py), the default config:
-the first S points of `tune.candidate_grid` (repeated past its 27) on the
-chosen dataset, shared by the candidates, as `tune.search_rho` trains
-them (GoogleStock's grid: `--candidates 27`); with `--scenarios`, S
+S candidates on the candidate axis (core/state.py) under the chosen
+config: the first S points of `tune.candidate_grid` (repeated past its
+27) on the chosen data, shared by the candidates, as `tune.search_rho`
+trains them (GoogleStock's grid: `--candidates 27`, under auto():
+`--candidates 27 --config auto`); with `--scenarios`, S
 folds of YahooFinance with their own seed-split initial weights under
 the CLI's `--scenarios` config (fast, `wy_lipschitz`), as
 `api.train_scenarios` trains them.  Its line adds the per
@@ -72,12 +73,12 @@ def main(argv=None) -> int:
     parser.add_argument('--candidates', type=int, default=0)
     parser.add_argument('--scenarios', action='store_true')
     args = parser.parse_args(argv)
-    if args.candidates and (args.config != 'default' or args.layers > 1
-                            or args.variant != 'fast' or args.data == 'har'):
-        parser.error('--candidates takes the default config, one layer, the '
-                     'fast variant and a bundled dataset')
-    if args.scenarios and not args.candidates:
-        parser.error('--scenarios needs --candidates S')
+    if args.candidates and (args.layers > 1 or args.variant != 'fast'):
+        parser.error('--candidates takes one layer and the fast variant')
+    if args.scenarios and (not args.candidates or args.config != 'default'
+                           or args.data == 'har'):
+        parser.error('--scenarios needs --candidates S and takes the CLI\'s '
+                     '--scenarios config (no --config, no --data har)')
     if args.layers >= 2 and (args.config != 'default' or args.data == 'har'):
         parser.error('--layers >= 2 takes the default config and a bundled '
                      'dataset')

@@ -65,10 +65,14 @@ def _gram_strategy(n_cols: int, dim: int, n_rows: int) -> str:
 
 
 def _rows_times(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """(k, r, N) x (s, N) -> (k, r, s) as one 2-D product a_flat @ m^T of
-    the row-major a, with no batched route between."""
-    k, r, n = a.shape
-    return (a.reshape(k * r, n) @ m.T).reshape(k, r, m.shape[0])
+    """(..., k, r, N) x (s, N) -> (..., k, r, s) as one 2-D product
+    a_flat @ m^T of the row-major a, with no batched route between; with
+    a per-candidate m (S, s, N), one product per candidate."""
+    k, r, n = a.shape[-3:]
+    if m.dim() == 2:
+        return (a.reshape(-1, n) @ m.T).reshape(a.shape[:-1] + (m.shape[0],))
+    return (a.reshape(a.shape[:-3] + (k * r, n)) @ m.mT).reshape(
+        a.shape[:-1] + (m.shape[-2],))
 
 
 def _divisor_chunk(n_cols: int, budget: int) -> int:
@@ -87,30 +91,36 @@ def _gram_bvec(s2: torch.Tensor, wres: torch.Tensor, m_inputs: torch.Tensor,
       gram[k] = sum_{t,b} s2[t,k,b] * m[t,:,b] m[t,:,b]^T
       bvec[k] = sum_{t,b} wres[t,k,b] * m[t,:,b]
 
-    `strategy` forces one of GRAM_STRATEGIES; None picks by shape, with
-    the rows of all `world` ranks' equal blocks of the batch.
+    With the candidate axis s2 and wres are (S, T, K, B) and the results
+    (S, K, D, D), (S, K, D); m_inputs is shared (T, D, B) or per
+    candidate (S, T, D, B).  `strategy` forces one of GRAM_STRATEGIES;
+    None picks by one candidate's shape, with the rows of all `world`
+    ranks' equal blocks of the batch.
     """
-    steps, n_cols, batch = s2.shape
-    dim = m_inputs.shape[1]
+    lead = s2.shape[:-3]
+    steps, n_cols, batch = s2.shape[-3:]
+    dim = m_inputs.shape[-2]
     n_rows = steps * batch
     strategy = strategy or _gram_strategy(n_cols, dim, n_rows * world)
     if strategy not in GRAM_STRATEGIES:
         raise ValueError(f'unknown Gram strategy {strategy!r}')
     if n_rows == 0:         # a time block with no target rows
-        return (s2.new_zeros((n_cols, dim, dim)),
-                s2.new_zeros((n_cols, dim)))
+        return (s2.new_zeros(lead + (n_cols, dim, dim)),
+                s2.new_zeros(lead + (n_cols, dim)))
     if strategy == 'einsum':
-        gram = torch.einsum('tkb,tdb,teb->kde', s2, m_inputs, m_inputs)
-        bvec = torch.einsum('tkb,tdb->kd', wres, m_inputs)
+        gram = torch.einsum('...tkb,...tdb,...teb->...kde', s2, m_inputs,
+                            m_inputs)
+        bvec = torch.einsum('...tkb,...tdb->...kd', wres, m_inputs)
         return gram, bvec
 
     # (D, N) / (K, N) row-flattened, row-major.  The slabs may arrive in
     # another memory order (torch.einsum returns the projections as
     # permuted views), and a column-major (K, N) would make every product
     # below copy its (chunk, D, N) operand.
-    m2, s2f, wresf = (v.permute(1, 0, 2).reshape(-1, n_rows).contiguous()
+    m2, s2f, wresf = (v.transpose(-3, -2).reshape(v.shape[:-3]
+                                                  + (-1, n_rows)).contiguous()
                       for v in (m_inputs, s2, wres))
-    bvec = wresf @ m2.T
+    bvec = wresf @ m2.mT
 
     bf16 = matmul_precision == 'default'
     round_ = _bf16 if bf16 else (lambda x: x)
@@ -124,28 +134,30 @@ def _gram_bvec(s2: torch.Tensor, wres: torch.Tensor, m_inputs: torch.Tensor,
         chunk = _divisor_chunk(n_cols,
                                _CHUNK_BUDGET_ELEMS // (_BLOCKTRI_BLK * n_rows))
         grams = []
-        for s2_c in s2c.split(chunk):
+        for s2_c in s2c.split(chunk, dim=-2):
             blocks = {}
             for bi in range(len(bounds) - 1):
                 i0, i1 = bounds[bi], bounds[bi + 1]
-                a_i = round_(s2_c[:, None, :] * m2c[None, i0:i1])
+                a_i = round_(s2_c[..., :, None, :]
+                             * m2c[..., None, i0:i1, :])
                 for bj in range(bi + 1):
                     j0, j1 = bounds[bj], bounds[bj + 1]
-                    blocks[(bi, bj)] = _rows_times(a_i, m2c[j0:j1])
+                    blocks[(bi, bj)] = _rows_times(a_i, m2c[..., j0:j1, :])
             rows = []
             for bi in range(len(bounds) - 1):
                 rows.append(torch.cat(
                     [blocks[(bi, bj)] if bj <= bi
-                     else blocks[(bj, bi)].transpose(1, 2)
-                     for bj in range(len(bounds) - 1)], dim=2))
-            grams.append(torch.cat(rows, dim=1))
-        return torch.cat(grams), bvec
+                     else blocks[(bj, bi)].transpose(-2, -1)
+                     for bj in range(len(bounds) - 1)], dim=-1))
+            grams.append(torch.cat(rows, dim=-2))
+        return torch.cat(grams, dim=-3), bvec
 
     # wide: K/chunk batched (D, N) x (N, D) products.
     chunk = _divisor_chunk(n_cols, _CHUNK_BUDGET_ELEMS // (dim * n_rows))
-    grams = [_rows_times(round_(s2_c[:, None, :] * m2c[None]), m2c)
-             for s2_c in s2c.split(chunk)]
-    return torch.cat(grams), bvec
+    grams = [_rows_times(round_(s2_c[..., :, None, :] * m2c[..., None, :, :]),
+                         m2c)
+             for s2_c in s2c.split(chunk, dim=-2)]
+    return torch.cat(grams, dim=-3), bvec
 
 
 def _gram_pair(s2c, m2c, dim, n_cols, n_rows, round_):
@@ -159,24 +171,31 @@ def _gram_pair(s2c, m2c, dim, n_cols, n_rows, round_):
     iu_t = torch.from_numpy(iu).to(m2c.device)
     ju_t = torch.from_numpy(ju).to(m2c.device)
     packed = torch.cat([
-        s2c @ round_(m2c[iu_t[p:p + chunk]] * m2c[ju_t[p:p + chunk]]).T
-        for p in range(0, n_pairs, chunk)], dim=1)          # (K, pairs)
+        s2c @ round_(m2c[..., iu_t[p:p + chunk], :]
+                     * m2c[..., ju_t[p:p + chunk], :]).mT
+        for p in range(0, n_pairs, chunk)], dim=-1)         # (K, pairs)
     pair_of = np.zeros((dim, dim), np.int64)
     pair_of[iu, ju] = np.arange(n_pairs)
     pair_of[ju, iu] = np.arange(n_pairs)
-    return packed[:, torch.from_numpy(pair_of).to(m2c.device)]
+    return packed[..., torch.from_numpy(pair_of).to(m2c.device)]
 
 
 def _spd_solve(lhs: torch.Tensor, rhs: torch.Tensor,
                use_pallas_chol) -> torch.Tensor:
-    """The exact stage's batched SPD solve.  True and 'auto' take the
-    kernels (for CUDA tensors; the wrappers run the plain versions on CPU
-    tensors); False runs the plain versions."""
+    """The exact stage's batched SPD solve of (..., D, D) systems: every
+    leading axis (the candidates', the 4H columns') folds into one batch,
+    so a stage is one call.  True and 'auto' take the kernels (for CUDA
+    tensors; the wrappers run the plain versions on CPU tensors); False
+    runs the plain versions."""
     use_kernel = use_pallas_chol in (True, 'auto')
-    lhs, rhs = lhs.contiguous(), rhs.contiguous()
-    if lhs.shape[-1] <= MAX_DIM:
-        return (chol_solve if use_kernel else chol_solve_plain)(lhs, rhs)
-    return blocked_spd_solve(lhs, rhs, use_kernel=use_kernel)
+    dim = lhs.shape[-1]
+    lhs = lhs.reshape(-1, dim, dim).contiguous()
+    rhs_flat = rhs.reshape(-1, dim).contiguous()
+    if dim <= MAX_DIM:
+        out = (chol_solve if use_kernel else chol_solve_plain)(lhs, rhs_flat)
+    else:
+        out = blocked_spd_solve(lhs, rhs_flat, use_kernel=use_kernel)
+    return out.reshape(rhs.shape)
 
 
 def gauss_newton_ridge_update_wide(m_inputs: torch.Tensor, pre: torch.Tensor,
@@ -195,7 +214,10 @@ def gauss_newton_ridge_update_wide(m_inputs: torch.Tensor, pre: torch.Tensor,
 
     Shapes: m_inputs (T, D, B); pre = m_inputs @ weights_w + the frozen
     side's projection, and target_w, (T, 4H, B); weights_w (D, 4H) with
-    gate-major columns.  Returns the new (D, 4H) weights.
+    gate-major columns; rho_g and beta_g (4,).  Returns the new (D, 4H)
+    weights.  With the candidate axis pre, target_w, weights_w, rho_g and
+    beta_g carry a leading S, m_inputs is shared or has one too, and the
+    S x 4H systems go to one batched solve.
 
     Linearizing act at pre, per column k with r = act - target and
     s = act':
@@ -211,9 +233,9 @@ def gauss_newton_ridge_update_wide(m_inputs: torch.Tensor, pre: torch.Tensor,
     """
     dtype, device = weights_w.dtype, weights_w.device
     hidden = weights_w.shape[-1] // 4
-    rho_cols = torch.repeat_interleave(rho_g, hidden)      # (4H,)
-    beta_cols = torch.repeat_interleave(beta_g, hidden)
-    dim = m_inputs.shape[1]
+    rho_cols = torch.repeat_interleave(rho_g, hidden, dim=-1)    # ([S,] 4H)
+    beta_cols = torch.repeat_interleave(beta_g, hidden, dim=-1)
+    dim = m_inputs.shape[-2]
     tanh_b = tanh_cols[:, None]                            # (4H, 1)
 
     # sigmoid(x) = (1 + tanh(x/2)) / 2: act = a + b*u, act' = c*(1 - u^2)
@@ -227,7 +249,7 @@ def gauss_newton_ridge_update_wide(m_inputs: torch.Tensor, pre: torch.Tensor,
 
     resid = act - target_w
     s2 = d_act * d_act
-    steps, n_cols, batch = pre.shape
+    steps, n_cols, batch = pre.shape[-3:]
     strategy = _gram_strategy(
         n_cols if total_cols is None else total_cols, dim,
         steps * batch * consensus.world if total_rows is None
@@ -236,15 +258,15 @@ def gauss_newton_ridge_update_wide(m_inputs: torch.Tensor, pre: torch.Tensor,
         s2, d_act * resid, m_inputs, matmul_precision, strategy=strategy))
     eye = torch.eye(dim, dtype=dtype, device=device)
 
-    trace = torch.einsum('kdd->k', gram) / dim             # (4H,)
+    trace = torch.einsum('...kdd->...k', gram) / dim       # ([S,] 4H)
     mu = prox * rho_cols * trace + damping
-    lhs = (beta_cols[:, None, None] * eye + rho_cols[:, None, None] * gram
-           + mu[:, None, None] * eye)
-    w_cols = weights_w.T                                   # (4H, D)
-    rhs = (rho_cols[:, None] * (torch.einsum('kde,ke->kd', gram, w_cols)
-                                - bvec)
-           + mu[:, None] * w_cols)
-    return _spd_solve(lhs, rhs, use_pallas_chol).T
+    lhs = (beta_cols[..., None, None] * eye
+           + rho_cols[..., None, None] * gram + mu[..., None, None] * eye)
+    w_cols = weights_w.mT                                  # ([S,] 4H, D)
+    rhs = (rho_cols[..., None] * (torch.einsum('...kde,...ke->...kd', gram,
+                                               w_cols) - bvec)
+           + mu[..., None] * w_cols)
+    return _spd_solve(lhs, rhs, use_pallas_chol).mT
 
 
 def gauss_newton_ridge_update(m_inputs: torch.Tensor,
@@ -282,7 +304,4 @@ def gauss_newton_ridge_update(m_inputs: torch.Tensor,
     rhs = (rho_b[..., 0] * (torch.einsum('ghde,ghe->ghd', gram, w_cols)
                             - bvec)
            + mu[..., None] * w_cols)
-    hidden = weights.shape[2]
-    solved = _spd_solve(lhs.reshape(4 * hidden, dim, dim),
-                        rhs.reshape(4 * hidden, dim), use_pallas_chol)
-    return solved.reshape(4, hidden, dim).transpose(1, 2)
+    return _spd_solve(lhs, rhs, use_pallas_chol).transpose(1, 2)

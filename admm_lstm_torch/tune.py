@@ -9,21 +9,21 @@ ADMM state, differing only in rho, and the candidates are ranked by
 their final validation loss (a non-finite loss ranks last).
 
 The JAX package trains the whole grid as one vmapped program
-(`_vmapped_rho_search`).  So does `search_rho` here: one state with the
-candidate axis (core/state.py) from the same initial weights and state,
-rho from the candidates, `epochs` batched epochs of the same epoch code
-as `api.train` (`core/step.admm_step_im`, its interior sweep one kernel
-launch over every candidate on CUDA tensors), then one batched loss.  The
-line searches search per candidate, so each candidate's numbers are those
-of a run alone, as the JAX package's masked loops make them.  When the
-card runs out of memory the group of candidates halves and each half
-trains on its own (`_run_in_groups`, as the JAX package's).
+(`_vmapped_rho_search`), under any config.  So does `search_rho` here:
+one state with the candidate axis (core/state.py) from the same initial
+weights and state, rho from the candidates, `epochs` batched epochs of
+the same epoch code as `api.train` (`core/step.admm_step_im`: on CUDA
+tensors its sweep, Gauss-Seidel or Jacobi, is one kernel launch over
+every candidate, and under turbo()/auto() each exact weight stage one
+batched Cholesky solve), then one batched loss.  The line searches search
+per candidate, so each candidate's numbers are those of a run alone, as
+the JAX package's masked loops make them.  When the card runs out of
+memory the group of candidates halves and each half trains on its own
+(`_run_in_groups`, as the JAX package's).
 
-Configs whose epoch takes no candidate axis yet
-(`core/step.candidate_axis_refusal`: the exact weight solve, the Jacobi
-sweep) and the stacked variant's searches train their candidates one
-after another, each through `_run_in_groups` alone.  The choice is made
-from the config, and the log line names the route that ran.
+The stacked variant's searches train their candidates one after another,
+each through `_run_in_groups` alone; the log line names the route that
+ran.
 """
 
 from __future__ import annotations
@@ -38,8 +38,7 @@ from admm_lstm_torch.api import _as_tensor, batch_minor
 from admm_lstm_torch.core.init import init_admm_state
 from admm_lstm_torch.core.state import (broadcast_state,
                                         penalties_from_vectors)
-from admm_lstm_torch.core.step import (admm_step_im, candidate_axis_refusal,
-                                       rules_for)
+from admm_lstm_torch.core.step import admm_step_im, rules_for
 from admm_lstm_torch.models.lstm import init_lstm_params, train_val_mse_im
 from admm_lstm_torch.utils.config import RHO_KEYS, ADMMConfig, ParameterSet
 from admm_lstm_torch.utils.device import matmul_precision, resolve_device
@@ -100,29 +99,21 @@ def search_rho(train_x, train_y, val_x, val_y, base: ParameterSet,
                                      config)
         x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x,
                                                  val_y)
-        refusal = candidate_axis_refusal(rules)
-
         def train_group(lo, hi):
             """Candidates lo..hi-1 from base_state (which the step never
-            writes), as one batched program where the epoch takes the
-            candidate axis, else the one candidate alone."""
-            rho = penalties_from_vectors(candidates[lo:hi], device=device)
-            if refusal is None:
-                state = broadcast_state(base_state, hi - lo, rho)
-            else:
-                state = base_state._replace(rho=type(rho)(*(r[0]
-                                                            for r in rho)))
+            writes), as one batched program."""
+            state = broadcast_state(base_state, hi - lo, penalties_from_vectors(
+                candidates[lo:hi], device=device))
             for _ in range(epochs):
                 state = admm_step_im(state, x_im, y_im, rules)
             return torch.stack(train_val_mse_im(state.params, xall_im, y_im,
-                                                vy_im), dim=-1).reshape(-1, 2)
+                                                vy_im), dim=-1)
 
-        losses = _train_all('search_rho', candidates, epochs, train_group,
-                            refusal)
+        losses = _train_all('search_rho', candidates, epochs, train_group)
     return _ranked(candidates, losses, base)
 
 
-def _train_all(name, candidates, epochs, train_group, refusal):
+def _train_all(name, candidates, epochs, train_group, refusal=None):
     """The (N, 2) train and validation losses of every candidate on the
     host: all N as one batched program if `refusal` is None, else one
     after another (`refusal` says why), each through `_run_in_groups`.

@@ -21,10 +21,17 @@ Phases, each fatal on failure:
                GB/s, its L2-resident time (warm_ms), a device copy of the
                same bytes (copy_ms), and, where it takes float4s, the
                one-float instance's time (vec1_ms) and identical bits;
+               and with the candidate axis (JACOBI_CANDIDATE_SHAPES: the
+               GoogleStock rho grid, the scenario batch) held to its plain
+               version and to S launches without the axis (bit-equal where
+               the float widths match), timed beside those launches and a
+               device copy of its bytes;
                for the Cholesky kernels also a two-call yardstick, their
-               registers and systems per SM, and gate (ii): the error
-               against float64 on ill-conditioned Gram-like inputs, held
-               to the plain version's;
+               registers and systems per SM, at the candidate axis's
+               batched N (BATCHED_SOLVE_SHAPES, BATCHED_INVERSE_SHAPES)
+               bit-equal to S calls alone and timed beside them, and gate
+               (ii): the error against float64 on ill-conditioned
+               Gram-like inputs, held to the plain version's;
   3. floor   - the Gauss-Seidel serial-floor probe: `python -m
                admm_lstm_torch.gs_floor` at its defaults (T 2047, H 16,
                B 64) with the launch counts zeroed just before and read
@@ -53,7 +60,11 @@ Phases, each fatal on failure:
                * Path B, the wide exact solve: the JAX bench's HAR-shaped
                  turbo run (B=2048, T=10, I=561, H=128, O=6, synthetic
                  data), 5 epochs, and one epoch with the kernels against
-                 the same epoch with the plain versions;
+                 the same epoch with the plain versions; then three rows
+                 of the HAR rho grid x 2 epochs at 'highest' through
+                 search_rho as one batched program, each held to its run
+                 alone at 1e-5, with one chol_solve and 9 chol_inverse
+                 launches an epoch for the three;
                * datasets: the default config at H=10 on YahooFinance and
                  DNA1, 30 epochs from the reference's seed-0 weights, held
                  to its trajectories, one interior_sweep launch an epoch;
@@ -67,7 +78,19 @@ Phases, each fatal on failure:
                profiler, and its wall seconds beside the 27 candidates'
                runs alone (api.train, timed in the same call), candidate 0
                and the best candidate held to their runs alone at rtol
-               1e-4;
+               1e-4; the same grid under auto() (the Jacobi sweep and the
+               exact weight solve on the candidate axis), one batched
+               program at auto()'s 'default' and at 'highest': 30
+               jacobi_sweep launches with the axis and 60 chol_solve, no
+               interior_sweep, no out-of-memory halving; at 'default' the
+               winner within 1.05x of the JAX package's best, each
+               candidate's gap to it logged; at 'highest' the JAX
+               package's best rho and validation losses, every candidate
+               held to its run alone at rtol 1e-4 with its final rho
+               equal, the wall seconds of both and the search's syncs,
+               busy ms and idle share; the CLI's --auto --tune_rho 1 (125
+               candidates in one batched program), its groups, launches
+               and wall seconds;
   6. resume  - YahooFinance 10 epochs straight against 5 checkpointed
                (async) and resumed from the directory to 10: losses,
                weights and the whole final state equal bit for bit;
@@ -123,7 +146,11 @@ Phases, each fatal on failure:
                figure of the scenarios one after another, with the
                profiler's busy ms, idle share and host syncs of a scenario
                epoch with and without the Lipschitz step and of one
-               batched epoch of the four; the
+               batched epoch of the four; the same four folds under
+               turbo(no_dual_y, wy_lipschitz, 'highest') for 10 epochs in
+               one batched program (one jacobi_sweep launch with the axis
+               and two chol_solve an epoch), each scenario held to its run
+               alone at 1e-4; the
                CLI (--scenarios 4 -e 5 --save --record_matlab_data) and
                visualize over its models, in a temporary directory, the
                models' predictions on the card held to the CPU's; a
@@ -205,6 +232,10 @@ JACOBI_SHAPES = [(9, 10, 4224), (9, 128, 2048), (13, 5, 1000),
                  # the seqpar phase's two time blocks and the tp phase's H
                  # block of Path B
                  (256, 16, 256), (255, 16, 256), (9, 64, 2048)]
+# jacobi_sweep with the candidate axis (S, steps, H, B): the GoogleStock
+# rho grid under auto() (27 candidates) and the scenario batch under
+# turbo() (4 folds).
+JACOBI_CANDIDATE_SHAPES = [(27, 9, 10, 4224), (4, 59, 10, 340)]
 # floor_sweep (steps, H, B): the gs_floor probe's default first, then the
 # Gauss-Seidel rows' (127, 16, 512), GoogleStock's and (31, 130, 512) (the
 # recurrence on interior_sweep's plan, wh streamed), timed beside
@@ -224,6 +255,13 @@ SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128), (37, 100),
                 (256, 128)]
 INVERSE_SHAPES = [(512, 64), (16, 128), (7, 33),
                   (256, 64)]      # the tp phase's x-stage blocks
+# The Cholesky kernels at the candidate axis's batched N, (S, N a
+# candidate, D): the auto() rho grid's two exact stages (27 x 40 systems
+# of D 10 and of D 1) and Path B's three candidates (3 x 512 diagonal
+# blocks of 64), each held bit-equal to S calls alone and timed beside
+# them.
+BATCHED_SOLVE_SHAPES = [(27, 40, 10), (27, 40, 1)]
+BATCHED_INVERSE_SHAPES = [(3, 512, 64)]
 # Gate (ii) at the shapes of Path A and Path B.
 ILL_SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128)]
 ILL_INVERSE_SHAPES = [(512, 64)]
@@ -334,6 +372,40 @@ TUNE_BEST_RHO = {'i': 1.0, 'f': 1.0, 'g': 1.0, 'o': 1.0,
 # the same f32 math, each candidate's sums taken on its own, over 30
 # epochs.
 TUNE_ALONE_RTOL = 1e-4
+# search_rho on GoogleStock under ADMMConfig.auto(hidden_size=10) (the
+# Jacobi sweep, the exact weight solve, adaptive rho), the same 27-point
+# grid, 30 epochs from the golden seed-0 weights: the JAX package's
+# validation loss of each candidate in grid order and its best rho, on the
+# CPU (tests/test_torch_chip_reference.py recomputes them), from
+#   admm_lstm_tpu.tune.search_rho(tx, ty, vx, vy, ps,
+#       config=ADMMConfig.auto(hidden_size=10), epochs=30,
+#       params=params_from_dict(weights))
+# The JAX package gives the same numbers at matmul_precision='highest':
+# on the CPU its 'default' rounds none of this search's products.
+AUTO_TUNE_VAL = [
+    0.04735095798969269, 0.1228584423661232, 0.15686146914958954,
+    0.047054924070835114, 0.12196779996156693, 0.15705639123916626,
+    0.04700392484664917, 0.12112602591514587, 0.16531431674957275,
+    0.04722283035516739, 0.12238738685846329, 0.1568385362625122,
+    0.046954866498708725, 0.12124113738536835, 0.1658669114112854,
+    0.04692425951361656, 0.12049438059329987, 0.1560508906841278,
+    0.047269247472286224, 0.12229488790035248, 0.1566346287727356,
+    0.046952612698078156, 0.12114463001489639, 0.15649932622909546,
+    0.04692353680729866, 0.12029732018709183, 0.13875065743923187,
+]
+AUTO_TUNE_BEST_RHO = {'i': 1.0, 'f': 1.0, 'g': 1.0, 'o': 1.0,
+                      'c': 0.04000000283122063, 'h': 0.0022499999031424522,
+                      'y': 1.1240000276302453e-05}
+# The CLI's rho search under --auto: one round of refine_rho, 125
+# candidates, as one batched program.
+CLI_TUNE_ARGS = ['-y', '-d', 'GoogleStock', '-e', '30', '--hidden', '10',
+                 '--auto', '--tune_rho', '1', '--no-plot']
+# Path B on the candidate axis: three rows of the HAR rho grid
+# (tune.candidate_grid(parameter_set('HAR')), rows 0, 13 and 26) through
+# search_rho at 'highest', PATH_B_CANDIDATE_EPOCHS epochs, each held to
+# its api.train run alone at HAR_RTOL.
+PATH_B_CANDIDATE_ROWS = [0, 13, 26]
+PATH_B_CANDIDATE_EPOCHS = 2
 # The resume phase: YahooFinance, the default config, RESUME_EPOCHS
 # epochs straight through against RESUME_AT epochs checkpointed and the
 # rest resumed; equal bit for bit.
@@ -543,6 +615,16 @@ SCEN_SPEED_EPOCHS = 200
 # PERF.md on H100 80GB HBM3 at 700 W, for the line beside the batched
 # program's.
 SCEN_SPEED_BEFORE = (24.2, 40.0)
+# The scenario batch under turbo(): the four yahoo_scenarios_loose folds
+# under ADMMConfig.turbo(variant='no_dual_y', matmul_precision='highest')
+# with that bench's wy_lipschitz (without it no_dual_y's fixed readout
+# step diverges there within four epochs), H 10, SCEN_TURBO_EPOCHS epochs
+# from api.scenario_inits(0), one jacobi_sweep launch an epoch; each
+# scenario's losses finite and held to its api.train run alone at
+# SCEN_TURBO_RTOL relative.  Ten epochs stay inside the window where the
+# scenario runs are rounding-stable (SCEN_STRICT_EPOCHS).
+SCEN_TURBO_EPOCHS = 10
+SCEN_TURBO_RTOL = 1e-4
 
 
 def log(msg):
@@ -619,18 +701,18 @@ def floor_bound(steps, hidden, batch):
                  elems * (8 * hidden + FLOOR_OPS))
 
 
-def jacobi_bytes(steps, hidden, batch):
-    """The bytes one Jacobi sweep must move: 15 input slabs (4 pre gates,
-    old f, g, c, h, 6 duals, c_prev; h_prev is already inside pre and old
-    i and o do not enter the math), rho, 11 output slabs."""
-    return 4 * (steps * hidden * batch * (15 + 11) + 6)
+def jacobi_bytes(steps, hidden, batch, cands=1):
+    """The bytes `cands` Jacobi sweeps must move: 15 input slabs each (4
+    pre gates, old f, g, c, h, 6 duals, c_prev; h_prev is already inside
+    pre and old i and o do not enter the math), rho, 11 output slabs."""
+    return 4 * cands * (steps * hidden * batch * (15 + 11) + 6)
 
 
-def jacobi_bound(steps, hidden, batch):
-    """One Jacobi sweep: `jacobi_bytes`, and 105 operations per
+def jacobi_bound(steps, hidden, batch, cands=1):
+    """`cands` Jacobi sweeps: `jacobi_bytes`, and 105 operations per
     element."""
-    return bound(jacobi_bytes(steps, hidden, batch),
-                 steps * hidden * batch * 105)
+    return bound(jacobi_bytes(steps, hidden, batch, cands),
+                 cands * steps * hidden * batch * 105)
 
 
 def solve_bound(n, dim):
@@ -961,11 +1043,144 @@ def candidate_row(shape, seed, flush, ptxas):
     return row
 
 
+def jacobi_candidate_inputs(cands, steps, hidden, batch, seed):
+    """S candidates' Jacobi sweep inputs at sweep_inputs' scales, rho
+    differing per candidate, placed as the epoch places them: pre a
+    contiguous (S, steps, 4, H, B); the 12 slabs rows 1..steps and h_prev,
+    c_prev rows 0..steps-1 of (S, steps + 2, H, B) tensors (one candidate
+    stride, as slices of the state's (S, T+1, H, B) slabs)."""
+    per = [sweep_inputs(steps, hidden, batch, seed + s, jacobi=True)
+           for s in range(cands)]
+
+    def in_state(tensors, first):
+        full = torch.zeros((cands, steps + 2, hidden, batch), device='cuda')
+        full[:, first:first + steps] = torch.stack(tensors)
+        return full[:, first:first + steps]
+
+    gates = tuple(in_state([p[1][k] for p in per], 1) for k in range(6))
+    duals = tuple(in_state([p[2][k] for p in per], 1) for k in range(6))
+    rho = torch.stack([p[5] * (1.0 + 0.25 * s) for s, p in enumerate(per)])
+    return (torch.stack([p[0] for p in per]), gates, duals,
+            in_state([p[3] for p in per], 0),
+            in_state([p[4] for p in per], 0), rho)
+
+
+def jacobi_candidate_row(shape, seed, flush, ptxas):
+    """jacobi_sweep with the candidate axis at (S, steps, H, B), one
+    launch for all S: held to its plain version, and to S launches
+    without the axis (bit-equal where the batched plan's float width is
+    the one a candidate alone takes; the observed equality is logged
+    either way); timed L2 flushed beside its byte bound (S sweeps' bytes),
+    the plain version, the S launches alone (`alone_ms`) and a device copy
+    of its bytes (`copy_ms`); its plan and the registers and spills of the
+    instance it takes."""
+    from admm_lstm_torch.kernels import gate_sweep as gs
+    cands, steps, hidden, batch = shape
+    args = jacobi_candidate_inputs(*shape, seed)
+    pre, gates, duals, h_prev, c_prev, rho = args
+    plan = gs.tensor_jacobi_plan(pre, gates, duals, c_prev)
+    alone_args = [(pre[s], tuple(g[s].contiguous() for g in gates),
+                   tuple(d[s].contiguous() for d in duals),
+                   h_prev[s].contiguous(), c_prev[s].contiguous(), rho[s])
+                  for s in range(cands)]
+    first = alone_args[0]
+    one = gs.tensor_jacobi_plan(first[0], first[1], first[2], first[4])
+    instance = f'jacobi_sweep_kernel<{plan.vec}>'
+
+    def alone():
+        return [gs.jacobi_sweep(*a) for a in alone_args]
+
+    row = kernel_row('jacobi_sweep[candidates]', shape,
+                     lambda: gs.jacobi_sweep(*args),
+                     lambda: gs.jacobi_sweep_plain(*args), None,
+                     KERNEL_ATOL, jacobi_bound(steps, hidden, batch, cands),
+                     flush, info=dict(plan=plan._asdict(),
+                                      alone_plan=one._asdict(),
+                                      instance=instance,
+                                      **ptxas.get(instance, {})))
+    got = _flat(gs.jacobi_sweep(*args))
+    same_width = plan.vec == one.vec
+    err, equal = 0.0, True
+    for s, want in enumerate(alone()):
+        for a, b in zip(got, _flat(want)):
+            equal = equal and torch.equal(a[s], b)
+            err = max(err, float((a[s] - b).abs().max()))
+    if (same_width and not equal) or not err <= KERNEL_ATOL:
+        raise AssertionError(f'jacobi_sweep[candidates] at {shape}: '
+                             f'{err} from the launches alone (float width '
+                             f'{plan.vec}, alone {one.vec})')
+    src = torch.empty(13 * cands * steps * hidden * batch, device='cuda')
+    dst = torch.empty_like(src)
+    row.update(alone_max_abs_err=err, alone_bit_equal=equal,
+               alone_ms=cuda_ms(alone, 20, flush),
+               copy_ms=cuda_ms(lambda: dst.copy_(src), 50, flush),
+               warm_ms=cuda_ms(lambda: gs.jacobi_sweep(*args), 50, None))
+    row['gb_per_s'] = jacobi_bytes(steps, hidden, batch, cands) / row['ms'] \
+        / 1e6
+    log(f'[kernels] jacobi_sweep[candidates] {list(shape)} plan '
+        f'{row["plan"]} (alone {row["alone_plan"]}), {instance} '
+        f'{ptxas.get(instance)}, ms {row["ms"]}, warm_ms {row["warm_ms"]}, '
+        f'{cands} launches alone {row["alone_ms"]}, copy_ms '
+        f'{row["copy_ms"]}, {row["gb_per_s"]:.0f} GB/s, bound '
+        f'{row["bound_ms"]} ms; against the launches alone '
+        f'{"bit-equal" if equal else err}')
+    return row
+
+
+def batched_chol_row(name, shape, seed, flush):
+    """chol_solve or chol_inverse at the candidate axis's batched N, one
+    call on S x N systems of width D (as the exact stage folds the
+    candidates' systems into N): held to its plain version, bit-equal to
+    S calls alone on each candidate's N systems (each system is one warp
+    or one block of its own, so its arithmetic does not depend on N),
+    timed L2 flushed beside those S calls (`alone_ms`), the library call,
+    the two-call yardstick and the bound."""
+    from admm_lstm_torch.kernels import cholesky as ch
+    cands, n, dim = shape
+    a, b = spd_inputs(cands * n, dim, seed)
+    solve = name == 'chol_solve'
+    parts = [(a[s * n:(s + 1) * n], b[s * n:(s + 1) * n])
+             for s in range(cands)]
+    if solve:
+        kernel, plain = (lambda: ch.chol_solve(a, b),
+                         lambda: ch.chol_solve_plain(a, b))
+        alone = lambda: [ch.chol_solve(pa, pb) for pa, pb in parts]
+        library = lambda: torch.linalg.solve(a, b)
+        two_call = lambda: torch.cholesky_solve(b[..., None],
+                                                torch.linalg.cholesky(a))
+        bound_ms_by = solve_bound(cands * n, dim)
+    else:
+        eye = torch.eye(dim, device='cuda').expand_as(a)
+        kernel, plain = (lambda: ch.chol_inverse(a),
+                         lambda: ch.chol_inverse_plain(a))
+        alone = lambda: [ch.chol_inverse(pa) for pa, _ in parts]
+        library = None
+        two_call = lambda: torch.linalg.solve_triangular(
+            torch.linalg.cholesky(a), eye, upper=False)
+        bound_ms_by = inverse_bound(cands * n, dim)
+    row = kernel_row(name, (cands * n, dim), kernel, plain, library,
+                     CHOL_ATOL, bound_ms_by, flush, two_call=two_call,
+                     info=dict(candidates=cands, per_candidate=n,
+                               **chol_kernel_info(dim, solve)))
+    if not torch.equal(kernel(), torch.cat(alone())):
+        raise AssertionError(f'{name} at {cands} x {n} systems of D {dim}: '
+                             f'the batched call differs from {cands} '
+                             f'calls alone')
+    row.update(alone_bit_equal=True, alone_ms=cuda_ms(alone, 20, flush))
+    log(f'[kernels] {name} batched {cands} x {n} systems of D {dim}: ms '
+        f'{row["ms"]}, {cands} calls alone {row["alone_ms"]}, library '
+        f'{row["library_ms"]}, two-call {row["two_call_ms"]}, bound '
+        f'{row["bound_ms"]} ({row["bound_by"]}), bit-equal to the calls '
+        f'alone')
+    return row
+
+
 def phase_kernels(flush, ptxas):
     from admm_lstm_torch.kernels import cholesky as ch
     from admm_lstm_torch.kernels import gate_sweep as gs
     rows = {k: [] for k in ('interior_sweep', 'interior_sweep[candidates]',
-                            'jacobi_sweep', 'chol_solve', 'chol_inverse')}
+                            'jacobi_sweep', 'jacobi_sweep[candidates]',
+                            'chol_solve', 'chol_inverse')}
     for k, shape in enumerate(SWEEP_SHAPES):
         steps, hidden, batch = shape
         args = sweep_inputs(*shape, seed=k)
@@ -990,6 +1205,9 @@ def phase_kernels(flush, ptxas):
             candidate_row(shape, 60 + 100 * k, flush, ptxas))
     for k, shape in enumerate(JACOBI_SHAPES):
         rows['jacobi_sweep'].append(jacobi_row(shape, 10 + k, flush, ptxas))
+    for k, shape in enumerate(JACOBI_CANDIDATE_SHAPES):
+        rows['jacobi_sweep[candidates]'].append(
+            jacobi_candidate_row(shape, 70 + 100 * k, flush, ptxas))
     for k, shape in enumerate(SOLVE_SHAPES):
         a, b = spd_inputs(*shape, seed=20 + k)
         rows['chol_solve'].append(kernel_row(
@@ -1016,6 +1234,13 @@ def phase_kernels(flush, ptxas):
             two_call=lambda: torch.linalg.solve_triangular(
                 torch.linalg.cholesky(a), eye, upper=False),
             info=chol_kernel_info(shape[1], False)))
+
+    for k, shape in enumerate(BATCHED_SOLVE_SHAPES):
+        rows['chol_solve'].append(batched_chol_row('chol_solve', shape,
+                                                   80 + k, flush))
+    for k, shape in enumerate(BATCHED_INVERSE_SHAPES):
+        rows['chol_inverse'].append(batched_chol_row('chol_inverse', shape,
+                                                     90 + k, flush))
 
     ill = {'chol_solve': [], 'chol_inverse': []}
     for kappa in ILL_KAPPAS:
@@ -1176,22 +1401,28 @@ def _kernels():
                 floor_sweep=floor_sweep)
 
 
+# The sweep kernels whose launches with the candidate axis are counted
+# apart, under '<name>[candidates]'.
+CANDIDATE_KERNELS = ('interior_sweep', 'jacobi_sweep')
+
+
 def _zero_launches():
     """Every kernel's wrapper, with its launch counts set to 0."""
     kernels = _kernels()
     for k in kernels.values():
         k.launches = 0
-    kernels['interior_sweep'].candidate_launches = 0
+    for name in CANDIDATE_KERNELS:
+        kernels[name].candidate_launches = 0
     return kernels
 
 
 def _read_launches(kernels):
     """Each wrapper's launches since _zero_launches, and under
-    'interior_sweep[candidates]' those of interior_sweep with the
-    candidate axis (counted in interior_sweep's too)."""
+    '<name>[candidates]' those of the sweep kernels with the candidate
+    axis (counted in the kernel's own too)."""
     counts = {name: k.launches for name, k in kernels.items()}
-    counts['interior_sweep[candidates]'] = (
-        kernels['interior_sweep'].candidate_launches)
+    for name in CANDIDATE_KERNELS:
+        counts[f'{name}[candidates]'] = kernels[name].candidate_launches
     return counts
 
 
@@ -1389,6 +1620,49 @@ def phase_path_b():
     if bad:
         raise AssertionError(f'Path B: the kernel epoch differs from the '
                              f'plain epoch beyond tolerance at {bad}')
+    return launches, _path_b_candidates(tx, ty, vx, vy, ps, params, cfg)
+
+
+def _path_b_candidates(tx, ty, vx, vy, ps, params, cfg):
+    """Path B on the candidate axis: PATH_B_CANDIDATE_ROWS of the HAR grid
+    through search_rho at 'highest' (one batched program: one
+    chol_solve and 9 chol_inverse launches an epoch for the three, not
+    three times as many), each candidate held to its api.train run alone
+    at HAR_RTOL; returns the search's launches."""
+    from admm_lstm_torch import api, tune
+    from admm_lstm_torch.utils.config import RHO_KEYS
+    epochs = PATH_B_CANDIDATE_EPOCHS
+    table = tune.candidate_grid(ps)[PATH_B_CANDIDATE_ROWS]
+    high = cfg.replace(matmul_precision='highest', epochs=epochs)
+    kernels = _zero_launches()
+    t0 = time.perf_counter()
+    res = tune.search_rho(tx, ty, vx, vy, ps, high, candidates=table,
+                          epochs=epochs, params=params, device='cuda')
+    seconds = time.perf_counter() - t0
+    launches = _read_launches(kernels)
+    alone, t0 = [], time.perf_counter()
+    for cand in table:
+        pset = type(ps)(rho=dict(zip(RHO_KEYS, map(float, cand))),
+                        beta=dict(ps.beta))
+        run = api.train(tx, ty, vx, vy, pset, high, params=params,
+                        log_every=0, device='cuda')
+        alone.append((run['train_loss'][-1], run['val_loss'][-1]))
+    alone_seconds = time.perf_counter() - t0
+    got = np.stack([res['train_losses'], res['val_losses']], axis=1)
+    gap = float(np.max(np.abs(got - alone) / np.abs(alone)))
+    log(f'[train] Path B on the candidate axis: {len(table)} candidates x '
+        f'{epochs} epochs at highest in one batched program, {seconds:.3f} s'
+        f' wall against {alone_seconds:.3f} s for the runs alone; largest '
+        f'relative gap of the final losses to the runs alone {gap:.3g} '
+        f'(held at {HAR_RTOL}); launches {launches}')
+    want = {'chol_inverse': 9 * epochs, 'chol_solve': epochs,
+            'jacobi_sweep': epochs, 'jacobi_sweep[candidates]': epochs}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f'Path B on the candidate axis: launches '
+                             f'{launches}, expected {want}')
+    np.testing.assert_allclose(got, alone, rtol=HAR_RTOL,
+                               err_msg='Path B candidates against their runs'
+                                       ' alone')
     return launches
 
 
@@ -1533,6 +1807,189 @@ def phase_tune(tx, ty, vx, vy, ps, weights, card):
         f'relative gap to its run alone {max(gaps):.3g}')
     return launches, dict(seconds=seconds, alone_seconds=alone_seconds,
                           profile=prof, largest_alone_gap=max(gaps))
+
+
+def _counting_groups(tune):
+    """Wraps tune._run_in_groups (its halving recurses through the module
+    name) so that every group it runs is recorded; returns the list and
+    a function that restores it."""
+    real, groups = tune._run_in_groups, []
+
+    def counting(name, candidates, train_group, lo, hi):
+        groups.append((lo, hi))
+        return real(name, candidates, train_group, lo, hi)
+
+    tune._run_in_groups = counting
+    return groups, lambda: setattr(tune, '_run_in_groups', real)
+
+
+def _tune_launch_gate(label, launches, epochs, groups, n):
+    """The auto() search's launches: one jacobi_sweep an epoch, all with
+    the axis, two chol_solve (the exact x and h stages), no Gauss-Seidel
+    sweep, one group of all n candidates (no out-of-memory halving)."""
+    want = {'jacobi_sweep': epochs, 'jacobi_sweep[candidates]': epochs,
+            'chol_solve': 2 * epochs, 'interior_sweep': 0,
+            'chol_inverse': 0}
+    got = {k: launches[k] for k in want}
+    if got != want or groups != [(0, n)]:
+        raise AssertionError(f'{label}: launches {got} (expected {want}), '
+                             f'groups {groups} (expected one of {n})')
+
+
+def phase_tune_auto(tx, ty, vx, vy, ps, weights, card):
+    """search_rho on GoogleStock over the 27-point grid under auto() as one
+    batched program (the Jacobi sweep and the exact weight solve on the
+    candidate axis), twice.  At auto()'s 'default' (TF32): 30 jacobi_sweep
+    launches all with the axis, 60 chol_solve (the two exact stages an
+    epoch), no interior_sweep, one group (no out-of-memory halving), every
+    candidate finite and the winner within 1.05x of the JAX package's best
+    (as auto() at 'default' in Path A), each candidate's gap to the JAX
+    package logged.  At 'highest': the same launches and group, the JAX
+    package's best rho and each candidate's validation loss (rtol 0.05,
+    atol 1e-4), each candidate held to its api.train run alone at
+    TUNE_ALONE_RTOL with its final rho equal, the wall seconds of both,
+    and the search's syncs, busy ms and idle share under the profiler.
+    Then the CLI's --auto --tune_rho 1: 125 candidates in one batched
+    program, its groups, launches and wall seconds (a halving is
+    logged)."""
+    from admm_lstm_torch import api, cli, tune
+    from admm_lstm_torch.models.lstm import params_from_dict
+    from admm_lstm_torch.profile_epoch import device_profile
+    from admm_lstm_torch.utils.config import RHO_KEYS, ADMMConfig
+    cfg = ADMMConfig.auto(hidden_size=10)
+    search = lambda c: tune.search_rho(tx, ty, vx, vy, ps, c, epochs=EPOCHS,
+                                       params=params_from_dict(weights),
+                                       device='cuda')
+    groups, restore = _counting_groups(tune)
+    try:
+        kernels = _zero_launches()
+        t0 = time.perf_counter()
+        res = search(cfg)
+        seconds = time.perf_counter() - t0
+        launches = _read_launches(kernels)
+        n = len(res['val_losses'])
+        ref = np.asarray(AUTO_TUNE_VAL)
+        got = np.asarray(res['val_losses'])
+        log(f'[tune] auto() search_rho GoogleStock at \'default\' (TF32), '
+            f'{n} candidates x {EPOCHS} epochs in one batched program on '
+            f'{card}: {seconds:.3f} s wall (host clock), best rho '
+            f'{res["best_rho"]} (candidate {int(res["order"][0])}) val '
+            f'{res["best_val_loss"]:.8f} (JAX package: candidate '
+            f'{int(np.argmin(ref))}, val {ref.min():.8f}), groups {groups}, '
+            f'launches {launches}; relative gap of each candidate\'s val '
+            f'loss to the JAX package\'s (f32) '
+            + json.dumps([float(v) for v in np.abs(got - ref) / ref])
+            + '; val losses in grid order '
+            + json.dumps([float(v) for v in got]))
+        _tune_launch_gate('auto() search_rho', launches, EPOCHS, groups, n)
+        # TF32 moves adaptive rho's discrete choices, so the JAX package's
+        # numbers hold at 'highest' below; here, as for auto() at
+        # 'default' in Path A, every candidate is finite and the winner
+        # within 1.05x of the JAX package's best.
+        if not (np.all(np.isfinite(got))
+                and res['best_val_loss'] <= 1.05 * ref.min()):
+            raise AssertionError(f'auto() search_rho at default: val losses '
+                                 f'{got.tolist()}, best above the JAX '
+                                 f'package\'s {ref.min()} x 1.05')
+
+        # At 'highest', beside the runs alone, with each candidate's final
+        # state recorded from the batched program's last epoch.
+        high = cfg.replace(matmul_precision='highest')
+        final, real_step = {}, tune.admm_step_im
+
+        def recording(*a):
+            final['state'] = real_step(*a)
+            return final['state']
+
+        tune.admm_step_im = recording
+        try:
+            groups.clear()
+            kernels = _zero_launches()
+            t0 = time.perf_counter()
+            res_h = search(high)
+            high_seconds = time.perf_counter() - t0
+            high_launches = _read_launches(kernels)
+        finally:
+            tune.admm_step_im = real_step
+        _tune_launch_gate('auto() search_rho at highest', high_launches,
+                          EPOCHS, groups, n)
+        jax_gap = float(np.max(np.abs(res_h['val_losses'] - ref) / ref))
+        log(f'[tune] auto() search_rho at \'highest\': best rho '
+            f'{res_h["best_rho"]} (JAX package: {AUTO_TUNE_BEST_RHO}); '
+            f'largest relative gap of a val loss to the JAX package\'s '
+            f'{jax_gap:.3g}; val losses in grid order '
+            + json.dumps([float(v) for v in res_h['val_losses']]))
+        np.testing.assert_allclose(res_h['val_losses'], ref, rtol=0.05,
+                                   atol=1e-4, err_msg='auto() search_rho at '
+                                                      'highest val losses')
+        if res_h['best_rho'] != AUTO_TUNE_BEST_RHO:
+            raise AssertionError(f'auto() search_rho at highest chose '
+                                 f'{res_h["best_rho"]}, the JAX package '
+                                 f'{AUTO_TUNE_BEST_RHO}')
+        prof = device_profile(lambda: search(high))
+    finally:
+        restore()
+    prof.pop('kernels_ms')
+    prof['idle_share'] = max(0.0, 1.0 - prof['busy_ms'] / prof['wall_ms'])
+    alone, t0 = [], time.perf_counter()
+    for cand in res_h['candidates']:
+        pset = type(ps)(rho=dict(zip(RHO_KEYS, map(float, cand))),
+                        beta=dict(ps.beta))
+        run = api.train(tx, ty, vx, vy, pset, high.replace(epochs=EPOCHS),
+                        params=params_from_dict(weights), log_every=0,
+                        device='cuda')
+        alone.append(run)
+    alone_seconds = time.perf_counter() - t0
+    gaps, rho_diff = [], []
+    for k, run in enumerate(alone):
+        want = (run['train_loss'][-1], run['val_loss'][-1])
+        got = (res_h['train_losses'][k], res_h['val_losses'][k])
+        gaps.append(float(np.max(np.abs(np.subtract(got, want))
+                                 / np.abs(want))))
+        for f in RHO_KEYS:
+            a = float(getattr(final['state'].rho, f)[k])
+            b = float(getattr(run['state'].rho, f))
+            if a != b:
+                rho_diff.append((k, f, a, b))
+    log(f'[tune] auto() search_rho at \'highest\': {high_seconds:.3f} s wall '
+        f'batched against {alone_seconds:.3f} s for the {n} api.train runs '
+        f'alone ({alone_seconds / high_seconds:.2f}x), on {card}; launches '
+        f'{high_launches}; under torch.profiler {json.dumps(prof)}; per '
+        f'epoch {prof["host_syncs"] / EPOCHS} syncs, '
+        f'{prof["device_ops"] / EPOCHS} operations, '
+        f'{prof["busy_ms"] / EPOCHS:.4f} ms busy; every candidate\'s '
+        f'largest relative gap to its run alone {max(gaps):.3g} (held at '
+        f'{TUNE_ALONE_RTOL}); final rho differing from the run alone: '
+        f'{rho_diff}')
+    if max(gaps) > TUNE_ALONE_RTOL or rho_diff:
+        raise AssertionError(f'auto() search_rho at highest: candidates '
+                             f'part from their runs alone (largest gap '
+                             f'{max(gaps)}, rho {rho_diff})')
+
+    # The CLI's --auto --tune_rho 1: 125 candidates, one batched program.
+    groups, restore = _counting_groups(tune)
+    try:
+        kernels = _zero_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(CLI_TUNE_ARGS)
+        cli_seconds = time.perf_counter() - t0
+        cli_launches = _read_launches(kernels)
+    finally:
+        restore()
+    log(f'[tune] CLI {" ".join(CLI_TUNE_ARGS)}: exit {rc} in '
+        f'{cli_seconds:.3f} s wall (the 125-candidate round and the final '
+        f'30-epoch run) on {card}; groups {groups}'
+        + (' (halved: the card ran out of memory)' if len(groups) > 1
+           else ' (one batched program, no halving)')
+        + f'; launches {cli_launches}')
+    if rc != 0 or cli_launches['interior_sweep'] != 0 or \
+            cli_launches['jacobi_sweep[candidates]'] < EPOCHS:
+        raise AssertionError(f'CLI --auto --tune_rho 1: exit {rc}, '
+                             f'launches {cli_launches}')
+    return launches, dict(seconds=seconds, highest_seconds=high_seconds,
+                          alone_seconds=alone_seconds, profile=prof,
+                          largest_alone_gap=max(gaps),
+                          cli_seconds=cli_seconds, cli_groups=groups)
 
 
 def phase_resume():
@@ -1968,7 +2425,8 @@ def phase_legacy(tx, ty, vx, vy, ps, weights):
                 err_msg=f'run_comparison {r["name"]} {key}')
     if launches != {'interior_sweep': n, 'jacobi_sweep': 0, 'chol_solve': 0,
                     'chol_inverse': 0, 'floor_sweep': 0,
-                    'interior_sweep[candidates]': 0}:
+                    'interior_sweep[candidates]': 0,
+                    'jacobi_sweep[candidates]': 0}:
         raise AssertionError(f'run_comparison launches {launches}')
 
     # 6. One epoch of each variant on the card against the CPU.
@@ -2045,6 +2503,66 @@ def _wy_safeguard(states, theta):
     return out
 
 
+def _loose_folds():
+    """The JAX bench's yahoo_scenarios_loose data: SCEN_COUNT unshuffled
+    folds of the YahooFinance training and validation windows, and the
+    YahooFinance parameter set."""
+    from admm_lstm_torch.data import load_dataset
+    (tx, ty, vx, vy), ps, _ = load_dataset('YahooFinance')
+    fold, vfold = len(tx) // SCEN_COUNT, len(vx) // SCEN_COUNT
+    folds = lambda a, n: np.stack([a[i * n:(i + 1) * n]
+                                   for i in range(SCEN_COUNT)])
+    return (folds(tx, fold), folds(ty, fold), folds(vx, vfold),
+            folds(vy, vfold)), ps
+
+
+def _scenario_turbo(card):
+    """train_scenarios on the yahoo_scenarios_loose folds under turbo()
+    (no_dual_y, wy_lipschitz, 'highest'), SCEN_TURBO_EPOCHS epochs, one
+    batched program: one jacobi_sweep launch and two chol_solve an epoch
+    for the four, each scenario's losses finite and within SCEN_TURBO_RTOL
+    of its api.train run alone.  Returns the batched run's launches."""
+    from admm_lstm_torch import api
+    from admm_lstm_torch.models.lstm import LSTMParams
+    from admm_lstm_torch.utils.config import ADMMConfig
+    data, ps = _loose_folds()
+    epochs = SCEN_TURBO_EPOCHS
+    cfg = ADMMConfig.turbo(variant='no_dual_y', matmul_precision='highest',
+                           wy_lipschitz=True, hidden_size=10, epochs=epochs)
+    params = api.scenario_inits(cfg.seed, SCEN_COUNT, data[0].shape[3], 10,
+                                data[1].shape[2], 'cuda')
+    kernels = _zero_launches()
+    res = api.train_scenarios(*data, ps, cfg, params=params, device='cuda')
+    launches = _read_launches(kernels)
+    if not (np.all(np.isfinite(res['train_loss']))
+            and np.all(np.isfinite(res['val_loss']))):
+        raise AssertionError(f'turbo() scenarios: non-finite losses '
+                             f'{res["val_loss"].tolist()}')
+    gaps = []
+    for s in range(SCEN_COUNT):
+        run = api.train(*(d[s] for d in data), ps, cfg,
+                        params=LSTMParams(*(w[s] for w in params)),
+                        log_every=0, device='cuda')
+        for key in ('train_loss', 'val_loss'):
+            want = np.asarray(run[key])
+            gaps.append(float(np.max(np.abs(res[key][s] - want)
+                                     / np.abs(want))))
+            np.testing.assert_allclose(
+                res[key][s], want, rtol=SCEN_TURBO_RTOL,
+                err_msg=f'turbo() scenario {s} {key} against its run alone')
+    log(f'[scenarios] train_scenarios {SCEN_COUNT} x {epochs} epochs under '
+        f'turbo(no_dual_y, wy_lipschitz, highest) in one batched program on '
+        f'{card}: {res["seconds"]:.3f} s; largest relative gap to the runs '
+        f'alone {max(gaps):.3g} (held at {SCEN_TURBO_RTOL}); launches '
+        f'{launches}')
+    want = {'jacobi_sweep': epochs, 'jacobi_sweep[candidates]': epochs,
+            'chol_solve': 2 * epochs, 'interior_sweep': 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f'turbo() scenarios: launches {launches}, '
+                             f'expected {want}')
+    return launches
+
+
 def _scenario_speed(card):
     """The JAX bench's yahoo_scenarios_loose through train_scenarios on
     the card (one batched program, one interior_sweep launch an epoch),
@@ -2056,16 +2574,11 @@ def _scenario_speed(card):
     from admm_lstm_torch import api
     from admm_lstm_torch.core.init import init_admm_state
     from admm_lstm_torch.core.step import epoch_step, rules_for
-    from admm_lstm_torch.data import load_dataset
     from admm_lstm_torch.models.lstm import init_lstm_params
     from admm_lstm_torch.profile_epoch import profile_epochs, scenario_batch
     from admm_lstm_torch.utils.config import ADMMConfig
-    (tx, ty, vx, vy), ps, _ = load_dataset('YahooFinance')
-    fold, vfold = len(tx) // SCEN_COUNT, len(vx) // SCEN_COUNT
-    folds = lambda a, n: np.stack([a[i * n:(i + 1) * n]
-                                   for i in range(SCEN_COUNT)])
-    data = (folds(tx, fold), folds(ty, fold), folds(vx, vfold),
-            folds(vy, vfold))
+    data, ps = _loose_folds()
+    fold = data[0].shape[1]
     cfg = ADMMConfig(variant='no_dual_y', hidden_size=10,
                      epochs=SCEN_SPEED_EPOCHS, wy_lipschitz=True)
     kernels = _zero_launches()
@@ -2239,7 +2752,8 @@ def phase_scenarios(card):
         raise AssertionError('scenarios: non-finite losses')
     if launches != {'interior_sweep': SCEN_EPOCHS, 'jacobi_sweep': 0,
                     'chol_solve': 0, 'chol_inverse': 0, 'floor_sweep': 0,
-                    'interior_sweep[candidates]': SCEN_EPOCHS}:
+                    'interior_sweep[candidates]': SCEN_EPOCHS,
+                    'jacobi_sweep[candidates]': 0}:
         raise AssertionError(f'scenarios: launches {launches}')
     report = _hold_scenarios(train, val)
     # The control: the same batched program with TF32 matmuls allowed must
@@ -2265,9 +2779,10 @@ def phase_scenarios(card):
         f'{gaps}; readout safeguard at the final states (theta {theta}): '
         f'{json.dumps(_wy_safeguard(res["state"], theta))}')
     speed_launches = _scenario_speed(card)
+    turbo_launches = _scenario_turbo(card)
     _scenario_cli_and_visualize()
     _scenario_trace(xs, ys, vxs, vys, ps, cfg, params)
-    return launches, speed_launches
+    return launches, speed_launches, turbo_launches
 
 
 def _sharded_rank(rank, world, job):
@@ -2669,17 +3184,20 @@ def main() -> int:
     # Each kernel's launch count comes from the run of its own path.
     launches['slice1'], slice1_train, slice1_val = phase_slice1(
         tx, ty, vx, vy, ps, weights)
-    launches.update({'path_a': phase_path_a(tx, ty, vx, vy, ps, weights),
-                     'path_b': phase_path_b()})
+    launches['path_a'] = phase_path_a(tx, ty, vx, vy, ps, weights)
+    launches['path_b'], launches['path_b_candidates'] = phase_path_b()
     launches.update(phase_datasets())
     card = card_name_and_power()
     launches['tune'], tune_times = phase_tune(tx, ty, vx, vy, ps, weights,
                                               card)
+    launches['tune_auto'], auto_times = phase_tune_auto(tx, ty, vx, vy, ps,
+                                                        weights, card)
     phase_resume()
     (launches['stacked'], launches['stacked_best'],
      stacked_seconds) = phase_stacked()
     launches['legacy'] = phase_legacy(tx, ty, vx, vy, ps, weights)
-    launches['scenarios'], launches['scenarios_speed'] = phase_scenarios(card)
+    (launches['scenarios'], launches['scenarios_speed'],
+     launches['scenarios_turbo']) = phase_scenarios(card)
     launches.update(phase_sharded(tx, ty, vx, vy, ps, weights, slice1_train,
                                   slice1_val, card))
     launches['seqpar'] = phase_seqpar(card)
@@ -2709,6 +3227,11 @@ def main() -> int:
         'interior_sweep[candidates]': ('admm_lstm_torch/csrc/gate_sweep.cu',
                                        'admm_lstm_tpu/kernels/gate_sweep.py'
                                        ':184', launches['tune']),
+        # The Jacobi kernel with the candidate axis, on the auto() rho
+        # search's path.
+        'jacobi_sweep[candidates]': ('admm_lstm_torch/csrc/gate_sweep.cu',
+                                     'admm_lstm_tpu/kernels/gate_sweep.py'
+                                     ':260', launches['tune_auto']),
     }
     kernels = []
     for name, (source, replaces, counts) in meta.items():
@@ -2737,6 +3260,11 @@ def main() -> int:
             {path: counts[name] for path, counts in launches.items()})
     log(f'[tune] search_rho wall seconds {tune_times["seconds"]!r} batched, '
         f'{tune_times["alone_seconds"]!r} for the runs alone, on {card}')
+    log(f'[tune] auto() search_rho wall seconds {auto_times["seconds"]!r} '
+        f'batched at default, {auto_times["highest_seconds"]!r} at highest, '
+        f'{auto_times["alone_seconds"]!r} for the runs alone at highest; '
+        f'CLI --auto --tune_rho 1 {auto_times["cli_seconds"]!r} '
+        f'(groups {auto_times["cli_groups"]}), on {card}')
     log(f'[stacked] train_best_stacked wall seconds {stacked_seconds!r} on '
         f'{card}')
     print(json.dumps({'kernels': kernels}))

@@ -6,6 +6,8 @@ version in tests/test_torch_gpu.py.
 
 Inputs come from numpy and go to both packages as numpy arrays."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,26 +19,37 @@ from admm_lstm_tpu.core.init import init_admm_state as j_init
 from admm_lstm_tpu.core.state import Penalties as JPenalties
 from admm_lstm_tpu.core.step import admm_step as j_admm_step
 from admm_lstm_tpu.core.step import rules_for as j_rules_for
-from admm_lstm_tpu.kernels.gate_sweep import pallas_interior_sweep
+from admm_lstm_tpu.core.residuals import admm_residuals_im as j_primal
+from admm_lstm_tpu.core.residuals import dual_residuals as j_dual
+from admm_lstm_tpu.kernels.gate_sweep import (pallas_interior_sweep,
+                                              pallas_jacobi_sweep)
+from admm_lstm_tpu.solvers import normal_eq as j_ne
 from admm_lstm_tpu.models.lstm import LSTMParams as JParams
 from admm_lstm_tpu.models.lstm import params_from_dict as j_params_from_dict
 from admm_lstm_tpu.params import parameter_set as j_parameter_set
 from admm_lstm_torch.api import batch_minor
 from admm_lstm_torch.core import step as step_mod
+from admm_lstm_torch.core.consensus import Consensus
 from admm_lstm_torch.core.init import init_admm_state
+from admm_lstm_torch.core.residuals import admm_residuals_im, dual_residuals
 from admm_lstm_torch.core.state import (broadcast_state,
                                         penalties_from_vectors, take)
-from admm_lstm_torch.core.step import admm_step_im, rules_for
+from admm_lstm_torch.core.step import (admm_step_im, candidate_axis_refusal,
+                                       rules_for)
 from admm_lstm_torch.data.synthetic import load as synth
 from admm_lstm_torch.kernels.gate_sweep import (interior_sweep,
                                                 interior_sweep_plain,
+                                                jacobi_sweep,
+                                                jacobi_sweep_plain,
                                                 sweep_plan)
 from admm_lstm_torch.models.lstm import params_from_dict
 from admm_lstm_torch.params import parameter_set
+from admm_lstm_torch.solvers import normal_eq as ne
 from admm_lstm_torch.solvers import prox_linear
+from admm_lstm_torch.solvers.blocked_chol import blocked_spd_solve
 from admm_lstm_torch.solvers.prox_linear import final_h_tests, h_final_update
 from admm_lstm_torch.tune import candidate_grid
-from admm_lstm_torch.utils.config import RHO_KEYS, ADMMConfig
+from admm_lstm_torch.utils.config import AUTO_FIELDS, RHO_KEYS, ADMMConfig
 
 torch.set_num_threads(1)
 
@@ -48,14 +61,31 @@ SWEEP_ATOL = 1e-5
 # The batched epoch against the same epochs alone: the same f32 math, the
 # sums taken per candidate.
 ALONE_ATOL = 1e-5
+# The exact weight stage, batched against jax.vmap of the JAX package's:
+# f32 sums of (T*B)-long products in another order, then solves of
+# condition ~1e2 on these inputs.
+EXACT_ATOL = 1e-5
+# Residuals at f32 rounding level: an RMS of differences of a few ulps
+# of values below 1 (f32 eps 6e-8), with margin.
+ROUNDING_LEVEL = 1e-6
 S, T, H, B = 3, 5, 5, 48
 SLABS = ('i', 'f', 'g', 'o', 'c', 'h')
+TURBO = dict(sweep_mode='jacobi', exact_weight_solve=True,
+             matmul_precision='highest')
+# Every case holds to STEP_ATOL and ALONE_ATOL.  turbo() and auto() run
+# at 'highest' as their parity runs do; 'turbo_default' too, because at
+# these sizes 'default' rounds no product on the CPU: the exact stage's
+# Gram takes the einsum strategy, which keeps f32 operands, and both CPU
+# backends run f32 products in full f32 at either precision.
 CASES = [
     ('fast', dict()),
     ('no_dual_y', dict(variant='no_dual_y')),
     ('with_dual_y', dict(with_dual_y=True)),
     ('wy_lipschitz', dict(wy_lipschitz=True)),
     ('adaptive_rho', dict(adaptive_rho=True)),
+    ('turbo', TURBO),
+    ('auto', dict(AUTO_FIELDS, matmul_precision='highest')),
+    ('turbo_default', dict(TURBO, matmul_precision='default')),
 ]
 
 
@@ -301,7 +331,10 @@ def test_torch_batched_epochs_match_epochs_alone(monkeypatch, name, cfgkw,
         xs, ys = (x_im[s], y_im[s]) if per_candidate else (x_im, y_im)
         for _ in range(3):
             alone = admm_step_im(alone, xs, ys, rules)
-        assert len(thetas) == len(batched_thetas) == 9
+        # The final-h search each epoch, and the two prox-linear weight
+        # stages where no exact stage takes their place.
+        searches = 3 * (1 if cfg.exact_weight_solve else 3)
+        assert len(thetas) == len(batched_thetas) == searches
         for k, (a, b) in enumerate(zip(batched_thetas, thetas)):
             assert torch.equal(a[s].reshape(b.shape), b), (name, s, k)
         got = take(batched, s)
@@ -432,18 +465,23 @@ def test_torch_batched_epoch_host_reads(monkeypatch):
                          rules.max_backtrack) <= prox_linear.BLOCK_K
 
 
-@pytest.mark.parametrize('cfgkw,match', [
-    (dict(exact_weight_solve=True), 'exact weight solve'),
-    (dict(sweep_mode='jacobi'), 'Jacobi sweep'),
-])
-def test_torch_candidate_axis_refuses_what_it_does_not_take(cfgkw, match):
-    """The epoch with the candidate axis raises on configs it does not
-    take yet (the entry points run those one candidate after another)."""
+@pytest.mark.parametrize('layout', ['shard_time', 'model_axis'])
+def test_torch_candidate_axis_refuses_what_it_does_not_take(layout):
+    """The epoch with the candidate axis raises under the sharded layouts
+    (the JAX package vmaps no sharded run), and takes turbo() and auto()
+    in one process."""
     cfg, _, x, y, state, _ = _states({}, False)
     x_im, y_im, _, _ = batch_minor(*(torch.from_numpy(a)
                                      for a in (x, y, x, y)))
-    with pytest.raises(ValueError, match=match):
-        admm_step_im(state, x_im, y_im, rules_for(ADMMConfig(**cfgkw)))
+    for config in (ADMMConfig.turbo(), ADMMConfig.auto()):
+        assert candidate_axis_refusal(rules_for(config)) is None
+    rules = rules_for(ADMMConfig.turbo())
+    rules = (dataclasses.replace(rules, shard_time=True)
+             if layout == 'shard_time' else
+             dataclasses.replace(rules, model=Consensus(world=2)))
+    assert 'one process' in candidate_axis_refusal(rules)
+    with pytest.raises(ValueError, match='one process'):
+        admm_step_im(state, x_im, y_im, rules)
 
 
 def test_torch_batched_init_with_shared_data_matches_inits_alone():
@@ -472,9 +510,10 @@ def test_torch_batched_init_with_shared_data_matches_inits_alone():
 
 
 def test_torch_configs_without_the_axis_train_one_after_another():
-    """Under turbo() (the exact weight solve and the Jacobi sweep, which
-    take no candidate axis yet) search_rho and train_scenarios train their
-    candidates one after another: each one's losses are its run alone."""
+    """Under turbo() (the exact weight solve and the Jacobi sweep) search_rho
+    and train_scenarios train their candidates as one batched program:
+    each one's losses are its run alone, within 1e-6 relative (f32; the
+    batched products may sum in another order than a run alone)."""
     from admm_lstm_torch import api, tune
     tx, ty, vx, vy = synth(batch=B, seq_len=T, input_size=2, val_batch=8,
                            seed=3)
@@ -505,3 +544,219 @@ def test_torch_configs_without_the_axis_train_one_after_another():
                           log_every=0, device='cpu')
         np.testing.assert_allclose(res['val_loss'][s], alone['val_loss'],
                                    rtol=1e-6)
+
+
+def _jacobi_inputs(count, steps, hidden, batch, seed):
+    """`_sweep_inputs` with pre in place of xproj and the previous sweep's
+    h and c."""
+    pre, _, gates, duals, rho = _sweep_inputs(count, steps, hidden, batch,
+                                              seed)
+    rng = np.random.default_rng(seed + 100)
+    h_prev, c_prev = ((rng.standard_normal((count, steps, hidden, batch))
+                       * 0.2).astype(np.float32) for _ in range(2))
+    return pre, gates, duals, h_prev, c_prev, rho
+
+
+@pytest.mark.parametrize('count,steps,hidden,batch', [(3, 4, 5, 16),
+                                                      (2, 6, 3, 37)])
+def test_torch_batched_plain_jacobi_sweep_matches_vmapped_pallas(
+        count, steps, hidden, batch):
+    """The batched plain Jacobi sweep against jax.vmap of the Pallas
+    kernel in interpret mode, and each candidate against the sweep
+    alone."""
+    pre, gates, duals, h_prev, c_prev, rho = _jacobi_inputs(
+        count, steps, hidden, batch, seed=count)
+    j = jnp.asarray
+    ref_g, ref_d = jax.vmap(lambda *a: pallas_jacobi_sweep(
+        *a, interpret=True))(j(pre), tuple(map(j, gates)),
+                             tuple(map(j, duals)), j(h_prev), j(c_prev),
+                             j(rho))
+    t = torch.from_numpy
+    args = (t(pre), tuple(map(t, gates)), tuple(map(t, duals)), t(h_prev),
+            t(c_prev), t(rho))
+    got_g, got_d = jacobi_sweep_plain(*args)
+    for k, (a, b) in enumerate(zip(got_g + got_d, ref_g + ref_d)):
+        assert a.shape == (count, steps, hidden, batch)
+        np.testing.assert_allclose(_np(a), np.asarray(b), atol=SWEEP_ATOL,
+                                   err_msg=f'output {k}')
+    for c in range(count):
+        alone = jacobi_sweep_plain(args[0][c], [g[c] for g in args[1]],
+                                   [d[c] for d in args[2]], args[3][c],
+                                   args[4][c], args[5][c])
+        for a, b in zip(got_g + got_d, alone[0] + alone[1]):
+            assert torch.equal(a[c], b)
+
+
+def test_torch_batched_jacobi_wrapper_takes_strided_slabs():
+    """On CPU tensors `jacobi_sweep` runs the plain version for the axis
+    too, and takes slabs that are slices of (S, T+1, H, B) state slabs
+    (one candidate stride, contiguous within a candidate), h_prev and
+    c_prev among them; it refuses slabs that are not, and a rho without
+    the axis."""
+    pre, gates, duals, h_prev, c_prev, rho = (
+        torch.from_numpy(a) if isinstance(a, np.ndarray) else
+        tuple(map(torch.from_numpy, a))
+        for a in _jacobi_inputs(3, 4, 5, 8, seed=7))
+    padded = [torch.cat([torch.zeros_like(s[:, :1]), s,
+                         torch.zeros_like(s[:, :1])], dim=1)
+              for s in (*gates, *duals, h_prev, c_prev)]
+    sliced = [s[:, 1:-1] for s in padded]
+    before = jacobi_sweep.launches
+    got = jacobi_sweep(pre, sliced[:6], sliced[6:12], sliced[12], sliced[13],
+                       rho)
+    want = jacobi_sweep_plain(pre, gates, duals, h_prev, c_prev, rho)
+    assert jacobi_sweep.launches == before
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match='within a candidate'):
+        jacobi_sweep(pre, gates, duals, h_prev,
+                     c_prev.transpose(-2, -1).contiguous().transpose(-2, -1),
+                     rho)
+    with pytest.raises(ValueError, match='one candidate stride'):
+        jacobi_sweep(pre, sliced[:6], duals, h_prev, c_prev, rho)
+    with pytest.raises(ValueError, match='rho_vec'):
+        jacobi_sweep(pre, gates, duals, h_prev, c_prev, rho[0])
+
+
+def _stage_inputs(count, dim, per_candidate):
+    """`count` candidates' exact-stage inputs in the wide layout (as
+    tests/test_torch_normal_eq.py's): m shared (T, D, B) or per candidate,
+    the rest per candidate, rho and beta differing."""
+    steps, hidden, batch = 4, 3, 24
+    rng = np.random.default_rng(dim + 7 * per_candidate)
+    m_shape = ((count,) if per_candidate else ()) + (steps, dim, batch)
+    m = (rng.standard_normal(m_shape) / np.sqrt(dim)).astype(np.float32)
+    w = (rng.standard_normal((count, dim, 4 * hidden)) * 0.5).astype(
+        np.float32)
+    other = (rng.standard_normal((count, steps, 4 * hidden, batch)) * 0.3
+             ).astype(np.float32)
+    pre = (np.einsum('...tdb,...dk->...tkb', m, w) + other).astype(np.float32)
+    target = rng.uniform(-0.5, 0.9, (count, steps, 4 * hidden, batch)
+                         ).astype(np.float32)
+    scale = np.asarray([0.5, 1.0, 2.0][:count], np.float32)[:, None]
+    rho = np.asarray([1.0, 0.8, 1.2, 0.5], np.float32) * scale
+    beta = np.asarray([0.1, 0.2, 0.05, 0.3], np.float32) * scale
+    tanh_cols = np.repeat(np.asarray([False, False, True, False]), hidden)
+    return m, pre, w, target, rho, beta, tanh_cols
+
+
+@pytest.mark.parametrize('per_candidate', [False, True],
+                         ids=['shared_m', 'per_candidate_m'])
+@pytest.mark.parametrize('dim,strategy', [(3, None), (10, 'wide'),
+                                          (130, 'blocktri')])
+def test_torch_batched_exact_stage_matches_jax_vmap(monkeypatch, dim,
+                                                    strategy, per_candidate):
+    """The exact weight stage of S candidates in one call against
+    jax.vmap of the JAX package's, and against each candidate's stage
+    alone: the Gram per candidate (einsum, or forced wide or blocktri),
+    one batched solve of the S x 4H systems (chol_solve's plain version,
+    or the blocked solve at D = 130), at 'highest'."""
+    if strategy:
+        monkeypatch.setenv('ADMM_GRAM_STRATEGY', strategy)
+        monkeypatch.setattr(ne, '_gram_strategy', lambda *a: strategy)
+    args = _stage_inputs(S, dim, per_candidate)
+    in_axes = (0 if per_candidate else None, 0, 0, 0, 0, 0, None)
+    want = jax.vmap(lambda *a: j_ne.gauss_newton_ridge_update_wide(
+        *a, jax.lax.Precision.HIGHEST), in_axes=in_axes)(
+            *map(jnp.asarray, args))
+    t_args = tuple(map(torch.from_numpy, args))
+    solves = []
+    real = ne.chol_solve_plain if dim <= 128 else ne.blocked_spd_solve
+    name = 'chol_solve' if dim <= 128 else 'blocked_spd_solve'
+    monkeypatch.setattr(ne, name, lambda *a, **k: solves.append(a[0].shape)
+                        or real(*a, **k))
+    got = ne.gauss_newton_ridge_update_wide(*t_args, 'highest')
+    assert got.shape == (S, dim, 12)
+    assert solves == [(S * 12, dim, dim)]
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=EXACT_ATOL,
+                               atol=EXACT_ATOL)
+    for c in range(S):
+        alone = ne.gauss_newton_ridge_update_wide(
+            t_args[0][c] if per_candidate else t_args[0],
+            *(a[c] for a in t_args[1:6]), t_args[6], 'highest')
+        np.testing.assert_allclose(_np(got[c]), _np(alone), rtol=ALONE_ATOL,
+                                   atol=ALONE_ATOL)
+
+
+def test_torch_blocked_spd_solve_on_candidates():
+    """blocked_spd_solve on S x K systems at D = 130 (4H = 8 columns of 3
+    candidates in one batch, the diagonal blocks of all of them through
+    one chol_inverse call a panel) against each candidate's K systems
+    alone and against torch.linalg.solve."""
+    rng = np.random.default_rng(4)
+    count, cols, dim = 3, 8, 130
+    m = rng.standard_normal((count * cols, dim, dim)).astype(np.float32)
+    a = torch.from_numpy(m @ m.transpose(0, 2, 1) / dim
+                         + np.eye(dim, dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal((count * cols, dim)).astype(
+        np.float32))
+    got = blocked_spd_solve(a, b)
+    for c in range(count):
+        rows = slice(c * cols, (c + 1) * cols)
+        np.testing.assert_allclose(_np(got[rows]),
+                                   _np(blocked_spd_solve(a[rows], b[rows])),
+                                   rtol=ALONE_ATOL, atol=ALONE_ATOL)
+    np.testing.assert_allclose(_np(got), _np(torch.linalg.solve(a, b)),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize('per_candidate', [False, True],
+                         ids=['shared_data', 'per_candidate_data'])
+def test_torch_adaptive_rho_tie_at_the_forward_pass_init(per_candidate):
+    """The adaptive-rho choice from the forward-pass init (no noise), the
+    `_rho_table` grid: wherever the two packages' new rho differ for a
+    candidate and family, it is a tie: both packages' primal and dual
+    residuals of that family are below ROUNDING_LEVEL, so `r > mu * s`
+    compares f32 rounding (core/residuals.balanced_rho in both
+    packages)."""
+    cfgkw = dict(adaptive_rho=True)
+    x, y = _data(per_candidate)
+    table = _rho_table()
+    ps, j_ps = parameter_set('Synthetic'), j_parameter_set('Synthetic')
+    cfg, j_cfg = ADMMConfig(**cfgkw), JConfig(**cfgkw)
+    w = _weights(21, S if per_candidate else None)
+    if per_candidate:
+        state = init_admm_state(params_from_dict(w), torch.from_numpy(x), ps,
+                                cfg)
+        gates = lambda side: jnp.asarray(np.stack(
+            [w[f'{side}2{g}'] for g in 'ifgo'], 1))
+        j_state = jax.vmap(lambda p, xs: j_init(p, xs, j_ps, j_cfg))(
+            JParams(gates('x'), gates('h'), jnp.asarray(w['wy'])),
+            jnp.asarray(x))
+    else:
+        state = broadcast_state(init_admm_state(
+            params_from_dict(w), torch.from_numpy(x), ps, cfg), S)
+        j_state = jax.tree.map(
+            lambda a: jnp.broadcast_to(a[None], (S,) + a.shape),
+            j_init(j_params_from_dict(w), jnp.asarray(x), j_ps, j_cfg))
+    state = state._replace(rho=penalties_from_vectors(table))
+    j_state = j_state._replace(rho=JPenalties(
+        *(jnp.asarray(table[:, k]) for k in range(7))))
+    j_rules = j_rules_for(j_cfg)
+    axes = 0 if per_candidate else None
+    j_x_im = jnp.asarray(np.moveaxis(x, -3, -1))      # (..., T, I, B)
+    j_new = jax.jit(jax.vmap(lambda s, a, b: j_admm_step(s, a, b, j_rules),
+                             in_axes=(0, axes, axes)))(
+        j_state, jnp.asarray(x), jnp.asarray(y))
+    j_kept = j_new._replace(rho=j_state.rho)
+    j_r = jax.vmap(lambda s, xi: j_primal(s, xi, jax.lax.Precision.HIGHEST),
+                   in_axes=(0, axes))(j_kept, j_x_im)
+    j_s = jax.vmap(j_dual)(j_kept, j_state.gates)
+
+    x_im, y_im, _, _ = batch_minor(torch.from_numpy(x), torch.from_numpy(y),
+                                   torch.from_numpy(x), torch.from_numpy(y))
+    new = admm_step_im(state, x_im, y_im, rules_for(cfg))
+    kept = new._replace(rho=state.rho)
+    r, s_ = admm_residuals_im(kept, x_im), dual_residuals(kept, state.gates)
+    ties = []
+    for k in RHO_KEYS:
+        got = _np(getattr(new.rho, k))
+        want = np.asarray(getattr(j_new.rho, k))
+        for c in np.nonzero(got != want)[0]:
+            vals = [float(r[f'r_{k}'][c]), float(s_[f's_{k}'][c]),
+                    float(j_r[f'r_{k}'][c]), float(j_s[f's_{k}'][c])]
+            ties.append((k, int(c), got[c], want[c], vals))
+            assert max(vals) < ROUNDING_LEVEL, (
+                f'rho_{k} of candidate {c}: {got[c]} against JAX\'s '
+                f'{want[c]}, residuals (port r, s, JAX r, s) {vals}')
+    print(f'adaptive-rho ties at the forward-pass init: {ties}')

@@ -88,6 +88,21 @@ def test_torch_chip_reference_tune_grid(googlestock):
     assert res['best_rho'] == chip_smoke.TUNE_BEST_RHO
 
 
+def test_torch_chip_reference_auto_tune_grid(googlestock):
+    """search_rho's 27 validation losses and best rho under auto() on
+    GoogleStock (about half a minute on the CPU), at auto()'s 'default'
+    and at 'highest', which agree on the CPU."""
+    tx, ty, vx, vy, ps, weights = googlestock
+    for precision in ('default', 'highest'):
+        res = j_tune.search_rho(
+            tx, ty, vx, vy, ps,
+            JConfig.auto(hidden_size=10, matmul_precision=precision),
+            epochs=chip_smoke.EPOCHS, params=params_from_dict(weights))
+        np.testing.assert_allclose(res['val_losses'],
+                                   chip_smoke.AUTO_TUNE_VAL, rtol=RTOL)
+        assert res['best_rho'] == chip_smoke.AUTO_TUNE_BEST_RHO
+
+
 @pytest.mark.parametrize('name', sorted(chip_smoke.DATASET_REF))
 def test_torch_chip_reference_dataset_losses(name):
     """The default config's DATASET_EPOCHS-epoch trajectories on SMSSpam

@@ -1,5 +1,5 @@
 """Tests of the port's CUDA kernels (the Gauss-Seidel and Jacobi sweeps,
-the Gauss-Seidel sweep with the candidate axis, the serial-floor probe,
+both with the candidate axis too, the serial-floor probe,
 the batched Cholesky solve and inverse), of the rho search's batched
 program, of the
 legacy variants' epochs, of data-parallel ranks (gloo ranks sharing the
@@ -190,6 +190,34 @@ def test_torch_cuda_batched_search_rho_matches_cpu(cuda):
     assert got['best_rho'] == cpu['best_rho']
 
 
+@pytest.mark.parametrize('config', ['turbo', 'auto'])
+def test_torch_cuda_batched_turbo_search_rho_matches_cpu(cuda, config):
+    """tune.search_rho under turbo() and auto() at 'highest' on the card,
+    one batched program (one jacobi_sweep launch with the axis and two
+    chol_solve an epoch for the whole grid), against the same search on
+    the CPU."""
+    from admm_lstm_torch import tune
+    tx, ty, vx, vy = synth(batch=200, seq_len=8, input_size=1,
+                           output_size=1, val_batch=40, seed=4)
+    params = init_lstm_params(torch.Generator().manual_seed(1), 1, 6, 1)
+    ps = parameter_set('Synthetic')
+    cfg = getattr(ADMMConfig, config)(hidden_size=6,
+                                      matmul_precision='highest')
+    cpu = tune.search_rho(tx, ty, vx, vy, ps, cfg, epochs=4, params=params,
+                          device='cpu')
+    before = (jacobi_sweep.launches, jacobi_sweep.candidate_launches,
+              chol_solve.launches, interior_sweep.launches)
+    got = tune.search_rho(tx, ty, vx, vy, ps, cfg, epochs=4, params=params,
+                          device='cuda')
+    assert (jacobi_sweep.launches - before[0],
+            jacobi_sweep.candidate_launches - before[1],
+            chol_solve.launches - before[2],
+            interior_sweep.launches - before[3]) == (4, 4, 8, 0)
+    np.testing.assert_allclose(got['val_losses'], cpu['val_losses'],
+                               rtol=1e-4)
+    assert got['best_rho'] == cpu['best_rho']
+
+
 def test_torch_cuda_step_kernel_matches_plain_loop(cuda):
     """Three epochs with the kernel and with the plain loop on the card."""
     tx, ty, _, _ = synth(batch=300, seq_len=6, input_size=2, val_batch=4)
@@ -342,6 +370,92 @@ def test_torch_cuda_jacobi_refuses_float4_on_misaligned_slabs(cuda):
     args = _jacobi_inputs(3, 4, 8, cuda, offset=1)
     with pytest.raises(RuntimeError):
         jacobi_sweep(*args, plan=JacobiPlan(4, 1, 128, 1))
+
+
+JACOBI_BATCHED_SHAPES = [
+    (27, 9, 10, 4224),   # the GoogleStock rho grid under auto()
+    (4, 59, 10, 340),    # the scenario batch under turbo()
+    (3, 9, 128, 2048),   # Path B's three candidates
+    (3, 5, 7, 1001),     # H * B odd: one float at a time
+    (2, 4, 3, 37),       # fewer items than a block
+    (1, 6, 7, 52),       # one candidate on the axis
+]
+
+
+@pytest.mark.parametrize('cands,steps,hidden,batch', JACOBI_BATCHED_SHAPES)
+def test_torch_cuda_batched_jacobi_matches_plain(cuda, cands, steps, hidden,
+                                                 batch):
+    """The Jacobi kernel with the candidate axis, one launch for all S on
+    slabs sliced as the epoch slices the state's, against its plain
+    version."""
+    args = chip_smoke.jacobi_candidate_inputs(cands, steps, hidden, batch, 3)
+    before = (jacobi_sweep.launches, jacobi_sweep.candidate_launches)
+    got = jacobi_sweep(*args)
+    torch.cuda.synchronize()
+    assert (jacobi_sweep.launches,
+            jacobi_sweep.candidate_launches) == (before[0] + 1, before[1] + 1)
+    want = jacobi_sweep_plain(*args)
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert a.shape == (cands, steps, hidden, batch)
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize('cands,steps,hidden,batch', JACOBI_BATCHED_SHAPES)
+def test_torch_cuda_batched_jacobi_matches_launches_alone(cuda, cands, steps,
+                                                          hidden, batch):
+    """One launch with the axis against S launches without it: bit-equal,
+    since every element runs the same arithmetic in either float width
+    (test_torch_cuda_jacobi_instances_identical)."""
+    args = chip_smoke.jacobi_candidate_inputs(cands, steps, hidden, batch, 5)
+    got = jacobi_sweep(*args)
+    pre, gates, duals, h_prev, c_prev, rho = args
+    for s in range(cands):
+        want = jacobi_sweep(pre[s], tuple(g[s].contiguous() for g in gates),
+                            tuple(d[s].contiguous() for d in duals),
+                            h_prev[s].contiguous(), c_prev[s].contiguous(),
+                            rho[s])
+        for a, b in zip(got[0] + got[1], want[0] + want[1]):
+            assert torch.equal(a[s], b), s
+
+
+def test_torch_cuda_batched_jacobi_refuses_float4_on_odd_strides(cuda):
+    """A float4 plan on candidates whose slabs start an odd number of
+    floats apart raises; the kernel never falls back."""
+    pre, gates, duals, h_prev, c_prev, rho = (
+        chip_smoke.jacobi_candidate_inputs(2, 3, 4, 8, 1))
+
+    def odd(t):                 # 16-byte aligned, 97 floats apart
+        full = torch.zeros((2, 3 * 32 + 1), device=cuda)
+        view = full[:, :96].view(2, 3, 4, 8)
+        view.copy_(t)
+        return view
+
+    with pytest.raises(RuntimeError):
+        jacobi_sweep(pre, tuple(map(odd, gates)), tuple(map(odd, duals)),
+                     odd(h_prev), odd(c_prev), rho,
+                     plan=JacobiPlan(4, 1, 128, 1))
+
+
+@pytest.mark.parametrize('which,cands,n,dim', [
+    ('solve', 27, 40, 10),     # the auto() rho grid's h stage
+    ('solve', 27, 40, 1),      # and its x stage
+    ('solve', 3, 512, 128),
+    ('inverse', 3, 512, 64),   # Path B's three candidates' blocks
+    ('inverse', 2, 7, 33)])
+def test_torch_cuda_batched_chol_matches_calls_alone(cuda, which, cands, n,
+                                                     dim):
+    """One call on S x N systems (the candidates' systems folded into N,
+    as the exact stage folds them) against S calls on N alone:
+    bit-equal, each system runs in a warp or a block of its own."""
+    a, b = _spd(cands * n, dim, seed=dim + 3, device=cuda)
+    if which == 'solve':
+        got = chol_solve(a, b)
+        want = [chol_solve(a[s * n:(s + 1) * n], b[s * n:(s + 1) * n])
+                for s in range(cands)]
+    else:
+        got = chol_inverse(a)
+        want = [chol_inverse(a[s * n:(s + 1) * n]) for s in range(cands)]
+    assert torch.equal(got, torch.cat(want))
 
 
 def _spd(n, dim, seed, device):

@@ -3,7 +3,8 @@ jacobi_plan), on the CPU: which vector width it takes, that the grid fills
 the card in whole waves where the sweep is large enough, and, walking
 every thread's items as csrc/gate_sweep.cu's jacobi_sweep_kernel does
 (first item and stride divided into (step, offset) once, then added),
-that every item of the sweep is taken exactly once."""
+that every item of the sweep is taken exactly once, with the candidate
+axis too."""
 
 import numpy as np
 import pytest
@@ -30,49 +31,60 @@ SHAPES = [
 ]
 
 
-def _walk(plan, steps, n):
-    """How often each item (step, offset) is taken, and the most any
-    thread takes, walking as the kernel does."""
+def _walk(plan, cands, steps, n):
+    """How often each item (candidate, step, offset) is taken, and the
+    most any thread takes, walking as the kernel does: the first item and
+    the stride divided into (candidate, step, offset) once, then added
+    with a carry from the offset into the step and from the step into the
+    candidate."""
     lanes = plan.grid * plan.threads
     first = np.arange(lanes)
-    s, o = first // n, first % n
-    ds, dof = divmod(lanes, n)
-    seen = np.zeros(steps * n, np.int64)
+    row, o = first // n, first % n
+    c, s = row // steps, row % steps
+    drow, dof = divmod(lanes, n)
+    dc, ds = divmod(drow, steps)
+    seen = np.zeros(cands * steps * n, np.int64)
     taken = np.zeros(lanes, np.int64)
-    live = s < steps
+    live = c < cands
     while live.any():
-        np.add.at(seen, s[live] * n + o[live], 1)
+        np.add.at(seen, (c[live] * steps + s[live]) * n + o[live], 1)
         taken += live
-        s, o = s + ds, o + dof
+        c, s, o = c + dc, s + ds, o + dof
         wrap = o >= n
         s, o = s + wrap, o - wrap * n
-        live = s < steps
+        wrap = s >= steps
+        c, s = c + wrap, s - wrap * steps
+        live = c < cands
     return seen, int(taken.max())
 
 
+@pytest.mark.parametrize('candidates', [1, 3])
 @pytest.mark.parametrize('aligned', [True, False])
 @pytest.mark.parametrize('card', sorted(CARDS))
 @pytest.mark.parametrize('steps,hidden,batch', SHAPES)
-def test_torch_jacobi_plan(steps, hidden, batch, card, aligned):
-    """Every shape gets a plan; float4 only on aligned slabs of H * B % 4
-    == 0 whose items fill a wave; one whole wave of resident blocks where
-    the items fill it, else every block with an item; each item taken
-    exactly once, no thread taking more than `per_thread`."""
+def test_torch_jacobi_plan(steps, hidden, batch, card, aligned, candidates):
+    """Every shape gets a plan, for one sweep and for three on the
+    candidate axis; float4 only on aligned slabs of H * B % 4 == 0 whose
+    items (every candidate's) fill a wave; one whole wave of resident
+    blocks where the items fill it, else every block with an item; each
+    item taken exactly once, no thread taking more than `per_thread`."""
     sms, blocks = CARDS[card]
-    plan = jacobi_plan(steps, hidden, batch, sms, blocks, aligned)
+    plan = jacobi_plan(steps, hidden, batch, sms, blocks, aligned,
+                       candidates)
     slab = hidden * batch
-    fills4 = steps * slab // 4 >= sms * blocks[4] * JACOBI_THREADS
+    fills4 = (candidates * steps * slab // 4
+              >= sms * blocks[4] * JACOBI_THREADS)
     assert plan.vec == (4 if aligned and slab % 4 == 0 and fills4 else 1)
     assert plan.threads == JACOBI_THREADS
     n = slab // plan.vec
-    items = steps * n
+    items = candidates * steps * n
     wave = sms * blocks[plan.vec]
     if items >= wave * plan.threads:
         assert plan.grid == wave and plan.grid % sms == 0
     else:
         assert plan.grid == -(-items // plan.threads)
     assert plan.per_thread == -(-items // (plan.grid * plan.threads))
-    seen, most = _walk(plan, steps, n)
+    seen, most = _walk(plan, candidates, steps, n)
     assert (seen == 1).all()
     assert most == plan.per_thread
 
@@ -91,6 +103,15 @@ def test_torch_jacobi_plan_main_shapes():
         jacobi_plan(0, 10, 4224, sms, blocks, True)
     with pytest.raises(ValueError):
         jacobi_plan(9, 10, 4224, sms, {4: 0, 1: 8}, True)
+    # The candidate axis: the rho grid and the scenario batch in one
+    # launch; one candidate is the plan without the axis.
+    assert jacobi_plan(9, 10, 4224, sms, blocks, True, 27) == JacobiPlan(
+        4, 51, 128, 396)
+    assert jacobi_plan(59, 10, 340, sms, blocks, True, 4).vec == 4
+    assert jacobi_plan(9, 10, 4224, sms, blocks, True, 1) == jacobi_plan(
+        9, 10, 4224, sms, blocks, True)
+    with pytest.raises(ValueError, match='candidates'):
+        jacobi_plan(9, 10, 4224, sms, blocks, True, 0)
 
 
 def test_torch_jacobi_wrapper_cpu_ignores_plan():
