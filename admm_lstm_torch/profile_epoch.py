@@ -25,7 +25,10 @@ a Python number or bool, and a copy from pageable host memory such as
 costliest kernels.  `--layers N` (N >= 2) profiles the stacked variant's epoch
 instead (variants/stacked.py, ParameterSet 'Stacked', hiddens
 [H] + [H2 or H] * (N - 1), the default config; --config and --data har
-do not apply).  `--variant admm_l|admm_s` profiles an ADMM-LSTM-L or -S
+do not apply; with `--candidates S`, one batched stacked epoch of the
+first S points of the 'Stacked' tuning's grid on the chosen data, as
+`tune.search_rho_stacked` trains them: `--layers 2 --hidden 8
+--candidates 27`).  `--variant admm_l|admm_s` profiles an ADMM-LSTM-L or -S
 epoch (variants/admm_l.py, admm_s.py: the step and the two losses, from
 the reference's seeded init, the default rules), `sgd|adam|adagrad` one
 full-batch step of a gradient baseline at its default learning rate with
@@ -73,15 +76,16 @@ def main(argv=None) -> int:
     parser.add_argument('--candidates', type=int, default=0)
     parser.add_argument('--scenarios', action='store_true')
     args = parser.parse_args(argv)
-    if args.candidates and (args.layers > 1 or args.variant != 'fast'):
-        parser.error('--candidates takes one layer and the fast variant')
+    if args.candidates and args.variant != 'fast':
+        parser.error('--candidates takes the fast variant')
     if args.scenarios and (not args.candidates or args.config != 'default'
                            or args.data == 'har'):
         parser.error('--scenarios needs --candidates S and takes the CLI\'s '
                      '--scenarios config (no --config, no --data har)')
-    if args.layers >= 2 and (args.config != 'default' or args.data == 'har'):
+    if args.layers >= 2 and (args.config != 'default' or args.data == 'har'
+                             or args.scenarios):
         parser.error('--layers >= 2 takes the default config and a bundled '
-                     'dataset')
+                     'dataset (no --scenarios)')
     if args.variant != 'fast' and (args.config != 'default' or args.layers > 1
                                    or args.data == 'har'):
         parser.error('--variant admm_l|admm_s|sgd|adam|adagrad takes the '
@@ -129,6 +133,9 @@ def main(argv=None) -> int:
             stacked.init_stacked(torch.Generator().manual_seed(0),
                                  tx.shape[2], hiddens, ty.shape[1],
                                  device=dev), f(tx), ps, cfg)
+        if args.candidates:
+            state = rho_grid(state, ps, args.candidates,
+                             stacked.broadcast_stacked_state)
 
         def epoch(state):
             state = stacked.stacked_admm_step_im(state, x_im, y_im, rules)
@@ -166,17 +173,19 @@ def main(argv=None) -> int:
     return 0
 
 
-def rho_grid(state, ps, count: int):
+def rho_grid(state, ps, count: int, broadcast=None):
     """`state` (without the candidate axis) broadcast over the first
-    `count` points of `tune.candidate_grid(ps)`, repeated past its end."""
+    `count` points of `tune.candidate_grid(ps)`, repeated past its end, by
+    `broadcast` (core/state.broadcast_state, or the stacked state's
+    `variants/stacked.broadcast_stacked_state`)."""
     import numpy as np
 
     from admm_lstm_torch.core.state import (broadcast_state,
                                             penalties_from_vectors)
     from admm_lstm_torch.tune import candidate_grid
     grid = np.resize(candidate_grid(ps), (count, 7))
-    return broadcast_state(state, count, penalties_from_vectors(
-        grid, device=state.gates.h.device))
+    return (broadcast or broadcast_state)(state, count, penalties_from_vectors(
+        grid, device=state.params.wy.device))
 
 
 def scenario_batch(count: int, hidden: int, dev):

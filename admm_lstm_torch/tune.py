@@ -9,7 +9,8 @@ ADMM state, differing only in rho, and the candidates are ranked by
 their final validation loss (a non-finite loss ranks last).
 
 The JAX package trains the whole grid as one vmapped program
-(`_vmapped_rho_search`), under any config.  So does `search_rho` here:
+(`_vmapped_rho_search`), under any config, for one layer and for the
+stacked variant.  So does `search_rho` here:
 one state with the candidate axis (core/state.py) from the same initial
 weights and state, rho from the candidates, `epochs` batched epochs of
 the same epoch code as `api.train` (`core/step.admm_step_im`: on CUDA
@@ -19,11 +20,10 @@ batched Cholesky solve), then one batched loss.  The line searches search
 per candidate, so each candidate's numbers are those of a run alone, as
 the JAX package's masked loops make them.  When the card runs out of
 memory the group of candidates halves and each half trains on its own
-(`_run_in_groups`, as the JAX package's).
-
-The stacked variant's searches train their candidates one after another,
-each through `_run_in_groups` alone; the log line names the route that
-ran.
+(`_run_in_groups`, as the JAX package's).  `search_rho_stacked` does the
+same with the stacked epoch (variants/stacked.py: the candidate axis
+through its sweep, rho_z per candidate where `z_candidates` gives it,
+layer 0's exact stage one batched `chol_solve` call a side for all S).
 """
 
 from __future__ import annotations
@@ -113,23 +113,14 @@ def search_rho(train_x, train_y, val_x, val_y, base: ParameterSet,
     return _ranked(candidates, losses, base)
 
 
-def _train_all(name, candidates, epochs, train_group, refusal=None):
+def _train_all(name, candidates, epochs, train_group):
     """The (N, 2) train and validation losses of every candidate on the
-    host: all N as one batched program if `refusal` is None, else one
-    after another (`refusal` says why), each through `_run_in_groups`.
+    host, all N as one batched program through `_run_in_groups`.
     `train_group(lo, hi)` trains candidates lo..hi-1 and returns their
     (hi - lo, 2) losses."""
     n = len(candidates)
-    if refusal is None:
-        info(f'{name}: {n} candidates x {epochs} epochs in one batched '
-             f'program')
-        losses = _run_in_groups(name, candidates, train_group, 0, n)
-    else:
-        info(f'{name}: {n} candidates x {epochs} epochs, one after another '
-             f'({refusal})')
-        losses = torch.cat([_run_in_groups(name, candidates, train_group, k,
-                                           k + 1) for k in range(n)])
-    return losses.cpu().numpy()
+    info(f'{name}: {n} candidates x {epochs} epochs in one batched program')
+    return _run_in_groups(name, candidates, train_group, 0, n).cpu().numpy()
 
 
 def _run_in_groups(name, candidates, train_group, lo, hi):
@@ -182,7 +173,8 @@ def search_rho_stacked(train_x, train_y, val_x, val_y, base: ParameterSet,
                        params=None, device='cuda') -> Dict[str, object]:
     """`search_rho` for the stacked N-layer variant (JAX tune.py:127-160):
     every candidate trains `epochs` stacked epochs from the same initial
-    weights and state.
+    weights and state, all of them as one batched program on the
+    candidate axis (halving where the card runs out of memory).
 
     z_candidates: optional (N,) values of the stacked variant's rho_z,
     one per candidate; the winner's is folded back into
@@ -190,7 +182,8 @@ def search_rho_stacked(train_x, train_y, val_x, val_y, base: ParameterSet,
     params: the initial StackedParams (default: `init_stacked` from
     `torch.Generator().manual_seed(config.seed)`).
     """
-    from admm_lstm_torch.variants.stacked import (init_stacked,
+    from admm_lstm_torch.variants.stacked import (broadcast_stacked_state,
+                                                  init_stacked,
                                                   init_stacked_state,
                                                   stacked_admm_step_im,
                                                   stacked_train_val_mse_im)
@@ -216,20 +209,20 @@ def search_rho_stacked(train_x, train_y, val_x, val_y, base: ParameterSet,
         x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x,
                                                  val_y)
 
-        def train_one(n, _):
-            state = base_state._replace(rho=penalties_from_vectors(
-                candidates[n], device=device))
-            if z_candidates is not None:
-                state = state._replace(rho_z=torch.tensor(
-                    z_candidates[n], dtype=torch.float32, device=device))
+        def train_group(lo, hi):
+            """Candidates lo..hi-1 from base_state (which the step never
+            writes), as one batched program."""
+            state = broadcast_stacked_state(
+                base_state, hi - lo,
+                penalties_from_vectors(candidates[lo:hi], device=device),
+                None if z_candidates is None else z_candidates[lo:hi])
             for _ in range(epochs):
                 state = stacked_admm_step_im(state, x_im, y_im, rules)
             return torch.stack(stacked_train_val_mse_im(
-                state.params, xall_im, y_im, vy_im))[None]
+                state.params, xall_im, y_im, vy_im), dim=-1)
 
         losses = _train_all('search_rho_stacked', candidates, epochs,
-                            train_one, 'the stacked variant has no '
-                            'candidate axis yet')
+                            train_group)
     out = _ranked(candidates, losses, base)
     if z_candidates is not None:
         out['best_z'] = float(z_candidates[out['order'][0]])

@@ -35,11 +35,23 @@ per-epoch inverse and the upper-layer solves use `torch.linalg.inv_ex`
 and `solve_ex`, which do not check for errors on the host, so the only
 host syncs of an epoch are the final-h search's
 (solvers/prox_linear.h_final_update).
+
+The candidate axis (core/state.py) runs S independent stacks in one
+epoch, the JAX package's `vmap` of its stacked epoch written out, as
+`tune.search_rho_stacked` trains its candidates: every leaf of the state
+carries a leading S (`broadcast_stacked_state`, `take`, `unstack`), the
+time axis of every slab moves to axis 1, the products are `...`-einsums
+and broadcasting matmuls, each rho is viewed as (S, 1, ...), and rho_z is
+(S,) or one 0-d penalty shared by the candidates.  The data is shared by
+the candidates.  Layer 0's exact stage solves the S x 4H systems of each
+side in one `chol_solve` call; the final-h search searches per candidate
+with one host read per block for all of them.  A state without the axis
+takes the same code.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +59,7 @@ import torch
 from admm_lstm_torch.api import _as_tensor
 from admm_lstm_torch.core.state import (DualSlabs, GateSlabs, Penalties,
                                         Ridges, penalties_from, ridges_from)
-from admm_lstm_torch.core.step import (StepRules, _from_wide,
+from admm_lstm_torch.core.step import (StepRules, _from_wide, _per_candidate,
                                        _timestep_primal_duals, _to_wide,
                                        gate_is_tanh, rules_for,
                                        wide_targets)
@@ -65,7 +77,8 @@ from admm_lstm_torch.utils.timer import Timer
 class StackedParams(NamedTuple):
     """N LSTM layers and the head on the top layer's final h.  Layer k:
     wx (4, H_{k-1}, H_k), wh (4, H_k, H_k) and an unused wy (H_k, O)
-    that the `.npz` format keeps; the head wy is (H_top, O)."""
+    that the `.npz` format keeps; the head wy is (H_top, O) (each with a
+    leading S under the candidate axis)."""
 
     layers: Tuple[LSTMParams, ...]
     wy: torch.Tensor
@@ -100,6 +113,11 @@ class StackedParams(NamedTuple):
 
 
 class StackedState(NamedTuple):
+    """Under the candidate axis every leaf has a leading S (slabs
+    (S, T+1, H, B), z slabs (S, T+1, 4, H, B), each rho (S,), the ridges
+    (S, 4) and (S,)) but rho_z, which is (S,) or one 0-d penalty shared by
+    the candidates."""
+
     params: StackedParams
     gates: Tuple[GateSlabs, ...]   # per layer; only the top's `a` is live
     duals: Tuple[DualSlabs, ...]   # per layer; only the top's `y` is live
@@ -109,6 +127,13 @@ class StackedState(NamedTuple):
     rho_z: torch.Tensor            # 0-d penalty of the z constraints
     beta: Ridges
     epoch: int
+
+    @property
+    def candidates(self) -> Optional[int]:
+        """S, the length of the leading candidate axis, or None for one
+        instance."""
+        slab = self.gates[0].i
+        return slab.shape[0] if slab.dim() == 4 else None
 
     @property
     def gates1(self) -> GateSlabs:
@@ -170,48 +195,105 @@ def stacked_params_from_dict(weights: dict, device='cpu') -> StackedParams:
     return StackedParams(layers=tuple(layers), wy=wy)
 
 
+def _view(r: torch.Tensor, dims: int) -> torch.Tensor:
+    """A per-candidate (S,) tensor viewed as (S, 1, ..., 1) to broadcast
+    over `dims` trailing axes of a candidate; a 0-d one as it is."""
+    return r.reshape(r.shape + (1,) * dims) if r.dim() else r
+
+
+def _map_state(state: StackedState, fn, rho_z_fn) -> StackedState:
+    """`fn` applied to every tensor leaf but rho_z, which takes
+    `rho_z_fn`; `epoch` kept."""
+    return StackedState(
+        params=state.params.rebuild(map(fn, state.params.tensors())),
+        gates=tuple(GateSlabs(*map(fn, g)) for g in state.gates),
+        duals=tuple(DualSlabs(*map(fn, d)) for d in state.duals),
+        zs=tuple(map(fn, state.zs)), zduals=tuple(map(fn, state.zduals)),
+        rho=Penalties(*map(fn, state.rho)), rho_z=rho_z_fn(state.rho_z),
+        beta=Ridges(*map(fn, state.beta)), epoch=state.epoch)
+
+
+def broadcast_stacked_state(state: StackedState, count: int,
+                            rho: Optional[Penalties] = None,
+                            rho_z=None) -> StackedState:
+    """`count` copies of a stacked state without the candidate axis on a
+    new leading axis (core/state.broadcast_state's counterpart), each leaf
+    a contiguous tensor of its own.  `rho`, if given, holds the (count,)
+    penalties of the candidates and `rho_z` their (count,) z penalties;
+    without `rho_z` the state's 0-d one stays shared."""
+    out = _map_state(state,
+                     lambda t: t.expand((count,) + t.shape).contiguous(),
+                     torch.clone)
+    if rho is not None:
+        out = out._replace(rho=rho)
+    if rho_z is not None:
+        out = out._replace(rho_z=torch.as_tensor(
+            np.asarray(rho_z, np.float32).reshape(count)).to(
+                state.rho_z.device))
+    return out
+
+
+def take(state: StackedState, index) -> StackedState:
+    """Candidate `index` (an int: a state without the axis) or candidates
+    `index` (a slice: a state with it) of a stacked state with the axis."""
+    return _map_state(state, lambda t: t[index],
+                      lambda r: r[index] if r.dim() else r)
+
+
+def unstack(state: StackedState) -> List[StackedState]:
+    """The S stacked states of a state with the candidate axis."""
+    return [take(state, s) for s in range(state.candidates)]
+
+
 def _rows(w: torch.Tensor) -> torch.Tensor:
-    """(4, D, H) -> (4H, D): `(_rows(w) @ v).view(4, H, B)` is
-    einsum('db,gdh->ghb', v, w)."""
-    return w.permute(0, 2, 1).reshape(-1, w.shape[1]).contiguous()
+    """(..., 4, D, H) -> (..., 4H, D): `_project(_rows(w), v)` is
+    einsum('...db,...gdh->...ghb', v, w)."""
+    return w.mT.reshape(w.shape[:-3] + (-1, w.shape[-2])).contiguous()
 
 
 def _project(rows: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(4H, D) rows times a (D, B) block -> (4, H, B)."""
-    return (rows @ v).view(4, -1, v.shape[-1])
+    """(..., 4H, D) rows times a (..., D, B) block -> (..., 4, H, B)."""
+    out = rows @ v
+    return out.view(out.shape[:-2] + (4, -1, out.shape[-1]))
 
 
 def _scan_stack(params: StackedParams, x_im: torch.Tensor, collect: bool):
     """The N-layer forward on (T, I, B) inputs.  Returns the final (h, c)
     of every layer, each (H_k, B), and with `collect` each layer's gate
     history as (T+1, H, B) slabs (i, f, g, o, c, h; zero row 0) and each
-    upper layer's pre-activations as a (T+1, 4, H, B) slab."""
-    seq_len, _, batch = x_im.shape
+    upper layer's pre-activations as a (T+1, 4, H, B) slab; with
+    per-candidate weights every result has their leading S."""
+    seq_len, _, batch = x_im.shape[-3:]
     n = len(params.layers)
+    lead = torch.broadcast_shapes(x_im.shape[:-3], params.wy.shape[:-2])
     rec = [_rows(lp.wh) for lp in params.layers]
     inp = [None] + [_rows(lp.wx) for lp in params.layers[1:]]
-    xproj = torch.einsum('tdb,gdh->tghb', x_im, params.layers[0].wx)
-    h = [x_im.new_zeros((lp.hidden_size, batch)) for lp in params.layers]
+    xproj = torch.einsum('...tdb,...gdh->...tghb', x_im,
+                         params.layers[0].wx)
+    h = [x_im.new_zeros(lead + (lp.hidden_size, batch))
+         for lp in params.layers]
     c = list(h)
     hist, pres = None, None
     if collect:
-        hist = [[x_im.new_zeros((seq_len + 1, lp.hidden_size, batch))
+        hist = [[x_im.new_zeros(lead + (seq_len + 1, lp.hidden_size, batch))
                  for _ in range(6)] for lp in params.layers]
-        pres = [x_im.new_zeros((seq_len + 1, 4, lp.hidden_size, batch))
+        pres = [x_im.new_zeros(lead + (seq_len + 1, 4, lp.hidden_size,
+                                       batch))
                 for lp in params.layers[1:]]
     for t in range(seq_len):
-        inp_proj = xproj[t]
+        inp_proj = xproj[..., t, :, :, :]
         for k in range(n):
             pre = inp_proj + _project(rec[k], h[k])
             if collect and k > 0:
-                pres[k - 1][t + 1] = pre
+                pres[k - 1][..., t + 1, :, :, :] = pre
             sig = torch.sigmoid(pre)
-            i, f, g, o = sig[0], sig[1], torch.tanh(pre[2]), sig[3]
+            i, f, o = sig[..., 0, :, :], sig[..., 1, :, :], sig[..., 3, :, :]
+            g = torch.tanh(pre[..., 2, :, :])
             c[k] = f * c[k] + i * g
             h[k] = o * torch.tanh(c[k])
             if collect:
                 for slab, v in zip(hist[k], (i, f, g, o, c[k], h[k])):
-                    slab[t + 1] = v
+                    slab[..., t + 1, :, :] = v
             if k + 1 < n:
                 inp_proj = _project(inp[k + 1], h[k])
     return (h, c), (hist, pres)
@@ -219,14 +301,15 @@ def _scan_stack(params: StackedParams, x_im: torch.Tensor, collect: bool):
 
 def stacked_forward_im(params: StackedParams,
                        x_im: torch.Tensor) -> torch.Tensor:
-    """Inference on batch-minor (T, I, B) inputs -> (O, B) predictions."""
+    """Inference on batch-minor (T, I, B) inputs -> (O, B) predictions
+    ((S, O, B) with per-candidate weights)."""
     (h, _), _ = _scan_stack(params, x_im, collect=False)
-    return torch.einsum('hb,ho->ob', h[-1], params.wy)
+    return torch.einsum('...hb,...ho->...ob', h[-1], params.wy)
 
 
 def stacked_forward(params: StackedParams, x: torch.Tensor) -> torch.Tensor:
     """Inference: (B, T, I) -> (B, O)."""
-    return stacked_forward_im(params, x.permute(1, 2, 0)).T
+    return stacked_forward_im(params, x.movedim(-3, -1)).transpose(-2, -1)
 
 
 def stacked_mse_loss(params: StackedParams, x: torch.Tensor,
@@ -238,11 +321,12 @@ def stacked_train_val_mse_im(params: StackedParams, xall_im: torch.Tensor,
                              y_im: torch.Tensor, vy_im: torch.Tensor):
     """Both epoch metrics from one forward over the train and validation
     inputs concatenated along the batch, (T, I, B + Bv); 0-d tensors on
-    the device."""
+    the device ((S,) each with per-candidate weights, each candidate's
+    mean over its own predictions)."""
     nb = y_im.shape[-1]
     pred = stacked_forward_im(params, xall_im)
-    return (torch.mean((pred[:, :nb] - y_im) ** 2),
-            torch.mean((pred[:, nb:] - vy_im) ** 2))
+    return (torch.mean((pred[..., :nb] - y_im) ** 2, dim=(-2, -1)),
+            torch.mean((pred[..., nb:] - vy_im) ** 2, dim=(-2, -1)))
 
 
 def init_stacked_state(params: StackedParams, x: torch.Tensor,
@@ -289,18 +373,20 @@ def _layer0_weight_phase(x_im, gates: GateSlabs, duals: DualSlabs,
     """Layer 0's weights by the LM-anchored exact Gauss-Newton ridge solve
     against its ground-truth inputs (JAX stacked.py:290-339), x side then
     h side, in the gate-folded batch-minor layout: x_im (T, D, B), slabs
-    (T+1, H, B).  `exact_weight_solve=False` does not apply here: the
-    prox-linear search takes catastrophic steps inside a stack on long
-    horizons (the JAX module docstring)."""
+    (T+1, H, B).  With the candidate axis the slabs, weights, rho and beta
+    carry a leading S, x_im is shared, and each side's S x 4H systems go
+    to one batched solve.  `exact_weight_solve=False` does not apply
+    here: the prox-linear search takes catastrophic steps inside a stack
+    on long horizons (the JAX module docstring)."""
     hidden = params_layer.hidden_size
     rho_g = rho.stacked_ifgo()
     target_w = wide_targets(gates, duals, rho)
     tanh_cols = gate_is_tanh(4 * hidden, hidden, x_im.device)
-    h_hist = gates.h[:-1]                             # (T, H, B)
+    h_hist = gates.h[..., :-1, :, :]                  # (T, H, B)
 
     wx_w, wh_w = _to_wide(params_layer.wx), _to_wide(params_layer.wh)
-    xproj = torch.einsum('tdb,dk->tkb', x_im, wx_w)
-    hproj = torch.einsum('tdb,dk->tkb', h_hist, wh_w)
+    xproj = torch.einsum('...tdb,...dk->...tkb', x_im, wx_w)
+    hproj = torch.einsum('...tdb,...dk->...tkb', h_hist, wh_w)
 
     def solve(m_inputs, pre, w_w, beta_g):
         return gauss_newton_ridge_update_wide(
@@ -308,7 +394,7 @@ def _layer0_weight_phase(x_im, gates: GateSlabs, duals: DualSlabs,
             rules.matmul_precision, use_pallas_chol=rules.use_pallas_chol)
 
     wx_new_w = solve(x_im, xproj + hproj, wx_w, beta.x)
-    xproj_new = torch.einsum('tdb,dk->tkb', x_im, wx_new_w)
+    xproj_new = torch.einsum('...tdb,...dk->...tkb', x_im, wx_new_w)
     wh_new_w = solve(h_hist, xproj_new + hproj, wh_w, beta.h)
     return params_layer._replace(wx=_from_wide(wx_new_w, hidden),
                                  wh=_from_wide(wh_new_w, hidden))
@@ -325,26 +411,45 @@ def _upper_weight_solve(h_below_hist, h_own_hist, z_slab, zdual_slab,
              + beta/2 ||W||^2 + theta/2 ||W - W_old||^2,
 
     theta = the Gram's mean diagonal.  h histories (T, H, B), z slabs
-    (T+1, 4, H, B)."""
-    seq_len, d_below, batch = h_below_hist.shape
-    d_own = h_own_hist.shape[1]
+    (T+1, 4, H, B); with the candidate axis each with a leading S, and
+    rho_z (S,) or 0-d.
+
+    It runs in float64 and returns float32 weights.  Its Gram and
+    right-hand side are sums over the T*B rows, and in float32 their
+    rounding depends on how the card's GEMM splits that sum (one GEMM
+    alone, a batched GEMM for the candidate axis): on an H100, at
+    GoogleStock's 38,016 rows, the (8, 8) search's candidates ended 30
+    epochs up to 5.8e-5 away from their runs alone, and 9.1e-7 in float64
+    (chip_smoke.py's stacked phase, PERF.md)."""
+    f64 = lambda t: t.to(torch.float64)
+    h_below_hist, h_own_hist, z_slab, zdual_slab, rho_z = map(
+        f64, (h_below_hist, h_own_hist, z_slab, zdual_slab, rho_z))
+    beta = beta._replace(x=f64(beta.x), h=f64(beta.h))
+    seq_len, d_below, batch = h_below_hist.shape[-3:]
+    lead = h_below_hist.shape[:-3]
+    d_own = h_own_hist.shape[-2]
     hidden = params_layer.hidden_size
-    x_rows = torch.cat([h_below_hist, h_own_hist], dim=1)   # (T, D, B)
+    rz2 = _view(rho_z, 2)
+    x_rows = torch.cat([h_below_hist, h_own_hist], dim=-2)  # (T, D, B)
     dim = d_below + d_own
-    x_flat = x_rows.permute(1, 0, 2).reshape(dim, seq_len * batch)
-    target = z_slab[1:] + zdual_slab[1:] / rho_z             # (T, 4, H, B)
-    t_flat = target.permute(1, 2, 0, 3).reshape(4 * hidden, seq_len * batch)
-    gram = rho_z * (x_flat @ x_flat.T)                       # (D, D)
-    rhs = rho_z * (t_flat @ x_flat.T).view(4, hidden, dim).transpose(1, 2)
-    reg = torch.cat([beta.x[:, None].expand(4, d_below),
-                     beta.h[:, None].expand(4, d_own)], dim=1)   # (4, D)
-    theta = torch.trace(gram) / dim
-    w_old = torch.cat([params_layer.wx, params_layer.wh], dim=1)
+    x_flat = x_rows.transpose(-3, -2).reshape(lead + (dim, seq_len * batch))
+    target = (z_slab[..., 1:, :, :, :]
+              + zdual_slab[..., 1:, :, :, :] / _view(rho_z, 4))
+    t_flat = target.movedim(-4, -2).reshape(lead + (4 * hidden,
+                                                    seq_len * batch))
+    gram = rz2 * (x_flat @ x_flat.mT)                        # (D, D)
+    rhs = (rz2 * (t_flat @ x_flat.mT)).view(lead + (4, hidden, dim)).mT
+    reg = torch.cat([beta.x[..., None].expand(beta.x.shape + (d_below,)),
+                     beta.h[..., None].expand(beta.h.shape + (d_own,))],
+                    dim=-1)                                  # (4, D)
+    # Each candidate's trace (torch.trace takes no batch).
+    theta = _view(torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1) / dim, 3)
+    w_old = f64(torch.cat([params_layer.wx, params_layer.wh], dim=-2))
     eye = torch.eye(dim, dtype=gram.dtype, device=gram.device)
-    mats = gram[None] + torch.diag_embed(reg) + theta * eye
-    sol = torch.linalg.solve_ex(mats, rhs + theta * w_old).result
-    return params_layer._replace(wx=sol[:, :d_below].contiguous(),
-                                 wh=sol[:, d_below:].contiguous())
+    mats = gram[..., None, :, :] + torch.diag_embed(reg) + theta * eye
+    sol = torch.linalg.solve_ex(mats, rhs + theta * w_old).result.float()
+    return params_layer._replace(wx=sol[..., :d_below, :].contiguous(),
+                                 wh=sol[..., d_below:, :].contiguous())
 
 
 def _z_prox_update(z_old, gate_target, v, rho_g4, rho_z, is_tanh,
@@ -352,8 +457,10 @@ def _z_prox_update(z_old, gate_target, v, rho_g4, rho_z, is_tanh,
     """Majorized prox-linear z step (JAX stacked.py:380-401): per element
     min_z rho_g/2 (u - act(z))^2 + rho_z/2 (z - v)^2, linearized at z_old
     with the global curvature bound theta >= rho_g (act'^2 + |resid|
-    |act''|).  resid_max (0-d): max |act(z_old) - u| over the (4, H, B)
-    block, from the previous epoch's slabs."""
+    |act''|).  resid_max: max |act(z_old) - u| over the (4, H, B) block,
+    from the previous epoch's slabs (with the candidate axis each
+    candidate's own, and rho_g4 and rho_z too, viewed to broadcast over
+    its block)."""
     sig = torch.sigmoid(z_old)
     tanh = torch.tanh(z_old)
     act = torch.where(is_tanh, tanh, sig)
@@ -378,21 +485,28 @@ def stacked_admm_step_im(state: StackedState, x_im: torch.Tensor,
                          y_im: torch.Tensor, rules: StepRules
                          ) -> StackedState:
     """One N-layer ADMM epoch on batch-minor (T, I, B) inputs and (O, B)
-    targets (JAX stacked.py:412-689)."""
+    targets (JAX stacked.py:412-689).  A state with the candidate axis
+    takes them shared by its candidates; the time index of every slab is
+    then its axis 1, and every max, trace and sum is each candidate's
+    own."""
     seq_len, _, batch = x_im.shape
     rho, rho_z = state.rho, state.rho_z
+    lead = state.gates[0].a.shape[:-2]                # (S,) or ()
+    rho2 = _per_candidate(rho, 2)                     # over (H, B)
+    rz2, rz3 = _view(rho_z, 2), _view(rho_z, 3)       # (H, B), (4, H, B)
     n = len(state.params.layers)
     top = n - 1
     hiddens = [lp.hidden_size for lp in state.params.layers]
     g_top, d_top = state.gates[top], state.duals[top]
-    rho_g4 = rho.stacked_ifgo()[:, None, None]
+    rho_g4 = rho.stacked_ifgo()[..., None, None]      # ([S,] 4, 1, 1)
     is_tanh4 = gate_is_tanh(4, 1, x_im.device)[:, None, None]
     decay = rules.stacked_dual_decay
     damp = (lambda v: v) if decay == 1.0 else (lambda v: decay * v)
 
     # 1. The readout on the top layer's final h.
-    wy_new = cf.wy_update(state.params.wy, g_top.h[-1], g_top.a, rho.y,
-                          state.beta.wy, d_top.y, rules.with_dual_y)
+    wy_new = cf.wy_update(state.params.wy, g_top.h[..., -1, :, :], g_top.a,
+                          rho2.y, _view(state.beta.wy, 2), d_top.y,
+                          rules.with_dual_y)
 
     # 2. Weights from the previous epoch's slabs: layer 0 exact GN ridge
     # against x; each upper layer an exact ridge against its z targets,
@@ -402,9 +516,9 @@ def stacked_admm_step_im(state: StackedState, x_im: torch.Tensor,
                                        state.beta, rules)]
     for k in range(1, n):
         layers_new.append(_upper_weight_solve(
-            state.gates[k - 1].h[1:], state.gates[k].h[:-1],
-            state.zs[k - 1], state.zduals[k - 1], state.params.layers[k],
-            rho_z, state.beta))
+            state.gates[k - 1].h[..., 1:, :, :],
+            state.gates[k].h[..., :-1, :, :], state.zs[k - 1],
+            state.zduals[k - 1], state.params.layers[k], rho_z, state.beta))
     params_new = StackedParams(layers=tuple(layers_new), wy=wy_new)
 
     # The epoch's products as (4H, D) row blocks; the h solve of layer
@@ -415,87 +529,96 @@ def stacked_admm_step_im(state: StackedState, x_im: torch.Tensor,
     m_invs = []
     for k in range(top):
         eye = torch.eye(hiddens[k], dtype=x_im.dtype, device=x_im.device)
-        m = rho.h * eye + rho_z * (inp[k + 1].T @ inp[k + 1])
+        m = rho2.h * eye + rz2 * (inp[k + 1].mT @ inp[k + 1])
         m_invs.append(torch.linalg.inv_ex(m).inverse)
 
-    # The z-prox curvature bounds: max |act(z) - u| per (layer, t) in one
-    # pass over the previous epoch's slabs; u is also the gate target.
+    # The z-prox curvature bounds: max |act(z) - u| per (layer, t) over
+    # the (4, H, B) block (each candidate's own: ([S,] T+1, 1, 1, 1)), in
+    # one pass over the previous epoch's slabs; u is also the gate target.
     u_slabs, resmaxes = [], []
     for k in range(1, n):
         g_k, d_k = state.gates[k], state.duals[k]
-        u = (torch.stack([g_k.i, g_k.f, g_k.g, g_k.o], dim=1)
-             + torch.stack([d_k.i, d_k.f, d_k.g, d_k.o], dim=1) / rho_g4)
+        u = (torch.stack([g_k.i, g_k.f, g_k.g, g_k.o], dim=-3)
+             + torch.stack([d_k.i, d_k.f, d_k.g, d_k.o], dim=-3)
+             / rho_g4.unsqueeze(-4))
         z = state.zs[k - 1]
         act = torch.where(is_tanh4, torch.tanh(z), torch.sigmoid(z))
-        resmaxes.append(torch.amax(torch.abs(act - u), dim=(1, 2, 3)))
+        resmaxes.append(torch.amax(torch.abs(act - u), dim=(-3, -2, -1),
+                                   keepdim=True))
         u_slabs.append(u)
 
-    xproj0 = torch.einsum('tdb,gdh->tghb', x_im, layers_new[0].wx)
+    xproj0 = torch.einsum('...tdb,...gdh->...tghb', x_im, layers_new[0].wx)
 
     # 3. The sweep, t = 1..T, into preallocated slabs (row 0 stays zero).
     def slab(k):
-        return x_im.new_zeros((seq_len + 1, hiddens[k], batch))
+        return x_im.new_zeros(lead + (seq_len + 1, hiddens[k], batch))
 
     new_gates = [[slab(k) for _ in range(6)] for k in range(n)]
     new_duals = [[slab(k) for _ in range(5)] for k in range(n)]
     new_zs = [torch.zeros_like(z) for z in state.zs]
     new_zduals = [torch.zeros_like(z) for z in state.zs]
 
+    def row4(s, t):
+        """Row t of a ([S,] T+1, 4, H, B) slab."""
+        return s[..., t, :, :, :]
+
     def coupled_h_solve(k, t, o_n, c_n, lam_h, h_above_prev):
         """h_{k,t} for k < top: the ridge solve against z_{k+1,t}."""
         fixed = _project(rec[k + 1], h_above_prev)
-        tgt = state.zs[k][t] + state.zduals[k][t] / rho_z - fixed
-        rhs = (rho.h * o_n * torch.tanh(c_n) - lam_h
-               + rho_z * (inp[k + 1].T @ tgt.view(-1, batch)))
+        tgt = row4(state.zs[k], t) + row4(state.zduals[k], t) / rz3 - fixed
+        rhs = (rho2.h * o_n * torch.tanh(c_n) - lam_h
+               + rz2 * (inp[k + 1].mT @ tgt.reshape(lead + (-1, batch))))
         return m_invs[k] @ rhs
 
     def upper_layer_block(k, t, old, duals_t, h_below, h_prev, c_prev):
         """z -> gates -> c of upper layer k at step t; writes z, its dual
         and the gate and c duals, and returns (i, f, g, o, c)."""
-        z_t, zdual_t = state.zs[k - 1][t], state.zduals[k - 1][t]
+        z_t, zdual_t = row4(state.zs[k - 1], t), row4(state.zduals[k - 1], t)
         lin = _project(inp[k], h_below) + _project(rec[k], h_prev)
-        z_new = _z_prox_update(z_t, u_slabs[k - 1][t], lin - zdual_t / rho_z,
-                               rho_g4, rho_z, is_tanh4, resmaxes[k - 1][t])
-        act4 = torch.where(is_tanh4, torch.tanh(z_new), torch.sigmoid(z_new))
+        z_new = _z_prox_update(z_t, row4(u_slabs[k - 1], t),
+                               lin - zdual_t / rz3, rho_g4, rz3, is_tanh4,
+                               row4(resmaxes[k - 1], t))
+        act4 = torch.where(is_tanh4, torch.tanh(z_new),
+                           torch.sigmoid(z_new)).unbind(-3)
 
         _, f_o, g_o, _, c_o, h_o = old
         lam_i, lam_f, lam_g, lam_o, lam_c, lam_h = duals_t
-        i_n = cf.gate_ifgo_update(lam_i, rho.i, act4[0], g_o, f_o, c_prev,
-                                  c_o, rho.c, lam_c)
-        f_n = cf.gate_ifgo_update(lam_f, rho.f, act4[1], c_prev, g_o, i_n,
-                                  c_o, rho.c, lam_c)
-        g_n = cf.gate_ifgo_update(lam_g, rho.g, act4[2], i_n, f_n, c_prev,
-                                  c_o, rho.c, lam_c)
-        o_n = cf.gate_ifgo_update(lam_o, rho.o, act4[3], torch.tanh(c_o),
-                                  0.0, 0.0, h_o, rho.h, lam_h)
-        c_n = cf.c_update(c_o, o_n, h_o, lam_h, lam_c, rho.h, rho.c,
+        i_n = cf.gate_ifgo_update(lam_i, rho2.i, act4[0], g_o, f_o, c_prev,
+                                  c_o, rho2.c, lam_c)
+        f_n = cf.gate_ifgo_update(lam_f, rho2.f, act4[1], c_prev, g_o, i_n,
+                                  c_o, rho2.c, lam_c)
+        g_n = cf.gate_ifgo_update(lam_g, rho2.g, act4[2], i_n, f_n, c_prev,
+                                  c_o, rho2.c, lam_c)
+        o_n = cf.gate_ifgo_update(lam_o, rho2.o, act4[3], torch.tanh(c_o),
+                                  0.0, 0.0, h_o, rho2.h, lam_h)
+        c_n = cf.c_update(c_o, o_n, h_o, lam_h, lam_c, rho2.h, rho2.c,
                           f_n, c_prev, i_n, g_n)
-        lams = (cf.dual_ifgo_update(lam_i, rho.i, i_n, act4[0]),
-                cf.dual_ifgo_update(lam_f, rho.f, f_n, act4[1]),
-                cf.dual_ifgo_update(lam_g, rho.g, g_n, act4[2]),
-                cf.dual_ifgo_update(lam_o, rho.o, o_n, act4[3]),
-                cf.dual_c_update(lam_c, rho.c, c_n, f_n, c_prev, i_n, g_n))
+        lams = (cf.dual_ifgo_update(lam_i, rho2.i, i_n, act4[0]),
+                cf.dual_ifgo_update(lam_f, rho2.f, f_n, act4[1]),
+                cf.dual_ifgo_update(lam_g, rho2.g, g_n, act4[2]),
+                cf.dual_ifgo_update(lam_o, rho2.o, o_n, act4[3]),
+                cf.dual_c_update(lam_c, rho2.c, c_n, f_n, c_prev, i_n, g_n))
         for dst, v in zip(new_duals[k], lams):
-            dst[t] = damp(v)
-        new_zs[k - 1][t] = z_new
-        new_zduals[k - 1][t] = damp(zdual_t + rho_z * (z_new - lin))
+            dst[..., t, :, :] = damp(v)
+        row4(new_zs[k - 1], t)[...] = z_new
+        row4(new_zduals[k - 1], t)[...] = damp(zdual_t + rz3 * (z_new - lin))
         return i_n, f_n, g_n, o_n, c_n
 
     def rows(slabs, t):
-        return tuple(s[t] for s in slabs)
+        return tuple(s[..., t, :, :] for s in slabs)
 
-    h_prev = [state.gates[k].h[0] for k in range(n)]
-    c_prev = [state.gates[k].c[0] for k in range(n)]
+    h_prev = [state.gates[k].h[..., 0, :, :] for k in range(n)]
+    c_prev = [state.gates[k].c[..., 0, :, :] for k in range(n)]
     for t in range(1, seq_len + 1):
         final = t == seq_len
         g_t = [rows(state.gates[k][:6], t) for k in range(n)]
         d_t = [rows(state.duals[k][:6], t) for k in range(n)]
         # Layer 0: the single-layer treatment.
-        pre0 = xproj0[t - 1] + _project(rec[0], h_prev[0])
+        pre0 = xproj0[..., t - 1, :, :, :] + _project(rec[0], h_prev[0])
         prim, lam0 = _timestep_primal_duals(pre0, g_t[0], d_t[0], c_prev[0],
-                                            rho)
+                                            rho2)
         for dst, v in zip(new_duals[0], lam0):
-            dst[t] = damp(v)
+            dst[..., t, :, :] = damp(v)
         prims, h_new = [prim], [None] * n
         for k in range(n):
             if k > 0:
@@ -508,34 +631,35 @@ def stacked_admm_step_im(state: StackedState, x_im: torch.Tensor,
                                            h_prev[k + 1])
             elif not final:
                 h_new[k] = cf.h_interior_update(o_n, torch.tanh(c_n),
-                                                d_t[k][5], rho.h)
+                                                d_t[k][5], rho2.h)
             for dst, v in zip(new_gates[k], prims[k] + (h_new[k],)):
                 if v is not None:
-                    dst[t] = v
+                    dst[..., t, :, :] = v
         h_prev, c_prev = h_new, [p[4] for p in prims]
 
     # The top layer's final h: the output prox, then a and the h-dual.
     o_T, c_T = prims[top][3], prims[top][4]
     tanh_c_T = torch.tanh(c_T)
-    to_out = lambda v: torch.einsum('hb,ho->ob', v, wy_new)
-    from_out = lambda r: torch.einsum('ob,ho->hb', r, wy_new)
+    to_out = lambda v: torch.einsum('...hb,...ho->...ob', v, wy_new)
+    from_out = lambda r: torch.einsum('...ob,...ho->...hb', r, wy_new)
     h_T = h_final_update(
-        g_top.h[seq_len], o_T, tanh_c_T, d_top.h[seq_len], rho.h, wy_new,
-        g_top.a, rho.y, d_top.y, with_dual_y=rules.with_dual_y,
-        theta0=rules.h_theta0, theta_max=rules.h_theta_max,
-        max_iters=rules.max_backtrack,
+        g_top.h[..., seq_len, :, :], o_T, tanh_c_T,
+        d_top.h[..., seq_len, :, :], rho2.h, wy_new, g_top.a, rho2.y,
+        d_top.y, with_dual_y=rules.with_dual_y, theta0=rules.h_theta0,
+        theta_max=rules.h_theta_max, max_iters=rules.max_backtrack,
         grad_uses_rho_h=rules.h_grad_uses_rho_h,
         probe_is_grad_over_theta=rules.h_probe_grad_over_theta,
         to_out=to_out, from_out=from_out).h
-    new_gates[top][5][seq_len] = h_T
+    new_gates[top][5][..., seq_len, :, :] = h_T
     hw_T = to_out(h_T)
-    a_new = cf.a_update(y_im, hw_T, rho.y, d_top.y, batch, rules.with_dual_y)
+    a_new = cf.a_update(y_im, hw_T, rho2.y, d_top.y, batch,
+                        rules.with_dual_y)
     lam_h_top = d_top.h.clone()
-    lam_h_top[seq_len] = damp(cf.dual_h_update(d_top.h[seq_len], rho.h, h_T,
-                                               o_T, tanh_c_T))
+    lam_h_top[..., seq_len, :, :] = damp(cf.dual_h_update(
+        d_top.h[..., seq_len, :, :], rho2.h, h_T, o_T, tanh_c_T))
     lam_y = d_top.y
     if rules.with_dual_y:
-        lam_y = cf.dual_y_update(d_top.y, rho.y, a_new, hw_T)
+        lam_y = cf.dual_y_update(d_top.y, rho2.y, a_new, hw_T)
 
     gates_new, duals_new = [], []
     for k in range(n):

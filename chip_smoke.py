@@ -100,11 +100,21 @@ Phases, each fatal on failure:
                (tests/golden/torch_stacked_init_*.npz): train_stacked at
                (8, 8) for 30 epochs and (8, 8, 8) for 10, held to the JAX
                package's trajectories, two chol_solve launches an epoch;
+               search_rho_stacked over refine_rho_stacked's first 27-point
+               grid at (8, 8), 30 epochs, as one batched program (60
+               chol_solve launches, no other kernel, no halving): each
+               candidate held to its train_stacked run alone at rtol
+               1e-5, JAX's losses and winner, its wall seconds twice
+               around the 27 runs alone, its syncs, busy ms and idle share
+               under the profiler, and once more with a rho_z per
+               candidate, STACKED_Z_ALONE held to their runs alone;
                train_best_stacked (60 epochs, 30-epoch probes, one search
                round of 27 candidates) making the JAX package's choice
-               with its tuned rho; one (8, 8) epoch with the kernels
-               against the same epoch with the plain versions; a
-               save_model/load_model round trip of the result, bit-equal;
+               with its tuned rho, with 300 chol_solve launches and no
+               other kernel; one (8, 8)
+               epoch with the kernels against the same epoch with the
+               plain versions; a save_model/load_model round trip of the
+               result, bit-equal;
   8. legacy  - ADMM-LSTM-L, ADMM-LSTM-S, the gradient baselines and the
                comparison harness on GoogleStock at the CLI's width (H 10,
                seed 0), none of which launches a kernel but the harness's
@@ -260,7 +270,7 @@ INVERSE_SHAPES = [(512, 64), (16, 128), (7, 33),
 # of D 10 and of D 1) and Path B's three candidates (3 x 512 diagonal
 # blocks of 64), each held bit-equal to S calls alone and timed beside
 # them.
-BATCHED_SOLVE_SHAPES = [(27, 40, 10), (27, 40, 1)]
+BATCHED_SOLVE_SHAPES = [(27, 40, 10), (27, 40, 1), (27, 32, 8), (27, 32, 1)]
 BATCHED_INVERSE_SHAPES = [(3, 512, 64)]
 # Gate (ii) at the shapes of Path A and Path B.
 ILL_SOLVE_SHAPES = [(40, 10), (40, 1), (512, 128)]
@@ -468,6 +478,32 @@ STACKED_BEST_VAL = 0.08602779358625412
 # One (8, 8) epoch with the Cholesky kernel against its plain version,
 # each leaf within STACKED_RTOL of its scale (as Path B's).
 STACKED_RTOL = 1e-5
+# The stacked search on the candidate axis: the first round of
+# refine_rho_stacked inside train_best_stacked at (8, 8) (the 27 points
+# of the 'Stacked' tuning's c, h, y times 1/STACKED_SEARCH_SPAN, 1 and
+# STACKED_SEARCH_SPAN, STACKED_BEST_ARGS['probe_epochs'] epochs each) as
+# one batched program; the JAX package's validation losses of those 27
+# candidates in grid order (tests/test_torch_chip_reference.py recomputes
+# them from the search its train_best_stacked runs).
+STACKED_SEARCH_SPAN = 10.0
+STACKED_SEARCH_VAL = [
+    0.23869138956069946, 0.2458040863275528, 0.4784441292285919,
+    0.2385474443435669, 0.23530346155166626, 0.24950094521045685,
+    0.23851503431797028, 0.23453059792518616, 0.23543818295001984,
+    0.2388378381729126, 0.24084797501564026, 0.31704288721084595,
+    0.23855043947696686, 0.23519983887672424, 0.24162614345550537,
+    0.23851488530635834, 0.2345220446586609, 0.23524640500545502,
+    0.23874567449092865, 0.23890259861946106, 0.2852528989315033,
+    0.23853909969329834, 0.23499101400375366, 0.23983517289161682,
+    0.2385137975215912, 0.23450253903865814, 0.23505695164203644]
+# Each candidate of the batched search against its train_stacked run
+# alone on the card, relative: the same f32 math with batched products.
+STACKED_ALONE_RTOL = 1e-5
+# rho_z of each candidate in the search's second run (z_candidates),
+# and the candidates of that run held to their runs alone: each rho_z and
+# the winner (the whole grid alone is timed once, in the first run).
+STACKED_SEARCH_Z = (0.5, 1.0, 2.0)
+STACKED_Z_ALONE = (0, 1, 2, 25)
 
 # The legacy phase: ADMM-LSTM-L and -S, the gradient baselines and the
 # comparison harness on GoogleStock at the CLI's width (H 10, seed 0).
@@ -2093,11 +2129,135 @@ def _stacked_epoch_vs_plain(tx, ty, ps, params):
                              f'plain epoch beyond tolerance at {bad}')
 
 
-def phase_stacked():
+def _only_chol_solve(label, launches, epochs):
+    """A stacked run's launches: two chol_solve a stacked epoch (layer 0's
+    exact x and h sides; with the candidate axis each one call for every
+    candidate's systems) and no other kernel."""
+    others = {k: v for k, v in launches.items() if k != 'chol_solve' and v}
+    if launches['chol_solve'] != 2 * epochs or others:
+        raise AssertionError(f'{label}: chol_solve launched '
+                             f'{launches["chol_solve"]} times (expected '
+                             f'{2 * epochs}), other launches {others}')
+
+
+def _stacked_alone(tx, ty, vx, vy, ps, params, res, epochs, zs, rows):
+    """Candidates `rows` of a stacked search trained alone by
+    train_stacked (rho_z from `zs`, or the tuning's), timed on the host
+    clock; each one's batched final train and validation losses held to
+    its run alone at STACKED_ALONE_RTOL.  Returns the wall seconds and the
+    largest relative gap."""
+    from admm_lstm_torch.utils.config import RHO_KEYS, ADMMConfig
+    from admm_lstm_torch.variants.stacked import train_stacked
+    alone, t0 = [], time.perf_counter()
+    for k in rows:
+        rho = dict(zip(RHO_KEYS, map(float, res['candidates'][k])),
+                   z=float(zs[k]) if zs is not None else ps.rho['z'])
+        run = train_stacked(tx, ty, vx, vy,
+                            type(ps)(rho=rho, beta=dict(ps.beta)),
+                            ADMMConfig(epochs=epochs, hidden_size=8),
+                            params=params, log_every=0, device='cuda')
+        alone.append((run['train_loss'][-1], run['val_loss'][-1]))
+    seconds = time.perf_counter() - t0
+    alone = np.asarray(alone)
+    batched = np.stack([res['train_losses'], res['val_losses']],
+                       axis=-1)[list(rows)]
+    np.testing.assert_allclose(batched, alone, rtol=STACKED_ALONE_RTOL,
+                               err_msg='search_rho_stacked: candidates '
+                               'against their runs alone')
+    return seconds, float(np.max(np.abs(batched - alone) / np.abs(alone)))
+
+
+def stacked_search(tx, ty, vx, vy, ps, params, card):
+    """search_rho_stacked at (8, 8) over refine_rho_stacked's first grid
+    as one batched program, twice around the 27 train_stacked runs alone
+    (paired on the host clock), held to the runs alone and to the JAX
+    package's losses and winner; once under the profiler; then once more
+    with a rho_z per candidate, STACKED_Z_ALONE held to their runs alone.
+    Returns the search's launches and its times."""
+    from admm_lstm_torch import tune
+    from admm_lstm_torch.profile_epoch import device_profile
+    from admm_lstm_torch.utils.config import ADMMConfig
+    epochs = STACKED_BEST_ARGS['probe_epochs']
+    span = STACKED_SEARCH_SPAN
+    grid = tune.candidate_grid(ps, multipliers=(1.0 / span, 1.0, span))
+    n = len(grid)
+
+    def search(zs=None):
+        return tune.search_rho_stacked(
+            tx, ty, vx, vy, ps, (8, 8), ADMMConfig(hidden_size=8),
+            candidates=grid, epochs=epochs, z_candidates=zs, params=params,
+            device='cuda')
+
+    groups, restore = _counting_groups(tune)
+    try:
+        kernels = _zero_launches()
+        t0 = time.perf_counter()
+        res = search()
+        seconds = [time.perf_counter() - t0]
+        launches = _read_launches(kernels)
+    finally:
+        restore()
+    label = f'search_rho_stacked (8, 8), {n} candidates x {epochs} epochs'
+    _only_chol_solve(label, launches, epochs)
+    if groups != [(0, n)]:
+        raise AssertionError(f'{label}: groups {groups}, expected one')
+    alone_seconds, gap = _stacked_alone(tx, ty, vx, vy, ps, params, res,
+                                        epochs, None, range(n))
+    t0 = time.perf_counter()
+    again = search()
+    seconds.append(time.perf_counter() - t0)
+    if not np.array_equal(again['val_losses'], res['val_losses']):
+        raise AssertionError(f'{label}: a second run gave other losses')
+    best_rho = {**res['best_rho'], 'z': ps.rho['z']}
+    log(f'[stacked] {label} in one batched program on {card}: wall seconds '
+        f'{seconds} (host clock; before and after the runs alone) against '
+        f'{alone_seconds:.3f} s for the {n} train_stacked runs alone '
+        f'({alone_seconds / min(seconds):.2f}x); every candidate within '
+        f'{gap:.3g} of its run alone (rtol {STACKED_ALONE_RTOL}); best rho '
+        f'{best_rho} (JAX package: {STACKED_BEST_RHO}); launches '
+        f'{launches}; val losses in grid order '
+        + json.dumps([float(v) for v in res['val_losses']]))
+    np.testing.assert_allclose(res['val_losses'], STACKED_SEARCH_VAL,
+                               rtol=0.05, atol=1e-4,
+                               err_msg=f'{label} val losses')
+    if best_rho != STACKED_BEST_RHO:
+        raise AssertionError(f'{label} chose {best_rho}, the JAX package '
+                             f'{STACKED_BEST_RHO}')
+    prof = device_profile(search)
+    prof.pop('kernels_ms')
+    prof['idle_share'] = max(0.0, 1.0 - prof['busy_ms'] / prof['wall_ms'])
+    log(f'[stacked] the search under torch.profiler: {json.dumps(prof)}; '
+        f'per batched epoch: {prof["host_syncs"] / epochs} syncs, '
+        f'{prof["device_ops"] / epochs} operations, '
+        f'{prof["busy_ms"] / epochs:.4f} ms busy')
+
+    zs = np.resize(np.asarray(STACKED_SEARCH_Z, np.float32), n)
+    kernels = _zero_launches()
+    t0 = time.perf_counter()
+    res_z = search(zs)
+    z_seconds = time.perf_counter() - t0
+    z_launches = _read_launches(kernels)
+    _only_chol_solve(f'{label} with z_candidates', z_launches, epochs)
+    z_alone_seconds, z_gap = _stacked_alone(tx, ty, vx, vy, ps, params,
+                                            res_z, epochs, zs,
+                                            STACKED_Z_ALONE)
+    log(f'[stacked] the same search with z_candidates '
+        f'{[float(z) for z in zs]}: {z_seconds:.3f} s wall; candidates '
+        f'{list(STACKED_Z_ALONE)} within {z_gap:.3g} of their runs alone '
+        f'({z_alone_seconds:.3f} s); best rho {res_z["best_rho"]}')
+    return launches, dict(seconds=seconds, alone_seconds=alone_seconds,
+                          largest_alone_gap=gap, profile=prof,
+                          z_seconds=z_seconds,
+                          z_alone_seconds=z_alone_seconds,
+                          z_largest_alone_gap=z_gap)
+
+
+def phase_stacked(card):
     """The stacked variant through admm_lstm_torch's public functions at
     the JAX bench's GoogleStock width, from the JAX package's seed-0
-    weights, held to its numbers.  Returns the (8, 8) run's launches and
-    the preset's wall seconds."""
+    weights, held to its numbers.  Returns the (8, 8) run's launches,
+    the preset's, the search's, and the preset's and the search's wall
+    seconds."""
     import shutil
     import tempfile
 
@@ -2129,15 +2289,12 @@ def phase_stacked():
                           [float(v) for v in val_l]])
             + f'; largest relative gap to the JAX package {gap:.3g}')
         _hold_to(label, train_l, val_l, ref['train'], ref['val'])
-        if counts['chol_solve'] != 2 * epochs:
-            raise AssertionError(f'{label}: chol_solve launched '
-                                 f'{counts["chol_solve"]} times, expected '
-                                 f'{2 * epochs}')
-        others = {k: v for k, v in counts.items() if k != 'chol_solve' and v}
-        if others:
-            raise AssertionError(f'{label}: unexpected launches {others}')
+        _only_chol_solve(label, counts, epochs)
         if hiddens == (8, 8):
             launches = counts
+
+    search_launches, search_times = stacked_search(
+        tx, ty, vx, vy, ps, init[(8, 8)], card)
 
     kernels = _zero_launches()
     t0 = time.perf_counter()
@@ -2160,6 +2317,11 @@ def phase_stacked():
     if best['preset_choice'] != STACKED_BEST_CHOICE:
         raise AssertionError(f'train_best_stacked chose '
                              f'{best["preset_choice"]}')
+    # The search (one batched program for all 27 candidates), the two
+    # probes and the committed run: 150 stacked epochs, 300 launches.
+    _only_chol_solve('train_best_stacked', best_launches,
+                     3 * STACKED_BEST_ARGS['probe_epochs']
+                     + STACKED_BEST_ARGS['epochs'])
     if best['candidate_rho'].get('tuned') != STACKED_BEST_RHO:
         raise AssertionError(f'train_best_stacked tuned rho '
                              f'{best["candidate_rho"].get("tuned")}')
@@ -2183,7 +2345,8 @@ def phase_stacked():
         raise AssertionError('stacked save_model/load_model: not bit-equal')
     log('[stacked] save_model/load_model of the committed (8, 8) result: '
         'bit-equal')
-    return launches, best_launches, seconds
+    return (launches, best_launches, search_launches,
+            dict(search_times, best_seconds=seconds))
 
 
 def _no_launches(label, fn):
@@ -3194,7 +3357,7 @@ def main() -> int:
                                                         weights, card)
     phase_resume()
     (launches['stacked'], launches['stacked_best'],
-     stacked_seconds) = phase_stacked()
+     launches['stacked_search'], stacked_times) = phase_stacked(card)
     launches['legacy'] = phase_legacy(tx, ty, vx, vy, ps, weights)
     (launches['scenarios'], launches['scenarios_speed'],
      launches['scenarios_turbo']) = phase_scenarios(card)
@@ -3265,8 +3428,11 @@ def main() -> int:
         f'{auto_times["alone_seconds"]!r} for the runs alone at highest; '
         f'CLI --auto --tune_rho 1 {auto_times["cli_seconds"]!r} '
         f'(groups {auto_times["cli_groups"]}), on {card}')
-    log(f'[stacked] train_best_stacked wall seconds {stacked_seconds!r} on '
-        f'{card}')
+    log(f'[stacked] train_best_stacked wall seconds '
+        f'{stacked_times["best_seconds"]!r}; search_rho_stacked wall seconds '
+        f'{stacked_times["seconds"]!r} batched, '
+        f'{stacked_times["alone_seconds"]!r} for the runs alone; with '
+        f'z_candidates {stacked_times["z_seconds"]!r} batched; on {card}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

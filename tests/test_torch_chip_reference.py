@@ -164,8 +164,9 @@ def test_torch_chip_reference_stacked_trajectories(hiddens):
 
 
 def test_torch_chip_reference_stacked_preset(monkeypatch):
-    """train_best_stacked at (8, 8): the choice, the tuned rho (from the
-    search it runs), the probe losses and the best validation loss
+    """train_best_stacked at (8, 8): the choice, the tuned rho and every
+    candidate's validation loss (from the search it runs), the probe
+    losses and the best validation loss
     (about 45 s and 6 GB on the CPU: the 27 candidates train as one
     vmapped program)."""
     from admm_lstm_tpu.params import parameter_set
@@ -187,6 +188,15 @@ def test_torch_chip_reference_stacked_preset(monkeypatch):
     assert res['preset_choice'] == chip_smoke.STACKED_BEST_CHOICE
     assert searched[0]['best_parameter_set'].rho == \
         chip_smoke.STACKED_BEST_RHO
+    # The search's 27 candidates: refine_rho_stacked's first grid, in the
+    # order chip_smoke.py's stacked_search builds it.
+    np.testing.assert_array_equal(
+        searched[0]['candidates'],
+        j_tune.candidate_grid(parameter_set('Stacked'), multipliers=(
+            1.0 / chip_smoke.STACKED_SEARCH_SPAN, 1.0,
+            chip_smoke.STACKED_SEARCH_SPAN)))
+    np.testing.assert_allclose(searched[0]['val_losses'],
+                               chip_smoke.STACKED_SEARCH_VAL, rtol=RTOL)
     for k, v in chip_smoke.STACKED_BEST_PROBE_VAL.items():
         np.testing.assert_allclose(res['probe_val'][k], v, rtol=RTOL)
     np.testing.assert_allclose(np.nanmin(res['val_loss']),

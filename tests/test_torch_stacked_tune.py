@@ -167,22 +167,60 @@ def test_torch_train_best_stacked_matches_jax(problem):
     assert got['candidate_rho']['shipped'] == parameter_set('Stacked').rho
 
 
-def test_torch_search_rho_stacked_out_of_memory_names_the_candidate(
-        problem, monkeypatch):
-    (tx, ty, vx, vy), params = problem
-    calls = []
-    real_step = ts.stacked_admm_step_im
+def _oom_when(monkeypatch, too_big):
+    """Makes the stacked epoch raise a CUDA out-of-memory error for every
+    state that `too_big(state, epochs_done)` says does not fit (epochs_done:
+    the epochs that groups of one trained before it); returns the
+    candidate counts of the groups that trained an epoch."""
+    real_step, groups = ts.stacked_admm_step_im, []
 
     def step(state, *args):
-        calls.append(1)
-        if len(calls) > EPOCHS:
+        if too_big(state, groups.count(1)):
             raise torch.cuda.OutOfMemoryError('CUDA out of memory')
+        groups.append(state.candidates)
         return real_step(state, *args)
 
     monkeypatch.setattr(ts, 'stacked_admm_step_im', step)
+    return groups
+
+
+def test_torch_search_rho_stacked_out_of_memory_names_the_candidate(
+        problem, monkeypatch):
+    """Every group of more than one candidate runs out of memory, so the
+    group halves down to single candidates; candidate 0 trains alone, and
+    candidate 1, which does not fit either, raises with a note naming its
+    index, after a warning for each halving."""
+    (tx, ty, vx, vy), params = problem
+    warned = []
+    monkeypatch.setattr(tune, 'warning', warned.append)
+    groups = _oom_when(monkeypatch, lambda state, done: state.candidates > 1
+                       or done >= EPOCHS)
     with pytest.raises(torch.cuda.OutOfMemoryError) as info:
         tune.search_rho_stacked(tx, ty, vx, vy, parameter_set('Stacked'),
                                 HIDDENS, ADMMConfig(), epochs=EPOCHS,
                                 params=params, device='cpu')
+    assert groups == [1] * EPOCHS
+    assert warned[0] == ('search_rho_stacked: candidates 0..26 ran out of '
+                         'device memory as one group; halving it')
+    assert any('candidates 1..2 ran out' in w for w in warned)
     assert any('search_rho_stacked: rho candidate 1 of 27' in note
                for note in info.value.__notes__)
+
+
+def test_torch_search_rho_stacked_out_of_memory_halves_the_group(
+        problem, monkeypatch):
+    """Only groups of more than 8 candidates run out of memory: 27 halves
+    to 13 and 14, and those to groups of 6 and 7, each one batched
+    program, with losses equal to the unhalved run's."""
+    (tx, ty, vx, vy), params = problem
+    args = (tx, ty, vx, vy, parameter_set('Stacked'), HIDDENS, ADMMConfig())
+    kw = dict(epochs=EPOCHS, params=params, device='cpu')
+    whole = tune.search_rho_stacked(*args, **kw)
+    groups = _oom_when(monkeypatch,
+                       lambda state, _: state.candidates > 8)
+    halved = tune.search_rho_stacked(*args, **kw)
+    assert sorted(set(groups)) == [6, 7]
+    assert sum(groups) == 27 * EPOCHS
+    for key in ('train_losses', 'val_losses', 'order'):
+        np.testing.assert_array_equal(halved[key], whole[key])
+    assert halved['best_rho'] == whole['best_rho']
