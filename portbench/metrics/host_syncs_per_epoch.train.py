@@ -1,0 +1,8 @@
+"""Host synchronizations (cudaStreamSynchronize and the like, trace.py)
+per epoch of the profiled training runs."""
+from portbench import readers
+
+
+def read(ctx):
+    return (None if ctx.trace is None
+            else readers.per_traced(ctx, ctx.trace.syncs, 'epochs'))
