@@ -6,8 +6,11 @@ one-call training loop the CLI uses.
 
 The JAX package runs each chunk of epochs as one compiled device program.
 Here the chunk is a plain Python loop of eager epochs; the per-epoch
-metrics stay on the device until the end of the chunk, so the only host
-syncs inside an epoch are the line searches (solvers/prox_linear.py).
+metrics stay on the device until the end of the chunk, so the chunk adds
+no host sync to the epoch's own (core/step.py names them).  A run adds
+those of its `init` span (the penalties' host values copied to the
+device, the initial losses read) and of its `collect` spans (the
+end-of-run transfer), inside its `train` span.
 Entry points take `device` (default 'cuda') and raise when the card is
 missing unless the caller asked for the CPU.  They set the process-wide
 TF32 flags from `ADMMConfig.matmul_precision` for the work they run and
@@ -46,6 +49,7 @@ from admm_lstm_torch.utils.config import (AUTO_FIELDS, ADMMConfig,
                                           ParameterSet)
 from admm_lstm_torch.utils.device import matmul_precision, resolve_device
 from admm_lstm_torch.utils.logging import info, log_assert, warning
+from admm_lstm_torch.utils.observe import span
 from admm_lstm_torch.utils.timer import Timer
 
 
@@ -218,7 +222,8 @@ def _run_chunked(state, run_chunk, epochs: int, start_epoch: int,
         if ckpt_mgr and epoch % checkpoint_every == 0:
             ckpt_mgr.save(state, step=epoch)
     if state.params.wy.is_cuda:
-        torch.cuda.synchronize(state.params.wy.device)
+        with span('collect'):
+            torch.cuda.synchronize(state.params.wy.device)
     timer.pause()
     return state, metric_hist
 
@@ -326,7 +331,7 @@ def train(train_x, train_y, val_x, val_y,
             stop_tol=stop_tol, device=device)
     rules = rules_for(config)        # raises for the legacy variants
     device = resolve_device(device)
-    with matmul_precision(config.matmul_precision):
+    with matmul_precision(config.matmul_precision), span('train'):
         return _train(train_x, train_y, val_x, val_y, parameter_set, config,
                       rules, params, log_every, record_residuals,
                       checkpoint_dir, checkpoint_every, resume_from,
@@ -342,34 +347,39 @@ def _train(train_x, train_y, val_x, val_y, parameter_set, config, rules,
     of the padded batch, with `rules` carrying the mesh's consensus."""
     if isinstance(parameter_set, dict):
         parameter_set = ParameterSet.from_dict(parameter_set)
-    if mesh is None:
-        train_x, train_y = (_as_tensor(train_x, device),
-                            _as_tensor(train_y, device))
-    else:
-        from admm_lstm_torch.parallel.sharding import pad_batch, shard_batch
-        train_x, train_y = shard_batch(
-            *pad_batch(train_x, train_y, mesh.world), mesh)
-    val_x, val_y = _as_tensor(val_x, device), _as_tensor(val_y, device)
-    if params is None:
-        gen = torch.Generator().manual_seed(config.seed)
-        params = init_lstm_params(gen, train_x.shape[2], config.hidden_size,
-                                  train_y.shape[1], device=device)
+    with span('init'):
+        if mesh is None:
+            train_x, train_y = (_as_tensor(train_x, device),
+                                _as_tensor(train_y, device))
+        else:
+            from admm_lstm_torch.parallel.sharding import (pad_batch,
+                                                           shard_batch)
+            train_x, train_y = shard_batch(
+                *pad_batch(train_x, train_y, mesh.world), mesh)
+        val_x, val_y = _as_tensor(val_x, device), _as_tensor(val_y, device)
+        if params is None:
+            gen = torch.Generator().manual_seed(config.seed)
+            params = init_lstm_params(gen, train_x.shape[2],
+                                      config.hidden_size, train_y.shape[1],
+                                      device=device)
 
-    state = init_admm_state(params.to(device), train_x, parameter_set, config)
-    ckpt_mgr, state, start_epoch = _open_checkpointing(
-        state, resume_from, checkpoint_dir, checkpoint_every,
-        async_checkpoint, device, mesh)
-    if state.batch_size != train_x.shape[0]:
-        raise ValueError(f'the checkpoint under {resume_from} holds a batch '
-                         f'of {state.batch_size} (per rank), the run '
-                         f'{train_x.shape[0]}')
+        state = init_admm_state(params.to(device), train_x, parameter_set,
+                                config)
+        ckpt_mgr, state, start_epoch = _open_checkpointing(
+            state, resume_from, checkpoint_dir, checkpoint_every,
+            async_checkpoint, device, mesh)
+        if state.batch_size != train_x.shape[0]:
+            raise ValueError(f'the checkpoint under {resume_from} holds a '
+                             f'batch of {state.batch_size} (per rank), the '
+                             f'run {train_x.shape[0]}')
 
-    # The initial losses come from the epochs' one forward, so a resumed
-    # run's first losses equal the uninterrupted run's at that epoch bit
-    # for bit.
-    x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x, val_y)
-    initial = tuple(map(float, train_val_mse_im(state.params, xall_im, y_im,
-                                                vy_im, rules.consensus)))
+        # The initial losses come from the epochs' one forward, so a
+        # resumed run's first losses equal the uninterrupted run's at that
+        # epoch bit for bit.
+        x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x,
+                                                 val_y)
+        initial = tuple(map(float, train_val_mse_im(
+            state.params, xall_im, y_im, vy_im, rules.consensus)))
     where = (device if mesh is None else
              f'{mesh.world} ranks ({mesh.backend}; this one on {device})')
     info(f'Training has started on {where}. Initial loss: train '
@@ -398,8 +408,9 @@ def _train(train_x, train_y, val_x, val_y, parameter_set, config, rules,
         if ckpt_mgr:
             ckpt_mgr.close()
 
-    train_losses, val_losses, residual_log = _collect_metrics(
-        metric_hist, initial, record_residuals)
+    with span('collect'):
+        train_losses, val_losses, residual_log = _collect_metrics(
+            metric_hist, initial, record_residuals)
 
     out_params = state.params
     best_epoch = len(val_losses) - 1
@@ -804,7 +815,7 @@ def train_sharded(train_x, train_y, val_x, val_y,
                      backend=backend)[0][0]
     mesh = make_mesh(config.mesh_shape, config.mesh_axes, device=device)
     rules = dataclasses.replace(rules, consensus=mesh.consensus)
-    with matmul_precision(config.matmul_precision):
+    with matmul_precision(config.matmul_precision), span('train'):
         return _train(train_x, train_y, val_x, val_y, parameter_set, config,
                       rules, params, log_every, record_residuals,
                       checkpoint_dir, checkpoint_every, resume_from,

@@ -24,9 +24,18 @@ package's TPU rules for 'auto' (the Gauss-Seidel kernel only at T >= 16,
 the Jacobi kernel never) do not carry over.  Otherwise the Gauss-Seidel
 sweep runs the plain loop below, which mirrors the JAX package's
 `lax.scan` body, and the Jacobi sweep the kernel's plain version.  The
-JAX epoch-chunk programs become a plain Python loop (`run_epochs`); the
-only host syncs inside an epoch are the line searches of
-solvers/prox_linear.py.
+JAX epoch-chunk programs become a plain Python loop (`run_epochs`).
+
+Inside an epoch the host waits for the device at the line searches'
+reads (solvers/prox_linear.py) and six times more in each prox-linear
+weight stage: its three `torch.where` calls take 0-d host tensors, which
+PyTorch copies to the device (`aten::where` > `aten::copy_`), each copy a
+synchronization.  The default GoogleStock epoch on an H100 makes about 4
+reads and these 12 copies.  The epoch's phases are spans
+(utils/observe.span), which a profiler sees: `epoch` around `wy`,
+`weights.x`, `weights.h`, `sweep.interior`, `sweep.final` and
+`residuals`, each line search's read a `read` inside its stage or the
+final step; `epoch_step` adds `loss`.
 
 Data parallelism (parallel/sharding.py) runs this epoch on each rank's
 block of the batch with `StepRules.consensus` set.  Every sum over the
@@ -95,6 +104,7 @@ from admm_lstm_torch.solvers.normal_eq import gauss_newton_ridge_update_wide
 from admm_lstm_torch.solvers.prox_linear import (h_final_update,
                                                  weight_stage_update_wide)
 from admm_lstm_torch.utils.config import ADMMConfig
+from admm_lstm_torch.utils.observe import span
 
 
 def gate_is_tanh(n: int, per_gate: int, device) -> torch.Tensor:
@@ -382,11 +392,13 @@ def _weight_phase(state: ADMMState, x_im: torch.Tensor, old: _OldRows,
         return res.weights, res.proj_new
 
     # Stage X: update x2{i,f,g,o}; hidden-side projection fixed at old wh.
-    wx_new_w, xproj_new = run_stage(x_rows, xproj, hproj, wx_w, state.beta.x,
-                                    need_proj=True)
+    with span('weights.x'):
+        wx_new_w, xproj_new = run_stage(x_rows, xproj, hproj, wx_w,
+                                        state.beta.x, need_proj=True)
     # Stage H: update h2{i,f,g,o}; input-side projection uses FRESH wx.
-    wh_new_w, _ = run_stage(h_hist, hproj, xproj_new, wh_w, state.beta.h,
-                            need_proj=False)
+    with span('weights.h'):
+        wh_new_w, _ = run_stage(h_hist, hproj, xproj_new, wh_w, state.beta.h,
+                                need_proj=False)
     return _from_wide(wx_new_w, hidden), _from_wide(wh_new_w, hidden)
 
 
@@ -482,49 +494,52 @@ def _sweep(state: ADMMState, x_im: torch.Tensor, params_new: LSTMParams,
     use_kernel = _sweep_uses_kernel(rules, seq_len, x_im.device)
     empty = x_im.new_zeros(lead + (0, hidden, batch))
     h_prev_full = None          # the fresh h at T-1 with the whole H
-    if rules.sweep_mode == 'jacobi' and seq_len > 1:
-        # Every interior timestep reads the PREVIOUS sweep's h[t-1] and
-        # c[t-1]: the recurrent projection of all of them is one product,
-        # and the rest is one elementwise pass (JAX core/step.py:374-430).
-        scanned = (empty,) * 11
-        if n_int:
-            # (4H, H_in) against each row's h; with the candidate axis one
-            # product per candidate, broadcast over its rows.
-            w_rec = _to_wide(wh).mT
-            if lead:
-                w_rec = w_rec.unsqueeze(-3)
-            rec = torch.matmul(w_rec, old.h_full[..., :n_int, :, :])
-            pre_all = xproj[..., :n_int, :, :, :] + rec.reshape(
-                lead + (n_int, 4, hidden, batch))
-            sweep = (gate_sweep.jacobi_sweep if use_kernel
-                     else gate_sweep.jacobi_sweep_plain)
-            new_gates, new_duals = sweep(
-                pre_all, interior(old_slabs), interior(dual_slabs),
-                old.h[..., :n_int, :, :], old.c[..., :n_int, :, :], rho_vec)
-            scanned = new_gates + new_duals
-    elif rules.model.world > 1:
-        # The serial chain needs all of h_{t-1} at every step: every
-        # 'model' rank sweeps the slabs gathered to the whole H and keeps
-        # its block.
-        model = rules.model
-        wx_full, wh_full = (model.all_gather(w, 2)
-                            for w in (params_new.wx, wh))
-        slabs = model.all_gather(torch.stack(interior(old_slabs)
-                                             + interior(dual_slabs)), 2)
-        xproj_full = torch.einsum('tdb,gdh->tghb', x_im[:seq_len - 1],
-                                  wx_full).contiguous()
-        scanned_full = _gauss_seidel(xproj_full, wh_full, slabs[:6].unbind(),
-                                     slabs[6:].unbind(), rho, rho_vec,
-                                     use_kernel)
-        h0 = model.index * hidden
-        scanned = tuple(s[:, h0:h0 + hidden].contiguous()
-                        for s in scanned_full)
-        if n_int:
-            h_prev_full = scanned_full[5][-1]
-    else:
-        scanned = _gauss_seidel(xproj[..., :n_int, :, :, :], wh,
-                                interior(old_slabs), interior(dual_slabs),
-                                rho, rho_vec, use_kernel)
+    with span('sweep.interior'):
+        if rules.sweep_mode == 'jacobi' and seq_len > 1:
+            # Every interior timestep reads the PREVIOUS sweep's h[t-1] and
+            # c[t-1]: the recurrent projection of all of them is one product,
+            # and the rest is one elementwise pass (JAX core/step.py:374-430).
+            scanned = (empty,) * 11
+            if n_int:
+                # (4H, H_in) against each row's h; with the candidate axis one
+                # product per candidate, broadcast over its rows.
+                w_rec = _to_wide(wh).mT
+                if lead:
+                    w_rec = w_rec.unsqueeze(-3)
+                rec = torch.matmul(w_rec, old.h_full[..., :n_int, :, :])
+                pre_all = xproj[..., :n_int, :, :, :] + rec.reshape(
+                    lead + (n_int, 4, hidden, batch))
+                sweep = (gate_sweep.jacobi_sweep if use_kernel
+                         else gate_sweep.jacobi_sweep_plain)
+                new_gates, new_duals = sweep(
+                    pre_all, interior(old_slabs), interior(dual_slabs),
+                    old.h[..., :n_int, :, :], old.c[..., :n_int, :, :],
+                    rho_vec)
+                scanned = new_gates + new_duals
+        elif rules.model.world > 1:
+            # The serial chain needs all of h_{t-1} at every step: every
+            # 'model' rank sweeps the slabs gathered to the whole H and keeps
+            # its block.
+            model = rules.model
+            wx_full, wh_full = (model.all_gather(w, 2)
+                                for w in (params_new.wx, wh))
+            slabs = model.all_gather(torch.stack(interior(old_slabs)
+                                                 + interior(dual_slabs)), 2)
+            xproj_full = torch.einsum('tdb,gdh->tghb', x_im[:seq_len - 1],
+                                      wx_full).contiguous()
+            scanned_full = _gauss_seidel(xproj_full, wh_full,
+                                         slabs[:6].unbind(),
+                                         slabs[6:].unbind(), rho, rho_vec,
+                                         use_kernel)
+            h0 = model.index * hidden
+            scanned = tuple(s[:, h0:h0 + hidden].contiguous()
+                            for s in scanned_full)
+            if n_int:
+                h_prev_full = scanned_full[5][-1]
+        else:
+            scanned = _gauss_seidel(xproj[..., :n_int, :, :, :], wh,
+                                    interior(old_slabs), interior(dual_slabs),
+                                    rho, rho_vec, use_kernel)
 
     # The fresh (h, c) at T-1 for the final step: the block's last interior
     # row, the previous block's (a second halo) when row T is the last
@@ -539,45 +554,46 @@ def _sweep(state: ADMMState, x_im: torch.Tensor, params_new: LSTMParams,
 
     a_new, lam_y = torch.empty_like(gates.a), duals.y
     if last:
-        # --- Final timestep t = T (admm.py:74-76: gates, a, duals). ---
-        if n_int:
-            h_prev = scanned[5][..., -1, :, :]
-            c_prev = scanned[4][..., -1, :, :]
-        elif fresh is not None:
-            h_prev, c_prev = fresh[0], fresh[1]
-        else:
-            h_prev = c_prev = x_im.new_zeros(lead + (hidden, batch))
-        if h_prev_full is None:
-            h_prev_full = rules.model.all_gather(h_prev, 0)
-        old_T = tuple(s[..., -1, :, :] for s in old_slabs)
-        duals_T = tuple(s[..., -1, :, :] for s in dual_slabs)
-        pre_T = xproj[..., -1, :, :, :] + torch.einsum(
-            '...hb,...ghk->...gkb', h_prev_full, wh)
-        (i_T, f_T, g_T, o_T, c_T), lam_T = _timestep_primal_duals(
-            pre_T, old_T, duals_T, c_prev, rho)
-        tanh_c_T = torch.tanh(c_T)
-        wy = params_new.wy
-        to_out = lambda v: rules.model.all_sum(
-            torch.einsum('...hb,...ho->...ob', v, wy))
-        from_out = lambda r: torch.einsum('...ob,...ho->...hb', r, wy)
-        h_T = h_final_update(
-            old_T[5], o_T, tanh_c_T, duals_T[5], rho.h, wy, gates.a, rho.y,
-            duals.y, with_dual_y=rules.with_dual_y, theta0=rules.h_theta0,
-            theta_max=rules.h_theta_max, max_iters=rules.max_backtrack,
-            grad_uses_rho_h=rules.h_grad_uses_rho_h,
-            probe_is_grad_over_theta=rules.h_probe_grad_over_theta,
-            to_out=to_out, from_out=from_out, consensus=rules.batch,
-            model=rules.model).h
+        with span('sweep.final'):
+            # --- Final timestep t = T (admm.py:74-76: gates, a, duals). ---
+            if n_int:
+                h_prev = scanned[5][..., -1, :, :]
+                c_prev = scanned[4][..., -1, :, :]
+            elif fresh is not None:
+                h_prev, c_prev = fresh[0], fresh[1]
+            else:
+                h_prev = c_prev = x_im.new_zeros(lead + (hidden, batch))
+            if h_prev_full is None:
+                h_prev_full = rules.model.all_gather(h_prev, 0)
+            old_T = tuple(s[..., -1, :, :] for s in old_slabs)
+            duals_T = tuple(s[..., -1, :, :] for s in dual_slabs)
+            pre_T = xproj[..., -1, :, :, :] + torch.einsum(
+                '...hb,...ghk->...gkb', h_prev_full, wh)
+            (i_T, f_T, g_T, o_T, c_T), lam_T = _timestep_primal_duals(
+                pre_T, old_T, duals_T, c_prev, rho)
+            tanh_c_T = torch.tanh(c_T)
+            wy = params_new.wy
+            to_out = lambda v: rules.model.all_sum(
+                torch.einsum('...hb,...ho->...ob', v, wy))
+            from_out = lambda r: torch.einsum('...ob,...ho->...hb', r, wy)
+            h_T = h_final_update(
+                old_T[5], o_T, tanh_c_T, duals_T[5], rho.h, wy, gates.a, rho.y,
+                duals.y, with_dual_y=rules.with_dual_y, theta0=rules.h_theta0,
+                theta_max=rules.h_theta_max, max_iters=rules.max_backtrack,
+                grad_uses_rho_h=rules.h_grad_uses_rho_h,
+                probe_is_grad_over_theta=rules.h_probe_grad_over_theta,
+                to_out=to_out, from_out=from_out, consensus=rules.batch,
+                model=rules.model).h
 
-        # The a update scales by the whole (padded) batch, as the JAX
-        # package does under the mesh: the batch blocks are equal, so the
-        # local block times their number.
-        hw_T = to_out(h_T)
-        a_new = cf.a_update(y_im, hw_T, rho.y, duals.y,
-                            batch * rules.batch.world, rules.with_dual_y)
-        lam_h_T = cf.dual_h_update(duals_T[5], rho.h, h_T, o_T, tanh_c_T)
-        if rules.with_dual_y:
-            lam_y = cf.dual_y_update(duals.y, rho.y, a_new, hw_T)
+            # The a update scales by the whole (padded) batch, as the JAX
+            # package does under the mesh: the batch blocks are equal, so the
+            # local block times their number.
+            hw_T = to_out(h_T)
+            a_new = cf.a_update(y_im, hw_T, rho.y, duals.y,
+                                batch * rules.batch.world, rules.with_dual_y)
+            lam_h_T = cf.dual_h_update(duals_T[5], rho.h, h_T, o_T, tanh_c_T)
+            if rules.with_dual_y:
+                lam_y = cf.dual_y_update(duals.y, rho.y, a_new, hw_T)
     if rules.shard_time:
         # `a` and the y-dual stay replicated: the last block sends them.
         src = world - 1
@@ -638,42 +654,46 @@ def admm_step_im(state: ADMMState, x_im: torch.Tensor, y_im: torch.Tensor,
         refusal = candidate_axis_refusal(rules)
         if refusal:
             raise ValueError(f'a state with the candidate axis: {refusal}')
-    # Storage-dtype policy (ADMMConfig.dtype='bfloat16'): slabs are stored
-    # at reduced precision, ALL math runs in f32.
-    slab_dtype = state.gates.i.dtype
-    if slab_dtype != torch.float32:
-        state = state._replace(
-            gates=GateSlabs(*(s.float() for s in state.gates)),
-            duals=DualSlabs(*(s.float() for s in state.duals)))
+    with span('epoch'):
+        # Storage-dtype policy (ADMMConfig.dtype='bfloat16'): slabs are
+        # stored at reduced precision, ALL math runs in f32.
+        slab_dtype = state.gates.i.dtype
+        if slab_dtype != torch.float32:
+            state = state._replace(
+                gates=GateSlabs(*(s.float() for s in state.gates)),
+                duals=DualSlabs(*(s.float() for s in state.duals)))
 
-    seq_len = x_im.shape[-3]
-    old = _old_rows(state, seq_len, rules)
-    wy_new = _wy_update(state, old.h_full[..., -1, :, :],
-                        old.hi == seq_len + 1, rules)
-    state = state._replace(params=state.params._replace(wy=wy_new))
+        seq_len = x_im.shape[-3]
+        old = _old_rows(state, seq_len, rules)
+        with span('wy'):
+            wy_new = _wy_update(state, old.h_full[..., -1, :, :],
+                                old.hi == seq_len + 1, rules)
+        state = state._replace(params=state.params._replace(wy=wy_new))
 
-    wx_new, wh_new = _weight_phase(state, x_im, old, rules)
-    params_new = LSTMParams(wx=wx_new, wh=wh_new, wy=wy_new)
+        wx_new, wh_new = _weight_phase(state, x_im, old, rules)
+        params_new = LSTMParams(wx=wx_new, wh=wh_new, wy=wy_new)
 
-    gates_new, duals_new = _sweep(state, x_im, params_new, y_im, old, rules)
+        gates_new, duals_new = _sweep(state, x_im, params_new, y_im, old,
+                                      rules)
 
-    if slab_dtype != torch.float32:
-        gates_new = GateSlabs(*(s.to(slab_dtype) for s in gates_new[:6]),
-                              a=gates_new.a)
-        duals_new = DualSlabs(*(s.to(slab_dtype) for s in duals_new[:6]),
-                              y=duals_new.y)
-    new_state = ADMMState(params=params_new, gates=gates_new,
-                          duals=duals_new, rho=state.rho, beta=state.beta,
-                          epoch=state.epoch + 1)
-    live = (not rules.adapt_stop_epoch
-            or new_state.epoch <= rules.adapt_stop_epoch)
-    if rules.adaptive_rho and live:
-        primal = admm_residuals_im(new_state, x_im, rules)
-        dual = dual_residuals(new_state, state.gates, rules, seq_len)
-        new_state = new_state._replace(rho=balanced_rho(
-            new_state.rho, primal, dual, mu=rules.adapt_mu,
-            tau=rules.adapt_tau))
-    return new_state
+        if slab_dtype != torch.float32:
+            gates_new = GateSlabs(*(s.to(slab_dtype) for s in gates_new[:6]),
+                                  a=gates_new.a)
+            duals_new = DualSlabs(*(s.to(slab_dtype) for s in duals_new[:6]),
+                                  y=duals_new.y)
+        new_state = ADMMState(params=params_new, gates=gates_new,
+                              duals=duals_new, rho=state.rho, beta=state.beta,
+                              epoch=state.epoch + 1)
+        live = (not rules.adapt_stop_epoch
+                or new_state.epoch <= rules.adapt_stop_epoch)
+        if rules.adaptive_rho and live:
+            with span('residuals'):
+                primal = admm_residuals_im(new_state, x_im, rules)
+                dual = dual_residuals(new_state, state.gates, rules, seq_len)
+                new_state = new_state._replace(rho=balanced_rho(
+                    new_state.rho, primal, dual, mu=rules.adapt_mu,
+                    tau=rules.adapt_tau))
+        return new_state
 
 
 def epoch_step(state: ADMMState, x_im: torch.Tensor, y_im: torch.Tensor,
@@ -687,8 +707,10 @@ def epoch_step(state: ADMMState, x_im: torch.Tensor, y_im: torch.Tensor,
     every rank but for data parallelism's blocks of the batch."""
     prev_gates = state.gates
     state = admm_step_im(state, x_im, y_im, rules)
-    train_l, val_l = train_val_mse_im(whole_params(state.params, rules.model),
-                                      xall_im, y_im, vy_im, rules.batch)
+    with span('loss'):
+        train_l, val_l = train_val_mse_im(
+            whole_params(state.params, rules.model), xall_im, y_im, vy_im,
+            rules.batch)
     metrics = {'train_loss': train_l, 'val_loss': val_l}
     if with_residuals:
         metrics.update(admm_residuals_im(state, x_im, rules))

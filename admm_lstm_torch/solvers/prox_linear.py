@@ -13,9 +13,11 @@ device.  PyTorch runs eagerly, so each loop predicate becomes a host sync:
 one per block of BLOCK_K candidates in the weight stage
 (`doubling_search`, which ADMM-LSTM-L's three searches use too), one per
 doubling in the final-h search (at most a handful: theta runs from theta0
-to theta_max by doublings).  These are the only host syncs inside an
-epoch.  Every search is capped at `max_iters` doublings, with the same
-first-acceptance and cap semantics as the JAX package.
+to theta_max by doublings).  These are the planned host syncs, each
+inside a `read` span (utils/observe.span).  The weight stage makes six
+more: its three `torch.where` calls on 0-d host tensors copy them to the
+device (core/step.py).  Every search is capped at `max_iters` doublings,
+with the same first-acceptance and cap semantics as the JAX package.
 
 Under data parallelism (core/consensus.py) every objective sum of a line
 search is all-reduced before it is compared, so that every rank takes the
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 
 from admm_lstm_torch.core.consensus import LOCAL, Consensus
+from admm_lstm_torch.utils.observe import span
 
 # Candidate thetas evaluated per host sync of the weight-stage search.
 BLOCK_K = 8
@@ -187,8 +190,10 @@ def doubling_search(fails, theta0: torch.Tensor, max_iters: int):
         theta = torch.where(~done & found, hit, theta)
         done = done | found
         k += BLOCK_K
-        if bool(done.all()):                                 # the host sync
-            break
+        all_done = done.all()
+        with span('read'):
+            if bool(all_done):                               # the host sync
+                break
         base = base * (2.0 ** n)
     return theta, k
 
@@ -295,7 +300,9 @@ def h_final_update(h_old, o_new, tanh_c_new, lam_h, rho_h, wy, a_old,
                             iters=k)
 
     def accept_fails(theta):
-        return bool(fails(theta))                         # the host sync
+        failed = fails(theta)
+        with span('read'):
+            return bool(failed)                           # the host sync
 
     # theta doubles exactly in f32, so the host keeps its own f32 copy and
     # the stop test needs no sync.

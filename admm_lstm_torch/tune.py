@@ -24,6 +24,9 @@ memory the group of candidates halves and each half trains on its own
 same with the stacked epoch (variants/stacked.py: the candidate axis
 through its sweep, rho_z per candidate where `z_candidates` gives it,
 layer 0's exact stage one batched `chol_solve` call a side for all S).
+Under a profiler `search_rho` is a `search` span (utils/observe.span)
+around its `init` and each group's `group`, which holds the group's
+epochs and a `loss` for its final losses.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from admm_lstm_torch.models.lstm import init_lstm_params, train_val_mse_im
 from admm_lstm_torch.utils.config import RHO_KEYS, ADMMConfig, ParameterSet
 from admm_lstm_torch.utils.device import matmul_precision, resolve_device
 from admm_lstm_torch.utils.logging import info, warning
+from admm_lstm_torch.utils.observe import span
 
 
 def candidate_grid(base: ParameterSet,
@@ -86,28 +90,34 @@ def search_rho(train_x, train_y, val_x, val_y, base: ParameterSet,
     if candidates is None:
         candidates = candidate_grid(base)
     candidates = np.asarray(candidates, np.float32)
-    with matmul_precision(config.matmul_precision):
-        train_x, train_y = (_as_tensor(train_x, device),
-                            _as_tensor(train_y, device))
-        val_x, val_y = _as_tensor(val_x, device), _as_tensor(val_y, device)
-        if params is None:
-            gen = torch.Generator().manual_seed(config.seed)
-            params = init_lstm_params(gen, train_x.shape[2],
-                                      config.hidden_size, train_y.shape[1],
-                                      device=device)
-        base_state = init_admm_state(params.to(device), train_x, base,
-                                     config)
-        x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x,
-                                                 val_y)
+    with matmul_precision(config.matmul_precision), span('search'):
+        with span('init'):
+            train_x, train_y = (_as_tensor(train_x, device),
+                                _as_tensor(train_y, device))
+            val_x, val_y = (_as_tensor(val_x, device),
+                            _as_tensor(val_y, device))
+            if params is None:
+                gen = torch.Generator().manual_seed(config.seed)
+                params = init_lstm_params(gen, train_x.shape[2],
+                                          config.hidden_size,
+                                          train_y.shape[1], device=device)
+            base_state = init_admm_state(params.to(device), train_x, base,
+                                         config)
+            x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x,
+                                                     val_y)
+
         def train_group(lo, hi):
             """Candidates lo..hi-1 from base_state (which the step never
             writes), as one batched program."""
-            state = broadcast_state(base_state, hi - lo, penalties_from_vectors(
-                candidates[lo:hi], device=device))
-            for _ in range(epochs):
-                state = admm_step_im(state, x_im, y_im, rules)
-            return torch.stack(train_val_mse_im(state.params, xall_im, y_im,
-                                                vy_im), dim=-1)
+            with span('group'):
+                state = broadcast_state(
+                    base_state, hi - lo,
+                    penalties_from_vectors(candidates[lo:hi], device=device))
+                for _ in range(epochs):
+                    state = admm_step_im(state, x_im, y_im, rules)
+                with span('loss'):
+                    return torch.stack(train_val_mse_im(
+                        state.params, xall_im, y_im, vy_im), dim=-1)
 
         losses = _train_all('search_rho', candidates, epochs, train_group)
     return _ranked(candidates, losses, base)

@@ -1,9 +1,12 @@
-"""Profiling and throughput observability.
+"""Profiling: a `torch.profiler` trace of a block and the program's
+named spans.
 
-Counterpart of `admm_lstm_tpu/utils/observe.py`: a `torch.profiler` trace
-(CPU and, where a card is present, CUDA activity) around a code block,
-written as a Chrome trace (viewable in Perfetto or chrome://tracing);
-named regions that show up in it; and an iterations/s meter.
+Counterpart of `admm_lstm_tpu/utils/observe.py`: `profile_trace` writes a
+`torch.profiler` trace (CPU and, where a card is present, CUDA activity)
+of a code block as a Chrome trace (viewable in Perfetto or
+chrome://tracing).  `span(name)` marks a phase of the program (the epoch,
+its weight stages, its sweep, the line searches' host reads); the spans
+exist only while a profiler records.
 """
 
 from __future__ import annotations
@@ -17,12 +20,26 @@ import torch
 
 from admm_lstm_torch.utils.logging import info
 
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the program: `torch.profiler.record_function(name)`
+    while a `torch.profiler` session records, so it lands in the same trace
+    as the operators and device work it encloses (on their clock, nested
+    in the span around it); otherwise one shared no-op context, which costs
+    a flag read."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
 
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[str] = None) -> Iterator[None]:
     """Trace the block with torch.profiler and write the Chrome trace
     `trace_<pid>_<ms since the epoch>.json` into `log_dir`; a no-op when
-    log_dir is None."""
+    log_dir is None.  The program's spans (`span`) show in it as user
+    annotations around the operators they enclose."""
     if not log_dir:
         yield
         return
@@ -37,35 +54,3 @@ def profile_trace(log_dir: Optional[str] = None) -> Iterator[None]:
                                  f'{int(time.time() * 1e3)}.json')
     prof.export_chrome_trace(path)
     info(f'Profiler trace written to {path}')
-
-
-def annotate(name: str):
-    """Named trace region (shows up in the profile)."""
-    return torch.profiler.record_function(name)
-
-
-class ThroughputMeter:
-    """Iterations/s over a sliding window; call update() once per step."""
-
-    def __init__(self, window: int = 100) -> None:
-        self.window = window
-        self._times: list = []
-        self.total = 0
-
-    def update(self) -> None:
-        self.total += 1
-        now = time.perf_counter()
-        self._times.append(now)
-        if len(self._times) > self.window:
-            self._times.pop(0)
-
-    @property
-    def iters_per_s(self) -> float:
-        if len(self._times) < 2:
-            return 0.0
-        span = self._times[-1] - self._times[0]
-        return (len(self._times) - 1) / span if span > 0 else 0.0
-
-    def report(self, prefix: str = '') -> None:
-        info(f'{prefix}throughput: {self.iters_per_s:.1f} iters/s '
-             f'({self.total} total)')

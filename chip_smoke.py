@@ -165,7 +165,7 @@ Phases, each fatal on failure:
                visualize over its models, in a temporary directory, the
                models' predictions on the card held to the CPU's; a
                profile_trace of one scenario epoch naming the kernel and
-               the annotate() region.
+               the span() region.
  11. seqpar  - the time-sharded Jacobi layout (parallel/sharding.py,
                shard_time=True) at the JAX long-T bench's shape (B 256, T
                512, H 16, Jacobi, prox-linear weights): two gloo ranks on
@@ -2859,15 +2859,15 @@ def _scenario_cli_and_visualize():
 
 def _scenario_trace(xs, ys, vxs, vys, ps, cfg, params):
     """profile_trace around one scenario epoch under
-    annotate('scenario-epoch'); the trace must name the kernel and the
+    span('scenario-epoch'); the trace must name the kernel and the
     region."""
     import tempfile
     from admm_lstm_torch import api
     from admm_lstm_torch.models.lstm import LSTMParams
-    from admm_lstm_torch.utils.observe import annotate, profile_trace
+    from admm_lstm_torch.utils.observe import profile_trace, span
     with tempfile.TemporaryDirectory(prefix='chip_smoke_trace_') as tmp:
         with profile_trace(tmp):
-            with annotate('scenario-epoch'):
+            with span('scenario-epoch'):
                 api.train_scenarios(
                     xs[:1], ys[:1], vxs[:1], vys[:1], ps,
                     cfg.replace(epochs=1),

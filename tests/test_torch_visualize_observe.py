@@ -3,7 +3,6 @@ runtime helpers of utils/logging.py, against the JAX package's on the CPU
 (tests/test_cli.py and tests/test_observe.py hold the JAX ones)."""
 
 import os
-import time
 
 import jax
 import numpy as np
@@ -18,8 +17,7 @@ from admm_lstm_torch import visualize
 from admm_lstm_torch.ckpt import save_model
 from admm_lstm_torch.models.lstm import params_from_numpy
 from admm_lstm_torch.utils import plotting
-from admm_lstm_torch.utils.observe import (ThroughputMeter, annotate,
-                                           profile_trace)
+from admm_lstm_torch.utils.observe import profile_trace, span
 
 torch.set_num_threads(1)
 os.environ.setdefault('ADMM_TORCH_NO_FILELOG', '1')
@@ -118,16 +116,6 @@ def test_torch_visualize_no_plot(saved_models, capsys):
         assert f'{mse:.8f}' in out
 
 
-def test_torch_throughput_meter():
-    meter = ThroughputMeter(window=10)
-    for _ in range(5):
-        meter.update()
-        time.sleep(0.001)
-    assert meter.total == 5
-    assert meter.iters_per_s > 0
-    meter.report('test ')
-
-
 def test_torch_profile_trace_noop(tmp_path):
     with profile_trace(None):
         pass
@@ -136,7 +124,7 @@ def test_torch_profile_trace_noop(tmp_path):
 
 def test_torch_profile_trace_capture(tmp_path):
     with profile_trace(str(tmp_path)):
-        with annotate('test-region'):
+        with span('test-region'):
             torch.ones(8).sum()
     (entry,) = os.scandir(tmp_path)
     assert entry.name.endswith('.json')
