@@ -5,7 +5,9 @@ is compiled by nvcc, for Hopper only, into a shared library under
 `admm_lstm_torch/_build/` (listed in .gitignore), named by the hash of
 its source and flags, at first use.  Nothing is compiled at import time,
 and a failed build raises.  `build_all` starts one nvcc per source, all
-together, and waits for them.  `launch` calls one exported function on
+together, and waits for them; the first load of a source of the fast
+epoch's main path (MAIN_PATH) builds all of them at once, so a cold
+start waits for one nvcc.  `launch` calls one exported function on
 PyTorch's current stream and raises if it reports a CUDA error.
 """
 
@@ -25,6 +27,10 @@ CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+# The sources every fast epoch loads: the weight stages' theta tests and
+# the sweeps.
+MAIN_PATH = ('gate_sweep', 'theta_tests')
 
 # Loaded libraries, and what each build printed.
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -82,9 +88,10 @@ def build_all(names: Iterable[str]) -> None:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The ctypes handle of csrc/<name>.cu, built on first use."""
+    """The ctypes handle of csrc/<name>.cu, built on first use (with the
+    rest of MAIN_PATH, if it is one of them)."""
     if name not in _LIBS:
-        build_all([name])
+        build_all([name, *(MAIN_PATH if name in MAIN_PATH else ())])
         _LIBS[name] = ctypes.CDLL(_target(name)[1])
     return _LIBS[name]
 

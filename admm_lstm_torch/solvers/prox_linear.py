@@ -11,7 +11,8 @@ families of the fast ADMM variant have data-dependent iteration counts:
 The JAX package runs both searches inside `lax.while_loop`s on the
 device.  PyTorch runs eagerly, so each loop predicate becomes a host sync:
 one per block of BLOCK_K candidates in the weight stage
-(`doubling_search`, which ADMM-LSTM-L's three searches use too), one per
+(`doubling_search`, which ADMM-LSTM-L's three searches use too; the
+block's objective sums are one pass of `kernels/theta_tests`), one per
 doubling in the final-h search (at most a handful: theta runs from theta0
 to theta_max by doublings).  These are the planned host syncs, each
 inside a `read` span (utils/observe.span).  The weight stage makes six
@@ -49,6 +50,7 @@ import numpy as np
 import torch
 
 from admm_lstm_torch.core.consensus import LOCAL, Consensus
+from admm_lstm_torch.kernels.theta_tests import theta_tests
 from admm_lstm_torch.utils.observe import span
 
 # Candidate thetas evaluated per host sync of the weight-stage search.
@@ -114,11 +116,11 @@ def weight_stage_update_wide(m_inputs: torch.Tensor, proj_self: torch.Tensor,
     c_cols = torch.where(tanh_b, one,
                          torch.tensor(0.25, dtype=dtype)).to(weights_w.device)
 
-    def act(x):
-        return a_cols + b_cols * torch.tanh(s_cols * x)
-
-
-    pre = proj_self + proj_other
+    # The theta tests (kernels/theta_tests.py) take slabs with B innermost;
+    # the h stage's projections come from einsum with 4H innermost.
+    pre = torch.add(proj_self, proj_other,
+                    out=torch.empty(target_w.shape, dtype=dtype,
+                                    device=target_w.device))
     u = torch.tanh(s_cols * pre)
     act_pre, dact_pre = a_cols + b_cols * u, c_cols * (1.0 - u * u)
     resid = act_pre - target_w
@@ -126,7 +128,8 @@ def weight_stage_update_wide(m_inputs: torch.Tensor, proj_self: torch.Tensor,
         torch.einsum('...tdb,...tkb->...dk', m_inputs, resid * dact_pre),
         torch.sum(resid * resid, dim=(-3, -1)))
     grad = rho_cols.unsqueeze(-2) * grad_sum
-    grad_proj = torch.einsum('...tdb,...dk->...tkb', m_inputs, grad)
+    grad_proj = torch.einsum('...tdb,...dk->...tkb', m_inputs,
+                             grad).contiguous()
 
     # <grad, diff> + T/2 * theta * |diff|^2 with diff = grad/theta
     # collapses to (1 + T/2) * S / theta, S = sum(grad^2) per gate.
@@ -137,13 +140,8 @@ def weight_stage_update_wide(m_inputs: torch.Tensor, proj_self: torch.Tensor,
 
     def fails(cands):
         """(K, [S,] 4) candidate thetas -> the table of those that fail."""
-        sums = []
-        for th in cands:
-            th_cols = cols(th)[..., None].unsqueeze(-3)   # ([S,] 1, 4H, 1)
-            r = act(pre + grad_proj / th_cols) - target_w
-            sums.append(per_gate(torch.sum(r * r, dim=(-3, -1))))
-        original = 0.5 * rho_g * model.all_sum(
-            consensus.all_sum(torch.stack(sums)))
+        sums = theta_tests(pre, grad_proj, target_w, cands, tanh_cols)
+        original = 0.5 * rho_g * model.all_sum(consensus.all_sum(sums))
         return original > f_at_w + est_coef / cands
 
     theta, iters = doubling_search(

@@ -32,6 +32,11 @@ Phases, each fatal on failure:
                bit-equal to S calls alone and timed beside them, and gate
                (ii): the error against float64 on ill-conditioned
                Gram-like inputs, held to the plain version's;
+               for the weight stage's theta tests (THETA_SHAPES: the
+               GoogleStock stage and its 27-candidate rho grid) the table
+               held to the plain loop at THETA_RTOL and bit-equal on a
+               second launch, the plan, registers and spills, timed
+               beside the plain loop;
   3. floor   - the Gauss-Seidel serial-floor probe: `python -m
                admm_lstm_torch.gs_floor` at its defaults (T 2047, H 16,
                B 64) with the launch counts zeroed just before and read
@@ -251,6 +256,16 @@ JACOBI_CANDIDATE_SHAPES = [(27, 9, 10, 4224), (4, 59, 10, 340)]
 # recurrence on interior_sweep's plan, wh streamed), timed beside
 # interior_sweep and cuDNN; the two routes' edge (H 32 and 33), a ragged
 # batch edge, small ones.
+# The theta tests ([S,] T, 4H, B): GoogleStock's weight stage (the
+# training runs) and its 27-candidate rho grid, a full block of 8 thetas.
+THETA_SHAPES = [(10, 40, 4224), (27, 10, 40, 4224)]
+THETA_K = 8
+# f32 sums of ~0.4 M squares a gate and candidate, in another order than
+# the plain loop's.
+THETA_RTOL = 1e-6
+# Operations per element and theta: divide, add, scale, tanh, scale,
+# shift, subtract, square, add.
+THETA_OPS = 9
 FLOOR_SHAPES = [(2047, 16, 64), (127, 16, 512), (9, 10, 4224),
                 (31, 130, 512), (511, 32, 96), (511, 33, 96), (13, 5, 1000),
                 (4, 7, 37), (1, 3, 1)]
@@ -751,6 +766,15 @@ def jacobi_bound(steps, hidden, batch, cands=1):
                  cands * steps * hidden * batch * 105)
 
 
+def theta_bound(shape, k=THETA_K):
+    """One block of k theta tests over slabs `shape` ([S,] T, 4H, B).
+    Bytes: pre, grad_proj and the targets read once (the thetas and the
+    table are a few hundred bytes).  Operations: THETA_OPS per element
+    and theta."""
+    elems = int(np.prod(shape))
+    return bound(4 * 3 * elems, elems * k * THETA_OPS)
+
+
 def solve_bound(n, dim):
     """N SPD solves.  Bytes: the lower triangle of a (all the function
     reads of it), b and x once.  Operations: D^3/3 for the factorization
@@ -873,7 +897,7 @@ def kernel_row(name, shape, kernel, plain, library, tol, bound_ms_by, flush,
 KERNEL_NAMES = ('warp_chol_kernel', 'blocked_solve_kernel',
                 'blocked_inverse_kernel', 'interior_sweep_kernel',
                 'jacobi_sweep_kernel', 'floor_sweep_kernel',
-                'floor_warp_kernel')
+                'floor_warp_kernel', 'theta_tests_kernel')
 
 
 def ptxas_summary(out):
@@ -901,12 +925,12 @@ def ptxas_summary(out):
 
 
 def phase_build():
-    """Builds both sources and returns every kernel's registers and spills
+    """Builds every source and returns every kernel's registers and spills
     ({} for a library built before this run)."""
     from admm_lstm_torch.kernels import build
     t0 = time.perf_counter()
-    build.build_all(['gate_sweep', 'cholesky'])
-    log(f'[build] gate_sweep.cu and cholesky.cu built in '
+    build.build_all(['gate_sweep', 'cholesky', 'theta_tests'])
+    log(f'[build] gate_sweep.cu, cholesky.cu and theta_tests.cu built in '
         f'{time.perf_counter() - t0:.2f} s')
     summary = {}
     for name, out in build.build_logs.items():
@@ -1211,12 +1235,65 @@ def batched_chol_row(name, shape, seed, flush):
     return row
 
 
+def theta_inputs(shape, seed, k=THETA_K):
+    """Seeded slabs of one block of theta tests at `shape` ([S,] T, 4H,
+    B): pre, grad_proj, targets near sigmoid(pre), k thetas 1, 2, 4, ...
+    (the doubling search's first block) and the tanh mask."""
+    from admm_lstm_torch.core.step import gate_is_tanh
+    gen = torch.Generator().manual_seed(seed)
+    pre = _rand(gen, *shape)
+    grad_proj = _rand(gen, *shape, scale=3.0)
+    target = torch.sigmoid(pre) + _rand(gen, *shape, scale=0.05)
+    cands = (2.0 ** torch.arange(k, dtype=torch.float32)).view(
+        (-1,) + (1,) * (len(shape) - 2)).expand(
+        (k,) + tuple(shape[:-3]) + (4,)).contiguous().cuda()
+    return (pre, grad_proj, target, cands,
+            gate_is_tanh(shape[-2], shape[-2] // 4, 'cuda'))
+
+
+def theta_row(shape, seed, flush, ptxas):
+    """The theta-test kernel at `shape`: its table held to the plain loop
+    at THETA_RTOL and bit-equal on a second launch, timed L2 flushed
+    beside its bound and the plain loop; its plan and the registers and
+    spills of its instance."""
+    from admm_lstm_torch.kernels import theta_tests as tt
+    args = theta_inputs(shape, seed)
+    got, again = tt.theta_tests(*args), tt.theta_tests(*args)
+    want = tt.theta_tests_plain(*args)
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want.abs()).max())
+    plan = tt.card_tests_plan(*args[:3])
+    instance = f'theta_tests_kernel<{plan.vec}>'
+    occ = tt.occupancy(torch.device('cuda'), plan.vec)
+    bound_ms, bound_by = theta_bound(shape)
+    row = dict(shape=list(shape), max_abs_err=float((got - want).abs().max()),
+               max_rel_err=rel, bit_equal_relaunch=torch.equal(got, again),
+               ms=cuda_ms(lambda: tt.theta_tests(*args), 50, flush),
+               warm_ms=cuda_ms(lambda: tt.theta_tests(*args), 50, None),
+               plain_ms=cuda_ms(lambda: tt.theta_tests_plain(*args), 5,
+                                flush),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               plan=plan._asdict(), instance=instance,
+               blocks_per_sm=occ['blocks_per_sm'], regs=occ['regs'],
+               local_bytes=occ['local_bytes'])
+    row.update((k, v) for k, v in ptxas.get(instance, {}).items()
+               if k != 'regs')
+    log(f'[kernels] theta_tests {row}')
+    if not (rel <= THETA_RTOL and row['bit_equal_relaunch']):
+        raise AssertionError(f'theta_tests at {list(shape)}: relative error '
+                             f'{rel} (rtol {THETA_RTOL}), bit-equal '
+                             f'relaunch {row["bit_equal_relaunch"]}')
+    return row
+
+
 def phase_kernels(flush, ptxas):
     from admm_lstm_torch.kernels import cholesky as ch
     from admm_lstm_torch.kernels import gate_sweep as gs
     rows = {k: [] for k in ('interior_sweep', 'interior_sweep[candidates]',
                             'jacobi_sweep', 'jacobi_sweep[candidates]',
-                            'chol_solve', 'chol_inverse')}
+                            'chol_solve', 'chol_inverse', 'theta_tests')}
+    for k, shape in enumerate(THETA_SHAPES):
+        rows['theta_tests'].append(theta_row(shape, 110 + k, flush, ptxas))
     for k, shape in enumerate(SWEEP_SHAPES):
         steps, hidden, batch = shape
         args = sweep_inputs(*shape, seed=k)
@@ -1432,9 +1509,10 @@ def _kernels():
     from admm_lstm_torch.kernels.gate_sweep import (floor_sweep,
                                                     interior_sweep,
                                                     jacobi_sweep)
+    from admm_lstm_torch.kernels.theta_tests import theta_tests
     return dict(interior_sweep=interior_sweep, jacobi_sweep=jacobi_sweep,
                 chol_solve=chol_solve, chol_inverse=chol_inverse,
-                floor_sweep=floor_sweep)
+                floor_sweep=floor_sweep, theta_tests=theta_tests)
 
 
 # The sweep kernels whose launches with the candidate axis are counted
@@ -1505,6 +1583,7 @@ def phase_slice1(tx, ty, vx, vy, ps, weights):
         raise AssertionError(f'final val {val_l[-1]} above the reference '
                              f'{REF_VAL_30} x 1.05')
     need(launches, 'interior_sweep', EPOCHS, 'slice 1')
+    need(launches, 'theta_tests', 2 * EPOCHS, 'slice 1')
     # A second, warm run of the same work for the epoch time.
     res2 = run()
     log(f'[train] slice 1 warm rerun: '
@@ -2561,7 +2640,8 @@ def phase_legacy(tx, ty, vx, vy, ps, weights):
 
     # 5. The comparison harness: six curves, each its method's run alone
     # (the baselines' first n + 1 epochs of their runs above); the Fast
-    # run's interior_sweep once an epoch and no other launch.
+    # run's interior_sweep once an epoch, its theta tests at least once a
+    # weight stage, and no other launch.
     alone = {'Fast ADMM-LSTM': api.train(
         tx, ty, vx, vy, ps, ADMMConfig(epochs=n, hidden_size=10),
         params=params_from_dict(weights), log_every=0, device='cuda'),
@@ -2588,6 +2668,7 @@ def phase_legacy(tx, ty, vx, vy, ps, weights):
                 err_msg=f'run_comparison {r["name"]} {key}')
     if launches != {'interior_sweep': n, 'jacobi_sweep': 0, 'chol_solve': 0,
                     'chol_inverse': 0, 'floor_sweep': 0,
+                    'theta_tests': max(launches['theta_tests'], 2 * n),
                     'interior_sweep[candidates]': 0,
                     'jacobi_sweep[candidates]': 0}:
         raise AssertionError(f'run_comparison launches {launches}')
@@ -2915,6 +2996,8 @@ def phase_scenarios(card):
         raise AssertionError('scenarios: non-finite losses')
     if launches != {'interior_sweep': SCEN_EPOCHS, 'jacobi_sweep': 0,
                     'chol_solve': 0, 'chol_inverse': 0, 'floor_sweep': 0,
+                    'theta_tests': max(launches['theta_tests'],
+                                       2 * SCEN_EPOCHS),
                     'interior_sweep[candidates]': SCEN_EPOCHS,
                     'jacobi_sweep[candidates]': 0}:
         raise AssertionError(f'scenarios: launches {launches}')
@@ -3395,6 +3478,10 @@ def main() -> int:
         'jacobi_sweep[candidates]': ('admm_lstm_torch/csrc/gate_sweep.cu',
                                      'admm_lstm_tpu/kernels/gate_sweep.py'
                                      ':260', launches['tune_auto']),
+        # Replaces no TPU kernel: the prox-linear weight stages' theta
+        # tests, which XLA fuses inside the JAX package's while_loop.
+        'theta_tests': ('admm_lstm_torch/csrc/theta_tests.cu', None,
+                        launches['slice1']),
     }
     kernels = []
     for name, (source, replaces, counts) in meta.items():
@@ -3413,7 +3500,7 @@ def main() -> int:
                     'chain_share', 'interior_warm_ms', 'cudnn_max_abs_err',
                     'onplan_ms', 'onplan_ms_per_step', 'instance',
                     'alone_ms', 'alone_max_abs_err', 'alone_bit_equal',
-                    'alone_plan'):
+                    'alone_plan', 'max_rel_err', 'bit_equal_relaunch'):
             if key in main_row:
                 kernels[-1][key] = main_row[key]
         if name in ill:

@@ -1,6 +1,7 @@
 """Tests of the port's CUDA kernels (the Gauss-Seidel and Jacobi sweeps,
 both with the candidate axis too, the serial-floor probe,
-the batched Cholesky solve and inverse), of the rho search's batched
+the batched Cholesky solve and inverse, the weight stage's theta tests),
+of the rho search's batched
 program, of the
 legacy variants' epochs, of data-parallel ranks (gloo ranks sharing the
 card, one NCCL rank) and of the scenario batch on the card; they need a
@@ -783,3 +784,127 @@ def test_torch_cuda_train_scenarios_matches_cpu(cuda):
     np.testing.assert_allclose(got['val_loss'], cpu['val_loss'], rtol=1e-5)
     for a, b in zip(got['params'], cpu['params']):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=ATOL)
+
+
+def _theta_inputs(shape, seed, divide=False):
+    """chip_smoke's seeded slabs and first block of 8 thetas (powers of
+    two from 1, the doubling search's) at `shape` ([S,] T, 4H, B); with
+    `divide` thetas that are not powers of two (the kernel's division
+    path)."""
+    pre, grad_proj, target, cands, tanh_cols = chip_smoke.theta_inputs(
+        shape, seed)
+    if divide:
+        gen = torch.Generator().manual_seed(seed)
+        cands = cands * (torch.rand(cands.shape[1:], generator=gen)
+                         + 0.5).to(cands.device)
+    return pre, grad_proj, target, cands, tanh_cols
+
+
+THETA_SHAPES = chip_smoke.THETA_SHAPES
+
+
+@pytest.mark.parametrize('shape', THETA_SHAPES + [(3, 7, 20, 37)])
+@pytest.mark.parametrize('divide', [False, True])
+def test_torch_cuda_theta_tests_match_plain(cuda, shape, divide):
+    """The theta-test kernel's table against the plain loop on the card
+    at 1e-6 relative (f32 sums over (T, H, B) in another order), at the
+    GoogleStock stage (10, 40, 4224) and its 27-candidate grid, and at a
+    ragged shape that takes one float a load; powers of two and other
+    thetas; one launch each."""
+    from admm_lstm_torch.kernels.theta_tests import (theta_tests,
+                                                     theta_tests_plain)
+    args = _theta_inputs(shape, 5, divide=divide)
+    before = theta_tests.launches
+    got = theta_tests(*args)
+    assert theta_tests.launches == before + 1
+    want = theta_tests_plain(*args)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize('shape', THETA_SHAPES)
+def test_torch_cuda_theta_tests_are_deterministic(cuda, shape):
+    """Two launches on the same inputs give the same bits (no float
+    atomics: the blocks' partials are added in a fixed order)."""
+    from admm_lstm_torch.kernels.theta_tests import theta_tests
+    args = _theta_inputs(shape, 6)
+    assert torch.equal(theta_tests(*args), theta_tests(*args))
+
+
+def test_torch_cuda_theta_tests_strided_views_and_nan(cuda):
+    """Slabs that are views with S and T strides of their own, a strided
+    view of the thetas, a tail block of 3 thetas, and a candidate whose
+    slabs are NaN (its sums NaN, the others' untouched)."""
+    from admm_lstm_torch.kernels.theta_tests import (theta_tests,
+                                                     theta_tests_plain)
+    pre, grad_proj, target, _, tanh_cols = _theta_inputs(
+        (4, 12, 40, 4224), 7)
+    pre, grad_proj = pre[:3, 1:11], grad_proj[1:, 2:]
+    target = torch.cat([target, target])[::2][:3, :10]
+    pre[1] = float('nan')
+    cands = (2.0 ** torch.arange(12, dtype=torch.float32, device=cuda)
+             ).repeat(3, 4, 1).permute(2, 0, 1)[::4]      # (3, 3, 4) view
+    assert not cands.is_contiguous()
+    assert not any(t.is_contiguous() for t in (pre, grad_proj, target))
+    got = theta_tests(pre, grad_proj, target, cands, tanh_cols)
+    want = theta_tests_plain(pre, grad_proj, target, cands, tanh_cols)
+    assert bool(got[:, 1].isnan().all())
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0, equal_nan=True)
+
+
+def test_torch_cuda_theta_tests_refuse(cuda):
+    """What the kernel does not take raises: 4H innermost (the h stage's
+    einsum layout), more than MAX_K thetas, float64, an integer mask,
+    tensors on two devices, mismatched slabs."""
+    from admm_lstm_torch.kernels.theta_tests import MAX_K, theta_tests
+    pre, grad_proj, target, cands, tanh_cols = _theta_inputs(
+        (2, 5, 12, 64), 8)
+    with pytest.raises(ValueError, match='B innermost'):
+        theta_tests(pre.transpose(-1, -2).contiguous().transpose(-1, -2),
+                    grad_proj, target, cands, tanh_cols)
+    with pytest.raises(ValueError, match='thetas'):
+        theta_tests(pre, grad_proj, target,
+                    torch.cat([cands, cands[:MAX_K + 1 - len(cands)]]),
+                    tanh_cols)
+    with pytest.raises(TypeError):
+        theta_tests(pre.double(), grad_proj, target, cands, tanh_cols)
+    with pytest.raises(TypeError):
+        theta_tests(pre, grad_proj, target, cands, tanh_cols.int())
+    with pytest.raises(ValueError, match='one device'):
+        theta_tests(pre, grad_proj, target.cpu(), cands, tanh_cols)
+    with pytest.raises(ValueError, match='one shape'):
+        theta_tests(pre, grad_proj[:, 1:], target, cands, tanh_cols)
+
+
+@pytest.mark.parametrize('shape', THETA_SHAPES)
+def test_torch_cuda_theta_tests_accept_as_the_loop(cuda, shape):
+    """The accept tables of the kernel's sums and of the plain loop's are
+    identical against thresholds 1e-4 to 1e-2 relative above or below the
+    loop's sums, seeded: every test that the sums' f32 rounding (1e-6
+    relative, above) cannot tip goes the same way.  Thresholds within
+    that rounding of the sums are the line searches' known near-ties, and
+    either order of summation may take them either way."""
+    from admm_lstm_torch.kernels.theta_tests import (theta_tests,
+                                                     theta_tests_plain)
+    args = _theta_inputs(shape, 10)
+    got, want = theta_tests(*args), theta_tests_plain(*args)
+    gen = torch.Generator().manual_seed(11)
+    margin = torch.empty(want.shape).uniform_(1e-4, 1e-2, generator=gen)
+    sign = torch.randint(0, 2, want.shape, generator=gen) * 2 - 1
+    threshold = want * (1 + (margin * sign).to(cuda))
+    accepts = lambda sums: ~(sums > threshold)
+    assert torch.equal(accepts(got), accepts(want))
+    assert 0 < int(accepts(want).sum()) < want.numel()
+
+
+def test_torch_cuda_train_launches_theta_tests(cuda):
+    """One api.train epoch on the card tests its weight stages' thetas
+    through the kernel: at least one launch a stage."""
+    from admm_lstm_torch import api
+    from admm_lstm_torch.kernels.theta_tests import theta_tests
+    tx, ty, vx, vy = synth(batch=300, seq_len=6, input_size=1,
+                           output_size=1, val_batch=40, seed=2)
+    before = theta_tests.launches
+    api.train(tx, ty, vx, vy, parameter_set('Synthetic'),
+              ADMMConfig(hidden_size=7, epochs=1), log_every=0,
+              device='cuda')
+    assert theta_tests.launches - before >= 2

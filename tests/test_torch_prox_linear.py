@@ -89,3 +89,85 @@ def test_torch_h_final_matches_jax(flavour, rho_y):
     # theta ends at theta0 * 2^iters / 2: the JAX loop's iteration count.
     assert got.iters == round(np.log2(float(ref.theta) * 2 / 0.1))
     np.testing.assert_allclose(got.h.numpy(), np.asarray(ref.h), atol=ATOL)
+
+
+def _loop_sums(pre, grad_proj, target_w, cands, tanh_cols):
+    """The weight stage's theta tests as the stage's own loop computed
+    them: per theta, act(pre + grad_proj / theta) - target_w over the
+    whole slabs, squared and summed per gate."""
+    hidden = pre.shape[-2] // 4
+    tanh_b = tanh_cols[:, None]
+    one, half = torch.tensor(1.0), torch.tensor(0.5)
+    s_cols = b_cols = torch.where(tanh_b, one, half)
+    a_cols = torch.where(tanh_b, torch.tensor(0.0), half)
+    per_gate = lambda v: v.reshape(v.shape[:-1] + (4, hidden)).sum(-1)
+    sums = []
+    for th in cands:
+        th_cols = torch.repeat_interleave(th, hidden, dim=-1)[..., None]
+        r = (a_cols + b_cols * torch.tanh(
+            s_cols * (pre + grad_proj / th_cols.unsqueeze(-3)))) - target_w
+        sums.append(per_gate(torch.sum(r * r, dim=(-3, -1))))
+    return torch.stack(sums)
+
+
+@pytest.mark.parametrize('case', ['single', 'candidates', 'tail_block',
+                                  'nan_candidate', 'strided_target',
+                                  'local_hidden'])
+def test_torch_theta_tests_plain_matches_the_loop(case):
+    """kernels/theta_tests.theta_tests (its plain version on the CPU)
+    returns the loop's table bit for bit: without and with the candidate
+    axis (S 3), a full block of 8 thetas and a tail block of 3, an
+    instance whose slabs are NaN (its sums NaN, so every test of it
+    accepts), a target that is a strided view of a longer slab, and a
+    tensor-parallel rank's 2 of 5 hidden units a gate."""
+    from admm_lstm_torch.core.step import gate_is_tanh
+    from admm_lstm_torch.kernels.theta_tests import theta_tests
+    rng = np.random.default_rng(3)
+    lead = () if case == 'single' else (3,)
+    seq_len, hidden, batch = 5, 2 if case == 'local_hidden' else 5, 7
+    shape = lead + (seq_len, 4 * hidden, batch)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    pre = f32(rng.standard_normal(shape))
+    grad_proj = f32(rng.standard_normal(shape) * 3.0)
+    if case == 'strided_target':
+        target_w = f32(rng.uniform(0, 1, lead + (seq_len + 2, 4 * hidden,
+                                                 batch)))[..., 2:, :, :]
+        assert not target_w.is_contiguous()
+    else:
+        target_w = f32(rng.uniform(0, 1, shape))
+    if case == 'nan_candidate':
+        pre[1] = float('nan')
+    k = 3 if case == 'tail_block' else 8
+    theta0 = f32(rng.uniform(0.5, 2.0, lead + (4,)))
+    cands = theta0 * 2.0 ** torch.arange(k, dtype=torch.float32).view(
+        (-1,) + (1,) * theta0.dim())
+    tanh_cols = gate_is_tanh(4 * hidden, hidden, 'cpu')
+    got = theta_tests(pre, grad_proj, target_w, cands, tanh_cols)
+    want = _loop_sums(pre, grad_proj, target_w, cands, tanh_cols)
+    assert got.shape == (k,) + lead + (4,)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    if case == 'nan_candidate':
+        assert bool(got[:, 1].isnan().all())
+        assert not bool((got > 0.0)[:, 1].any())    # NaN fails no test
+        assert not bool(got[:, [0, 2]].isnan().any())
+
+
+@pytest.mark.parametrize('cands,hidden,batch,aligned,want', [
+    (27, 10, 4224, True, (4, 396)),     # the rho grid: one wave
+    (1, 10, 4224, True, (4, 396)),      # the training runs: one wave
+    (1, 5, 37, True, (1, 29)),          # few units: THREADS a block
+    (3, 10, 4224, False, (1, 396)),     # a misaligned slab: one float
+    (1, 10, 1001, True, (1, 396)),      # H * B odd: one float
+    (125, 10, 4224, True, (4, 500)),    # a block for each group at least
+])
+def test_torch_theta_tests_plan(cands, hidden, batch, aligned, want):
+    """The theta-test kernel's plan on a card of 132 SMs holding 3 blocks
+    each: float4 where it can, one wave of blocks, fewer where the units
+    run out, never fewer than the (instance, gate) groups."""
+    from admm_lstm_torch.kernels.theta_tests import THREADS, tests_plan
+    plan = tests_plan(cands, 10, hidden, batch, aligned, 132, {4: 3, 1: 3})
+    assert tuple(plan) == want
+    units = 4 * cands * 10 * hidden * batch // plan.vec
+    assert 4 * cands <= plan.grid <= units
+    assert plan.grid == max(min(396, -(-units // THREADS)), 4 * cands)
