@@ -34,9 +34,10 @@ def main(argv=None) -> int:
         return 2
     bench = spec.benchmark()
     cell = spec.workload(bench, args.workload)
+    model = spec.model(spec.config(cell['config'])['model'])
     for seed in map(int, args.seeds.split(',')):
         t0 = time.perf_counter()
-        with faults.planted(args.fault):
+        with faults.planted(args.fault, model):
             out = run.run_cell(bench, cell, seed, 0.0, False,
                                control=args.fault == 'control', t_start=t0)
         line = {'workload': args.workload, 'fault': args.fault, 'seed': seed,

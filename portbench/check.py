@@ -6,6 +6,15 @@ against the plain reference's.
     the initial ones too; a search: each candidate's final train and
     validation loss).  Where both are non-finite the gap is 0, where one
     is, infinite.
+  * early_loss_gap (a training run): loss_gap over the initial losses and
+    those of the first EARLY_EPOCHS epochs.  Each epoch's doubling
+    searches accept or reject a theta by a sum against a threshold, and a
+    few of those tests fall within float32 rounding of it: there the
+    program and the reference may take different thetas, and the run's
+    later losses and final weights part by up to what a lower precision
+    gives (PERF.md §2).  Before many such tests the two agree to
+    rounding, so this number carries the tight limit, and loss_gap and
+    weight_gap limits above what a near-tie gives.
   * weight_gap (a training run): the gap in the weights' change, leaf
     by leaf over wx, wh and wy: |(p - w0) - (r - w0)| over the larger of
     |r - w0| and the median leaf's |r - w0| (w0 the initial weights,
@@ -25,6 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+EARLY_EPOCHS = 3
+
 
 def _rel_gaps(p, r) -> np.ndarray:
     p, r = np.asarray(p, np.float64), np.asarray(r, np.float64)
@@ -39,6 +50,12 @@ def _rel_gaps(p, r) -> np.ndarray:
 def loss_gap(prog: dict, refr: dict) -> float:
     return float(max(_rel_gaps(prog['train'], refr['train']).max(),
                      _rel_gaps(prog['val'], refr['val']).max()))
+
+
+def early_loss_gap(prog: dict, refr: dict) -> float:
+    n = EARLY_EPOCHS + 1
+    return loss_gap({k: prog[k][:n] for k in ('train', 'val')},
+                    {k: refr[k][:n] for k in ('train', 'val')})
 
 
 def median_gap(prog: dict, refr: dict) -> float:
@@ -68,7 +85,8 @@ def rank_regret(prog: dict, refr: dict) -> float:
     return float((val[int(prog['order'][0])] - best) / abs(best))
 
 
-NUMBERS = {'train': {'loss_gap': loss_gap, 'weight_gap': weight_gap},
+NUMBERS = {'train': {'loss_gap': loss_gap, 'weight_gap': weight_gap,
+                     'early_loss_gap': early_loss_gap},
            'rho_search': {'loss_gap': loss_gap, 'median_gap': median_gap,
                           'rank_regret': rank_regret}}
 

@@ -8,8 +8,10 @@ them (tests/test_portbench_faults.py, and `calibrate.py` on the card):
   * altered: each epoch's validation loss is produced 1% high.
 
 The fault of a missing exchange between chips has no place here: every
-cell runs on one chip.  `planted(name)` patches the port's modules for
-its body; 'none' and 'control' plant nothing.
+cell runs on one chip.  `planted(name, model)` patches, for its body,
+the program's epoch step or loss function where the model's module
+(models/) says they are (`fault_targets`); 'none' and 'control' plant
+nothing.
 """
 
 from __future__ import annotations
@@ -44,24 +46,23 @@ def _altered(real):
 
 
 @contextlib.contextmanager
-def planted(name: str):
+def planted(name: str, model):
     if name in ('none', 'control'):
         yield
         return
-    from admm_lstm_torch import tune
-    from admm_lstm_torch.core import step
+    targets = model.fault_targets()
     if name == 'altered':
-        targets, attr, make = (step, tune), 'train_val_mse_im', _altered
+        pairs, make = targets['loss'], _altered
     elif name in ('unchanged', 'half_batch'):
-        targets, attr = (step, tune), 'admm_step_im'
+        pairs = targets['step']
         make = _unchanged if name == 'unchanged' else _half_batch
     else:
         raise ValueError(f'unknown fault {name!r}')
-    saved = [getattr(m, attr) for m in targets]
+    saved = [getattr(m, attr) for m, attr in pairs]
     try:
-        for m, real in zip(targets, saved):
+        for (m, attr), real in zip(pairs, saved):
             setattr(m, attr, make(real))
         yield
     finally:
-        for m, real in zip(targets, saved):
+        for (m, attr), real in zip(pairs, saved):
             setattr(m, attr, real)

@@ -3,41 +3,41 @@ plain reference.
 
 A traffic mix is a data file (`traffic/<name>.json`) of one of two kinds:
 
-  * `train`: back-to-back training runs of `epochs` epochs through the
-    port's `api.train`, each from weights of its own (weights.py), on
-    the configuration's data, which is made once and stays on the device;
-  * `rho_search`: back-to-back `tune.search_rho` calls of `epochs`
-    epochs over the candidates that `multipliers` and `keys` make from the
-    configuration's rho (the rule of `tune.candidate_grid`, frozen here),
-    each search from weights of its own.
+  * `train`: back-to-back training runs of `epochs` epochs, each from
+    weights of its own (the model's `weights`), on the configuration's
+    data, which is made once and stays on the device;
+  * `rho_search`: back-to-back rho searches of `epochs` epochs over the
+    candidates that `multipliers` and `keys` make from the configuration's
+    rho (the rule of `tune.candidate_grid`, frozen here), each search from
+    weights of its own.
 
 `warmup_epochs` sets the short job of the set-up, `checked_jobs` how many
 jobs of the window the reference recomputes, `traced_jobs` how many whole
-jobs a traced run profiles.
+jobs a traced run profiles.  What a job runs, on either side, is the
+configuration's model's (models/).
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
-import torch
 
-from portbench import spec, weights
-from portbench.reference import admm_lstm as ref
+from portbench import spec
 
 
-def candidate_grid(rho: Dict[str, float], multipliers, keys) -> np.ndarray:
-    """(N, 7) float32 rho vectors in i, f, g, o, c, h, y order: the base
+def candidate_grid(rho: Dict[str, float], multipliers, keys,
+                   rho_keys: Sequence[str]) -> np.ndarray:
+    """(N, len(rho_keys)) float32 rho vectors in `rho_keys` order: the base
     rho with each of `keys` scaled by every combination of `multipliers`
     (the first key varying slowest)."""
-    base = np.asarray([rho[k] for k in ref.RHO_KEYS], np.float32)
+    base = np.asarray([rho[k] for k in rho_keys], np.float32)
     out = []
     for combo in itertools.product(multipliers, repeat=len(keys)):
         vec = base.copy()
         for k, m in zip(keys, combo):
-            vec[ref.RHO_KEYS.index(k)] *= m
+            vec[rho_keys.index(k)] *= m
         out.append(vec)
     return np.stack(out)
 
@@ -51,74 +51,42 @@ class Workload:
                  device, control: bool = False):
         self.config, self.traffic = config, traffic
         self.sizes, self.seed, self.device = sizes, seed, device
+        self.control = control
+        self.model = spec.model(config['model'])
         self.kind = traffic['kind']
         if self.kind not in ('train', 'rho_search'):
             raise ValueError(f'unknown traffic kind {self.kind!r}')
         self.epochs = traffic['epochs']
         self.data = spec.data_source(config['data']['kind']).load(
             {**config['data'], **sizes}, seed, device)
-        self.parameter_set = {'rho': dict(config['rho']),
-                              'beta': dict(config['beta'])}
         self.candidates = (candidate_grid(config['rho'],
                                           traffic['multipliers'],
-                                          traffic['keys'])
+                                          traffic['keys'],
+                                          self.model.RHO_KEYS)
                            if self.kind == 'rho_search' else None)
         self.width = 1 if self.candidates is None else len(self.candidates)
-        solver = dict(config['solver'])
-        if control:
-            solver.update(config['control'])
-        self.preset = solver.pop('preset')
-        self.solver = solver
-
-    def admm_config(self, epochs: int):
-        from admm_lstm_torch.utils.config import ADMMConfig
-        make = {'default': ADMMConfig, 'turbo': ADMMConfig.turbo}[self.preset]
-        return make(hidden_size=self.sizes['H'], epochs=epochs, **self.solver)
 
     def weights(self, job: int):
-        return weights.xavier_weights(self.seed, job, self.sizes, self.device)
+        return self.model.weights(self.seed, job, self.sizes, self.device)
 
     def run(self, job: int, epochs: int = 0) -> dict:
         """Job `job` on the program: its answers, on the host but for the
         final weights."""
-        from admm_lstm_torch import api, tune
-        from admm_lstm_torch.models.lstm import LSTMParams
         epochs = epochs or self.epochs
-        params = LSTMParams(*self.weights(job))
+        w = self.weights(job)
         if self.kind == 'train':
-            res = api.train(*self.data, self.parameter_set,
-                            config=self.admm_config(epochs), params=params,
-                            log_every=0, device=self.device)
-            return {'train': np.asarray(res['train_loss'], np.float64),
-                    'val': np.asarray(res['val_loss'], np.float64),
-                    'weights': tuple(res['params'])}
-        res = tune.search_rho(*self.data, self.parameter_set,
-                              config=self.admm_config(epochs),
-                              candidates=self.candidates, epochs=epochs,
-                              params=params, device=self.device)
-        return {'train': np.asarray(res['train_losses'], np.float64),
-                'val': np.asarray(res['val_losses'], np.float64),
-                'order': np.asarray(res['order'])}
+            return self.model.train(self.config, self.sizes, self.data, w,
+                                    epochs, self.device, self.control)
+        return self.model.search(self.config, self.sizes, self.data, w,
+                                 self.candidates, epochs, self.device,
+                                 self.control)
 
     def reference(self, job: int) -> dict:
         """Job `job` recomputed by the plain reference from the same
         weights and data."""
-        tx, ty, vx, vy = self.data
-        x = tx.permute(1, 2, 0).contiguous()                  # (T, I, B)
-        x_all = torch.cat([x, vx.permute(1, 2, 0)], dim=-1).contiguous()
-        y, v = ty.T.contiguous(), vy.T.contiguous()
-        rules = ref.Rules(**self.config['reference_rules'])
-        wx, wh, wy = self.weights(job)
-        rho = [self.config['rho'][k] for k in ref.RHO_KEYS]
+        w = self.weights(job)
         if self.kind == 'train':
-            train, val, final = ref.train_run(
-                wx, wh, wy, x, y, x_all, v, rho, self.config['beta'],
-                self.epochs, rules)
-            return {'train': train.astype(np.float64),
-                    'val': val.astype(np.float64), 'weights': final,
-                    'initial': (wx, wh, wy)}
-        train, val = ref.rho_search(wx, wh, wy, x, y, x_all, v, rho,
-                                    self.candidates, self.config['beta'],
-                                    self.epochs, rules)
-        return {'train': train.astype(np.float64),
-                'val': val.astype(np.float64)}
+            return self.model.reference_train(self.config, self.data, w,
+                                              self.epochs)
+        return self.model.reference_search(self.config, self.data, w,
+                                           self.candidates, self.epochs)

@@ -2,14 +2,14 @@
 `end_to_end/` and `metrics/` keeps its own parameters (kernel names,
 launch plans) and calls these.  `ctx` is the run's context (run.py):
 `jobs` the window's unprofiled jobs, `traced_jobs` the profiled ones,
-`trace` their Trace (trace.py) or None, and the cell's configuration,
-traffic and sizes."""
+`trace` their Trace (trace.py) or None, the cell's configuration, traffic
+and sizes, and its configuration's model (models/)."""
 
 from __future__ import annotations
 
 import math
 
-from portbench import flops, roofline
+from portbench import roofline
 
 
 def rate(ctx, field):
@@ -77,14 +77,13 @@ def idle_share(ctx):
 
 
 def mfu(ctx):
-    """100 x the operations the window's unprofiled jobs needed (flops.py)
-    per second of their wall time, over the configuration's peak."""
+    """100 x the operations the window's unprofiled jobs needed (the
+    model's `epoch_ops`; flops.py for the LSTM) per second of their wall
+    time, over the configuration's peak."""
     seconds = sum(j.end - j.start for j in ctx.jobs)
     if not seconds:
         return None
-    ops = flops.epoch_ops(ctx.sizes,
-                          ctx.config['reference_rules'].get('exact_max_dim',
-                                                            0))
+    ops = ctx.model.epoch_ops(ctx.sizes, ctx.config['reference_rules'])
     done = sum(j.cand_epochs for j in ctx.jobs)
     return (100.0 * ops * done / seconds
             / roofline.PEAK_FLOPS[ctx.config['peak']])

@@ -175,7 +175,8 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
 
     ctx = SimpleNamespace(
         cell=cell, config=config, traffic=traffic, sizes=sizes,
-        width=work.width, setup_s=setup_s, window_start=t0, trace=traced,
+        model=work.model, width=work.width, setup_s=setup_s, window_start=t0,
+        trace=traced,
         jobs=[jb for jb in jobs if not jb.profiled],
         traced_jobs=[jb for jb in jobs if jb.profiled])
     section = 'per_layer' if trace else 'end_to_end'

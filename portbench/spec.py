@@ -5,8 +5,10 @@ a traffic mix `traffic/<traffic>.json` and its limits
 `limits/<cell>.json`; an end-to-end metric is read by
 `end_to_end/<name>.py` and a per-layer metric by `metrics/<name>.py`, each
 a module with `read(ctx)`; a configuration's data comes from
-`data/<kind>.py`.  Adding a cell, a configuration, a traffic mix or a
-metric adds files and entries and edits none.
+`data/<kind>.py`, and the model it trains from `models/<model>.py`, which
+its `"model"` key names (models/__init__.py has the module's contract).
+Adding a cell, a configuration, a model, a traffic mix or a metric adds
+files and entries and edits none.
 """
 
 from __future__ import annotations
@@ -38,7 +40,11 @@ def workload(bench: dict, name: str) -> dict:
 
 
 def config(name: str) -> dict:
-    return _json('configs', f'{name}.json')
+    out = _json('configs', f'{name}.json')
+    if 'model' not in out:
+        raise KeyError(f'{os.path.join(HERE, "configs", name + ".json")} '
+                       'names no model: it needs a "model" key')
+    return out
 
 
 def traffic(name: str) -> dict:
@@ -66,6 +72,11 @@ def reader(kind: str, name: str):
 
 def data_source(kind: str):
     return _module('data', kind)
+
+
+def model(name: str):
+    """The module `models/<name>.py` of a configuration's `"model"`."""
+    return _module('models', name)
 
 
 def metrics_of(bench: dict, cell: str, section: str) -> List[Dict]:

@@ -129,3 +129,17 @@ def test_weight_gap_is_taken_on_the_change():
     prog = (ref[0], ref[1], ref[2] + 0.001)
     assert check.weight_gap({'weights': prog}, refr) == pytest.approx(
         (3 * 1e-6) ** 0.5 / (24 * 1e-4) ** 0.5, rel=1e-3)
+
+
+def test_early_loss_gap_reads_the_first_epochs_only():
+    import numpy as np
+
+    from portbench import check
+    n = check.EARLY_EPOCHS + 1
+    refr = {'train': np.linspace(1.0, 2.0, 31), 'val': np.ones(31)}
+    prog = {'train': refr['train'].copy(), 'val': refr['val'].copy()}
+    prog['train'][n:] *= 1.5         # the later epochs part
+    assert check.early_loss_gap(prog, refr) == 0.0
+    assert check.loss_gap(prog, refr) == pytest.approx(0.5)
+    prog['val'][n - 1] = 1.01        # the last early epoch
+    assert check.early_loss_gap(prog, refr) == pytest.approx(0.01)

@@ -12,8 +12,13 @@ SMALL = {'googlestock_fast.train30': {'B': 64, 'val': 16},
          'googlestock_fast.rho_search27': {'B': 32, 'val': 8}}
 
 
+def _model(cell):
+    return spec.model(spec.config(spec.workload(BENCH, cell)['config'])[
+        'model'])
+
+
 def _run(cell, fault='none', seed=12345, control=False, device='cpu'):
-    with faults.planted(fault):
+    with faults.planted(fault, _model(cell)):
         return run.run_cell(BENCH, spec.workload(BENCH, cell), seed, 0.0,
                             False, device=device, sizes=SMALL[cell],
                             control=control)
@@ -40,7 +45,7 @@ def test_the_tf32_control_is_caught_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: TF32 exists only there')
     for cell in ('googlestock_fast.train30', 'googlestock_fast.rho_search27'):
-        with faults.planted('none'):
+        with faults.planted('none', _model(cell)):
             out = run.run_cell(BENCH, spec.workload(BENCH, cell), 777, 0.0,
                                False, device='cuda', control=True)
         assert not out['correct'], out['checks']

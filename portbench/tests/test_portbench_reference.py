@@ -96,7 +96,7 @@ def test_wide_bf16_gram_and_blocked_solve_match_the_port():
 def test_rho_search_matches_the_port(rules):
     make, ref_rules = rules
     data, p = _problem(16, 5, 3, 4, 1, 8, seed=2)
-    cands = candidate_grid(PS['rho'], (0.2, 5.0), ('c',))
+    cands = candidate_grid(PS['rho'], (0.2, 5.0), ('c',), ref.RHO_KEYS)
     assert cands.shape == (2, 7)
     got = tune.search_rho(*data, PS, config=make(hidden_size=4),
                           candidates=cands, epochs=3, params=p, device='cpu')
@@ -112,6 +112,7 @@ def test_rho_search_matches_the_port(rules):
 
 def test_candidate_grid_is_the_ports_rule():
     from admm_lstm_torch.utils.config import ParameterSet
-    mine = candidate_grid(PS['rho'], (0.2, 1.0, 5.0), ('c', 'h', 'y'))
+    mine = candidate_grid(PS['rho'], (0.2, 1.0, 5.0), ('c', 'h', 'y'),
+                          ref.RHO_KEYS)
     assert np.array_equal(mine, tune.candidate_grid(
         ParameterSet.from_dict(PS)))

@@ -7,7 +7,8 @@ import shutil
 
 import pytest
 
-from portbench import run, spec
+from portbench import faults, run, spec
+from portbench.jobs import Workload
 
 NAME = re.compile(r'^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$')
 UNIT = re.compile(r'^[A-Za-z0-9_/%.\-]{1,16}$')
@@ -86,14 +87,19 @@ def test_every_named_file_exists():
 
 def test_new_config_traffic_and_metric_are_found_by_name(tmp_path,
                                                         monkeypatch):
-    """A later change adds a configuration, a traffic mix, a cell's limits
-    and a per-layer metric as new files, and BENCHMARK.json entries; the
-    harness runs the new cell without an edit to any existing file."""
+    """A later change adds a configuration, the model it names, a traffic
+    mix, a cell's limits and a per-layer metric as new files, and
+    BENCHMARK.json entries; the harness runs the new cell without an edit
+    to any existing file, and each fault planted where the new model's
+    module says its program is gets caught."""
     base = tmp_path / 'portbench'
     shutil.copytree(spec.HERE, base,
                     ignore=shutil.ignore_patterns('__pycache__', 'tests'))
+    before = {p: p.read_bytes() for p in base.rglob('*') if p.is_file()}
+    shutil.copy(base / 'models' / 'lstm.py', base / 'models' / 'lstm_copy.py')
     config = spec.config('googlestock_fast')
     config['name'] = 'googlestock_tiny'
+    config['model'] = 'lstm_copy'
     config['sizes'] = {**config['sizes'], 'B': 48, 'val': 12, 'H': 3}
     (base / 'configs' / 'googlestock_tiny.json').write_text(
         json.dumps(config))
@@ -101,7 +107,8 @@ def test_new_config_traffic_and_metric_are_found_by_name(tmp_path,
         {'kind': 'train', 'epochs': 2, 'warmup_epochs': 1,
          'checked_jobs': 1, 'traced_jobs': 1}))
     (base / 'limits' / 'googlestock_tiny.train2.json').write_text(
-        json.dumps({'loss_gap': 1e-4, 'weight_gap': 1e-3}))
+        json.dumps({'loss_gap': 1e-4, 'weight_gap': 1e-3,
+                    'early_loss_gap': 1e-4}))
     (base / 'metrics' / 'epochs_traced.train.py').write_text(
         'def read(ctx):\n    return float(len(ctx.traced_jobs))\n')
     monkeypatch.setattr(spec, 'HERE', str(base))
@@ -125,3 +132,35 @@ def test_new_config_traffic_and_metric_are_found_by_name(tmp_path,
     out = run.run_cell(bench, cell, 7, 0.0, False, device='cpu')
     assert out['correct'] and set(out['metrics']) == {'train_epochs_per_s',
                                                       'setup_s'}
+    assert {p: p.read_bytes() for p in before} == before
+    model = spec.model('lstm_copy')
+    assert Workload(config, spec.traffic('train2'), config['sizes'], 7,
+                    'cpu').model.__file__ == model.__file__ == str(
+                        base / 'models' / 'lstm_copy.py')
+    for fault in faults.FAULTS:
+        with faults.planted(fault, model):
+            out = run.run_cell(bench, cell, 7, 0.0, False, device='cpu')
+        assert not out['correct'], (fault, out['checks'])
+
+
+def test_a_configuration_names_its_model(tmp_path, monkeypatch):
+    """Every configuration names a model whose module has the whole
+    contract (models/__init__.py); one without the key is refused, by the
+    file's name."""
+    for c in BENCH['configs']:
+        model = spec.model(spec.config(c['name'])['model'])
+        for name in ('RHO_KEYS', 'weights', 'train', 'search',
+                     'reference_train', 'reference_search', 'epoch_ops',
+                     'fault_targets'):
+            assert hasattr(model, name), (c['name'], name)
+        targets = model.fault_targets()
+        assert set(targets) == {'step', 'loss'}
+        for module, attr in targets['step'] + targets['loss']:
+            assert callable(getattr(module, attr))
+    (tmp_path / 'configs').mkdir()
+    config = spec.config('googlestock_fast')
+    del config['model']
+    (tmp_path / 'configs' / 'nameless.json').write_text(json.dumps(config))
+    monkeypatch.setattr(spec, 'HERE', str(tmp_path))
+    with pytest.raises(KeyError, match='nameless.json'):
+        spec.config('nameless')

@@ -1,10 +1,9 @@
 """Initial weights and seeds.
 
 Every job of a run (a training run or a rho search) starts from weights
-of its own, Xavier-normal as the port's and the reference's
-`init_lstm_params` draw them (blocks/lstm.py:23-29), made on the device
-by one `torch.Generator` seeded from the run's seed and the job's index,
-in one call for all nine blocks.
+of its own, made on the device by one `torch.Generator` seeded from the
+run's seed and the job's index, in one call for all of the model's
+blocks; the model's module (models/) says which blocks.
 """
 
 from __future__ import annotations
@@ -23,11 +22,10 @@ def stream_seed(seed: int, stream: int) -> int:
     return (mixed * 0x94D049BB133111EB) & _MASK
 
 
-def xavier_weights(seed: int, job: int, sizes: dict, device):
-    """(wx (4, I, H), wh (4, H, H), wy (H, O)) of job `job`."""
-    i, h, o = sizes['I'], sizes['H'], sizes['O']
+def xavier_blocks(seed: int, job: int, shapes, device):
+    """Xavier-normal blocks of the (fan_in, fan_out) `shapes` of job `job`,
+    in order, from one draw."""
     gen = torch.Generator(device=device).manual_seed(stream_seed(seed, job))
-    shapes = [(i, h)] * 4 + [(h, h)] * 4 + [(h, o)]
     flat = torch.randn(sum(a * b for a, b in shapes), generator=gen,
                        device=device)
     blocks, at = [], 0
@@ -35,5 +33,4 @@ def xavier_weights(seed: int, job: int, sizes: dict, device):
         std = (2.0 / (a + b)) ** 0.5
         blocks.append(flat[at:at + a * b].reshape(a, b) * std)
         at += a * b
-    return (torch.stack(blocks[:4]), torch.stack(blocks[4:8]),
-            blocks[8].contiguous())
+    return blocks
