@@ -24,9 +24,10 @@ memory the group of candidates halves and each half trains on its own
 same with the stacked epoch (variants/stacked.py: the candidate axis
 through its sweep, rho_z per candidate where `z_candidates` gives it,
 layer 0's exact stage one batched `chol_solve` call a side for all S).
-Under a profiler `search_rho` is a `search` span (utils/observe.span)
-around its `init` and each group's `group`, which holds the group's
-epochs and a `loss` for its final losses.
+Under a profiler `search_rho` and `search_rho_stacked` are each a
+`search` span (utils/observe.span) around its `init` and each group's
+`group`, which holds the group's epochs and a `loss` for its final
+losses; a halving shows as more than one `group`.
 """
 
 from __future__ import annotations
@@ -206,30 +207,35 @@ def search_rho_stacked(train_x, train_y, val_x, val_y, base: ParameterSet,
     candidates = np.asarray(candidates, np.float32)
     if z_candidates is not None:
         z_candidates = np.asarray(z_candidates, np.float32)
-    with matmul_precision(config.matmul_precision):
-        train_x, train_y = (_as_tensor(train_x, device),
-                            _as_tensor(train_y, device))
-        val_x, val_y = _as_tensor(val_x, device), _as_tensor(val_y, device)
-        if params is None:
-            params = init_stacked(torch.Generator().manual_seed(config.seed),
-                                  train_x.shape[2], tuple(hiddens),
-                                  train_y.shape[1], device=device)
-        base_state = init_stacked_state(params.to(device), train_x, base,
-                                        config)
-        x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x,
-                                                 val_y)
+    with matmul_precision(config.matmul_precision), span('search'):
+        with span('init'):
+            train_x, train_y = (_as_tensor(train_x, device),
+                                _as_tensor(train_y, device))
+            val_x, val_y = (_as_tensor(val_x, device),
+                            _as_tensor(val_y, device))
+            if params is None:
+                params = init_stacked(
+                    torch.Generator().manual_seed(config.seed),
+                    train_x.shape[2], tuple(hiddens), train_y.shape[1],
+                    device=device)
+            base_state = init_stacked_state(params.to(device), train_x,
+                                            base, config)
+            x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x,
+                                                     val_y)
 
         def train_group(lo, hi):
             """Candidates lo..hi-1 from base_state (which the step never
             writes), as one batched program."""
-            state = broadcast_stacked_state(
-                base_state, hi - lo,
-                penalties_from_vectors(candidates[lo:hi], device=device),
-                None if z_candidates is None else z_candidates[lo:hi])
-            for _ in range(epochs):
-                state = stacked_admm_step_im(state, x_im, y_im, rules)
-            return torch.stack(stacked_train_val_mse_im(
-                state.params, xall_im, y_im, vy_im), dim=-1)
+            with span('group'):
+                state = broadcast_stacked_state(
+                    base_state, hi - lo,
+                    penalties_from_vectors(candidates[lo:hi], device=device),
+                    None if z_candidates is None else z_candidates[lo:hi])
+                for _ in range(epochs):
+                    state = stacked_admm_step_im(state, x_im, y_im, rules)
+                with span('loss'):
+                    return torch.stack(stacked_train_val_mse_im(
+                        state.params, xall_im, y_im, vy_im), dim=-1)
 
         losses = _train_all('search_rho_stacked', candidates, epochs,
                             train_group)

@@ -71,6 +71,7 @@ from admm_lstm_torch.solvers.prox_linear import h_final_update
 from admm_lstm_torch.utils.config import ADMMConfig, ParameterSet
 from admm_lstm_torch.utils.device import matmul_precision, resolve_device
 from admm_lstm_torch.utils.logging import info
+from admm_lstm_torch.utils.observe import span
 from admm_lstm_torch.utils.timer import Timer
 
 
@@ -393,9 +394,11 @@ def _layer0_weight_phase(x_im, gates: GateSlabs, duals: DualSlabs,
             m_inputs, pre, w_w, target_w, rho_g, beta_g, tanh_cols,
             rules.matmul_precision, use_pallas_chol=rules.use_pallas_chol)
 
-    wx_new_w = solve(x_im, xproj + hproj, wx_w, beta.x)
-    xproj_new = torch.einsum('...tdb,...dk->...tkb', x_im, wx_new_w)
-    wh_new_w = solve(h_hist, xproj_new + hproj, wh_w, beta.h)
+    with span('weights.x'):
+        wx_new_w = solve(x_im, xproj + hproj, wx_w, beta.x)
+        xproj_new = torch.einsum('...tdb,...dk->...tkb', x_im, wx_new_w)
+    with span('weights.h'):
+        wh_new_w = solve(h_hist, xproj_new + hproj, wh_w, beta.h)
     return params_layer._replace(wx=_from_wide(wx_new_w, hidden),
                                  wh=_from_wide(wh_new_w, hidden))
 
@@ -488,7 +491,17 @@ def stacked_admm_step_im(state: StackedState, x_im: torch.Tensor,
     targets (JAX stacked.py:412-689).  A state with the candidate axis
     takes them shared by its candidates; the time index of every slab is
     then its axis 1, and every max, trace and sum is each candidate's
-    own."""
+    own.  Under a profiler the epoch is an `epoch` span around `wy`,
+    layer 0's `weights.x` and `weights.h`, each upper layer's
+    `weights.upper`, `sweep.interior` (the sweep's fixed products and
+    the t loop) and `sweep.final` (the top layer's final h, a and
+    duals)."""
+    with span('epoch'):
+        return _stacked_epoch(state, x_im, y_im, rules)
+
+
+def _stacked_epoch(state: StackedState, x_im: torch.Tensor,
+                   y_im: torch.Tensor, rules: StepRules) -> StackedState:
     seq_len, _, batch = x_im.shape
     rho, rho_z = state.rho, state.rho_z
     lead = state.gates[0].a.shape[:-2]                # (S,) or ()
@@ -504,9 +517,10 @@ def stacked_admm_step_im(state: StackedState, x_im: torch.Tensor,
     damp = (lambda v: v) if decay == 1.0 else (lambda v: decay * v)
 
     # 1. The readout on the top layer's final h.
-    wy_new = cf.wy_update(state.params.wy, g_top.h[..., -1, :, :], g_top.a,
-                          rho2.y, _view(state.beta.wy, 2), d_top.y,
-                          rules.with_dual_y)
+    with span('wy'):
+        wy_new = cf.wy_update(state.params.wy, g_top.h[..., -1, :, :],
+                              g_top.a, rho2.y, _view(state.beta.wy, 2),
+                              d_top.y, rules.with_dual_y)
 
     # 2. Weights from the previous epoch's slabs: layer 0 exact GN ridge
     # against x; each upper layer an exact ridge against its z targets,
@@ -515,49 +529,15 @@ def stacked_admm_step_im(state: StackedState, x_im: torch.Tensor,
                                        state.params.layers[0], rho,
                                        state.beta, rules)]
     for k in range(1, n):
-        layers_new.append(_upper_weight_solve(
-            state.gates[k - 1].h[..., 1:, :, :],
-            state.gates[k].h[..., :-1, :, :], state.zs[k - 1],
-            state.zduals[k - 1], state.params.layers[k], rho_z, state.beta))
+        with span('weights.upper'):
+            layers_new.append(_upper_weight_solve(
+                state.gates[k - 1].h[..., 1:, :, :],
+                state.gates[k].h[..., :-1, :, :], state.zs[k - 1],
+                state.zduals[k - 1], state.params.layers[k], rho_z,
+                state.beta))
     params_new = StackedParams(layers=tuple(layers_new), wy=wy_new)
 
-    # The epoch's products as (4H, D) row blocks; the h solve of layer
-    # k < top has the fixed matrix M_k = rho_h I + rho_z sum_g wx_g wx_g^T
-    # of the layer above, inverted once.
-    rec = [_rows(lp.wh) for lp in layers_new]
-    inp = [None] + [_rows(lp.wx) for lp in layers_new[1:]]
-    m_invs = []
-    for k in range(top):
-        eye = torch.eye(hiddens[k], dtype=x_im.dtype, device=x_im.device)
-        m = rho2.h * eye + rz2 * (inp[k + 1].mT @ inp[k + 1])
-        m_invs.append(torch.linalg.inv_ex(m).inverse)
-
-    # The z-prox curvature bounds: max |act(z) - u| per (layer, t) over
-    # the (4, H, B) block (each candidate's own: ([S,] T+1, 1, 1, 1)), in
-    # one pass over the previous epoch's slabs; u is also the gate target.
-    u_slabs, resmaxes = [], []
-    for k in range(1, n):
-        g_k, d_k = state.gates[k], state.duals[k]
-        u = (torch.stack([g_k.i, g_k.f, g_k.g, g_k.o], dim=-3)
-             + torch.stack([d_k.i, d_k.f, d_k.g, d_k.o], dim=-3)
-             / rho_g4.unsqueeze(-4))
-        z = state.zs[k - 1]
-        act = torch.where(is_tanh4, torch.tanh(z), torch.sigmoid(z))
-        resmaxes.append(torch.amax(torch.abs(act - u), dim=(-3, -2, -1),
-                                   keepdim=True))
-        u_slabs.append(u)
-
-    xproj0 = torch.einsum('...tdb,...gdh->...tghb', x_im, layers_new[0].wx)
-
     # 3. The sweep, t = 1..T, into preallocated slabs (row 0 stays zero).
-    def slab(k):
-        return x_im.new_zeros(lead + (seq_len + 1, hiddens[k], batch))
-
-    new_gates = [[slab(k) for _ in range(6)] for k in range(n)]
-    new_duals = [[slab(k) for _ in range(5)] for k in range(n)]
-    new_zs = [torch.zeros_like(z) for z in state.zs]
-    new_zduals = [torch.zeros_like(z) for z in state.zs]
-
     def row4(s, t):
         """Row t of a ([S,] T+1, 4, H, B) slab."""
         return s[..., t, :, :, :]
@@ -607,59 +587,98 @@ def stacked_admm_step_im(state: StackedState, x_im: torch.Tensor,
     def rows(slabs, t):
         return tuple(s[..., t, :, :] for s in slabs)
 
-    h_prev = [state.gates[k].h[..., 0, :, :] for k in range(n)]
-    c_prev = [state.gates[k].c[..., 0, :, :] for k in range(n)]
-    for t in range(1, seq_len + 1):
-        final = t == seq_len
-        g_t = [rows(state.gates[k][:6], t) for k in range(n)]
-        d_t = [rows(state.duals[k][:6], t) for k in range(n)]
-        # Layer 0: the single-layer treatment.
-        pre0 = xproj0[..., t - 1, :, :, :] + _project(rec[0], h_prev[0])
-        prim, lam0 = _timestep_primal_duals(pre0, g_t[0], d_t[0], c_prev[0],
-                                            rho2)
-        for dst, v in zip(new_duals[0], lam0):
-            dst[..., t, :, :] = damp(v)
-        prims, h_new = [prim], [None] * n
-        for k in range(n):
-            if k > 0:
-                prims.append(upper_layer_block(k, t, g_t[k], d_t[k],
-                                               h_new[k - 1], h_prev[k],
-                                               c_prev[k]))
-            o_n, c_n = prims[k][3], prims[k][4]
-            if k < top:
-                h_new[k] = coupled_h_solve(k, t, o_n, c_n, d_t[k][5],
-                                           h_prev[k + 1])
-            elif not final:
-                h_new[k] = cf.h_interior_update(o_n, torch.tanh(c_n),
-                                                d_t[k][5], rho2.h)
-            for dst, v in zip(new_gates[k], prims[k] + (h_new[k],)):
-                if v is not None:
-                    dst[..., t, :, :] = v
-        h_prev, c_prev = h_new, [p[4] for p in prims]
+    def slab(k):
+        return x_im.new_zeros(lead + (seq_len + 1, hiddens[k], batch))
+
+    with span('sweep.interior'):
+        # The epoch's products as (4H, D) row blocks; the h solve of layer
+        # k < top has the fixed matrix M_k = rho_h I + rho_z sum_g wx_g
+        # wx_g^T of the layer above, inverted once.
+        rec = [_rows(lp.wh) for lp in layers_new]
+        inp = [None] + [_rows(lp.wx) for lp in layers_new[1:]]
+        m_invs = []
+        for k in range(top):
+            eye = torch.eye(hiddens[k], dtype=x_im.dtype, device=x_im.device)
+            m = rho2.h * eye + rz2 * (inp[k + 1].mT @ inp[k + 1])
+            m_invs.append(torch.linalg.inv_ex(m).inverse)
+
+        # The z-prox curvature bounds: max |act(z) - u| per (layer, t) over
+        # the (4, H, B) block (each candidate's own: ([S,] T+1, 1, 1, 1)),
+        # in one pass over the previous epoch's slabs; u is also the gate
+        # target.
+        u_slabs, resmaxes = [], []
+        for k in range(1, n):
+            g_k, d_k = state.gates[k], state.duals[k]
+            u = (torch.stack([g_k.i, g_k.f, g_k.g, g_k.o], dim=-3)
+                 + torch.stack([d_k.i, d_k.f, d_k.g, d_k.o], dim=-3)
+                 / rho_g4.unsqueeze(-4))
+            z = state.zs[k - 1]
+            act = torch.where(is_tanh4, torch.tanh(z), torch.sigmoid(z))
+            resmaxes.append(torch.amax(torch.abs(act - u), dim=(-3, -2, -1),
+                                       keepdim=True))
+            u_slabs.append(u)
+
+        xproj0 = torch.einsum('...tdb,...gdh->...tghb', x_im,
+                              layers_new[0].wx)
+        new_gates = [[slab(k) for _ in range(6)] for k in range(n)]
+        new_duals = [[slab(k) for _ in range(5)] for k in range(n)]
+        new_zs = [torch.zeros_like(z) for z in state.zs]
+        new_zduals = [torch.zeros_like(z) for z in state.zs]
+
+        h_prev = [state.gates[k].h[..., 0, :, :] for k in range(n)]
+        c_prev = [state.gates[k].c[..., 0, :, :] for k in range(n)]
+        for t in range(1, seq_len + 1):
+            final = t == seq_len
+            g_t = [rows(state.gates[k][:6], t) for k in range(n)]
+            d_t = [rows(state.duals[k][:6], t) for k in range(n)]
+            # Layer 0: the single-layer treatment.
+            pre0 = xproj0[..., t - 1, :, :, :] + _project(rec[0], h_prev[0])
+            prim, lam0 = _timestep_primal_duals(pre0, g_t[0], d_t[0],
+                                                c_prev[0], rho2)
+            for dst, v in zip(new_duals[0], lam0):
+                dst[..., t, :, :] = damp(v)
+            prims, h_new = [prim], [None] * n
+            for k in range(n):
+                if k > 0:
+                    prims.append(upper_layer_block(k, t, g_t[k], d_t[k],
+                                                   h_new[k - 1], h_prev[k],
+                                                   c_prev[k]))
+                o_n, c_n = prims[k][3], prims[k][4]
+                if k < top:
+                    h_new[k] = coupled_h_solve(k, t, o_n, c_n, d_t[k][5],
+                                               h_prev[k + 1])
+                elif not final:
+                    h_new[k] = cf.h_interior_update(o_n, torch.tanh(c_n),
+                                                    d_t[k][5], rho2.h)
+                for dst, v in zip(new_gates[k], prims[k] + (h_new[k],)):
+                    if v is not None:
+                        dst[..., t, :, :] = v
+            h_prev, c_prev = h_new, [p[4] for p in prims]
 
     # The top layer's final h: the output prox, then a and the h-dual.
-    o_T, c_T = prims[top][3], prims[top][4]
-    tanh_c_T = torch.tanh(c_T)
-    to_out = lambda v: torch.einsum('...hb,...ho->...ob', v, wy_new)
-    from_out = lambda r: torch.einsum('...ob,...ho->...hb', r, wy_new)
-    h_T = h_final_update(
-        g_top.h[..., seq_len, :, :], o_T, tanh_c_T,
-        d_top.h[..., seq_len, :, :], rho2.h, wy_new, g_top.a, rho2.y,
-        d_top.y, with_dual_y=rules.with_dual_y, theta0=rules.h_theta0,
-        theta_max=rules.h_theta_max, max_iters=rules.max_backtrack,
-        grad_uses_rho_h=rules.h_grad_uses_rho_h,
-        probe_is_grad_over_theta=rules.h_probe_grad_over_theta,
-        to_out=to_out, from_out=from_out).h
-    new_gates[top][5][..., seq_len, :, :] = h_T
-    hw_T = to_out(h_T)
-    a_new = cf.a_update(y_im, hw_T, rho2.y, d_top.y, batch,
-                        rules.with_dual_y)
-    lam_h_top = d_top.h.clone()
-    lam_h_top[..., seq_len, :, :] = damp(cf.dual_h_update(
-        d_top.h[..., seq_len, :, :], rho2.h, h_T, o_T, tanh_c_T))
-    lam_y = d_top.y
-    if rules.with_dual_y:
-        lam_y = cf.dual_y_update(d_top.y, rho2.y, a_new, hw_T)
+    with span('sweep.final'):
+        o_T, c_T = prims[top][3], prims[top][4]
+        tanh_c_T = torch.tanh(c_T)
+        to_out = lambda v: torch.einsum('...hb,...ho->...ob', v, wy_new)
+        from_out = lambda r: torch.einsum('...ob,...ho->...hb', r, wy_new)
+        h_T = h_final_update(
+            g_top.h[..., seq_len, :, :], o_T, tanh_c_T,
+            d_top.h[..., seq_len, :, :], rho2.h, wy_new, g_top.a, rho2.y,
+            d_top.y, with_dual_y=rules.with_dual_y, theta0=rules.h_theta0,
+            theta_max=rules.h_theta_max, max_iters=rules.max_backtrack,
+            grad_uses_rho_h=rules.h_grad_uses_rho_h,
+            probe_is_grad_over_theta=rules.h_probe_grad_over_theta,
+            to_out=to_out, from_out=from_out).h
+        new_gates[top][5][..., seq_len, :, :] = h_T
+        hw_T = to_out(h_T)
+        a_new = cf.a_update(y_im, hw_T, rho2.y, d_top.y, batch,
+                            rules.with_dual_y)
+        lam_h_top = d_top.h.clone()
+        lam_h_top[..., seq_len, :, :] = damp(cf.dual_h_update(
+            d_top.h[..., seq_len, :, :], rho2.h, h_T, o_T, tanh_c_T))
+        lam_y = d_top.y
+        if rules.with_dual_y:
+            lam_y = cf.dual_y_update(d_top.y, rho2.y, a_new, hw_T)
 
     gates_new, duals_new = [], []
     for k in range(n):
@@ -707,8 +726,9 @@ def make_stacked_multi_epoch_fn(config: ADMMConfig, num_epochs: int):
         train_traj, val_traj = [], []
         for _ in range(num_epochs):
             state = stacked_admm_step_im(state, x_im, y_im, rules)
-            tr, vl = stacked_train_val_mse_im(state.params, xall_im, y_im,
-                                              vy_im)
+            with span('loss'):
+                tr, vl = stacked_train_val_mse_im(state.params, xall_im,
+                                                  y_im, vy_im)
             better = vl < best_val                # NaN < best is False
             best_val = torch.where(better, vl, best_val)
             best_params = best_params.rebuild(

@@ -158,3 +158,85 @@ def test_torch_traced_and_untraced_runs_are_bit_equal(synthetic, name):
     assert plain['val_loss'] == traced['val_loss']
     for a, b in zip(plain['params'], traced['params']):
         assert torch.equal(a, b)
+
+
+STACKED = (4, 3, 3)
+STACKED_STAGES = ('wy', 'weights.x', 'weights.h', 'weights.upper',
+                  'sweep.interior', 'sweep.final')
+
+
+def _stacked_epoch(data, traced):
+    """One depth-3 stacked epoch from a fresh state, under a profiler or
+    not."""
+    from admm_lstm_torch.core.step import rules_for
+    from admm_lstm_torch.variants.stacked import (init_stacked,
+                                                  init_stacked_state,
+                                                  stacked_admm_step_im)
+    tx, ty = (torch.as_tensor(np.asarray(v, np.float32)) for v in data[:2])
+    params = init_stacked(torch.Generator().manual_seed(2), 1, STACKED, 1)
+    state = init_stacked_state(params, tx, parameter_set('Stacked'))
+    session = (profile(activities=[ProfilerActivity.CPU]) if traced
+               else contextlib.nullcontext())
+    with session as prof:
+        out = stacked_admm_step_im(state, tx.permute(1, 2, 0).contiguous(),
+                                   ty.T.contiguous(),
+                                   rules_for(ADMMConfig()))
+    return out, prof
+
+
+def test_torch_stacked_epoch_spans(synthetic):
+    """One stacked epoch: an `epoch` around `wy`, layer 0's `weights.x`
+    and `weights.h`, one `weights.upper` per upper layer, `sweep.interior`
+    and `sweep.final`; the final-h search's reads inside `sweep.final`."""
+    _, prof = _stacked_epoch(synthetic, traced=True)
+    spans = _spans(prof)
+    count = Counter(s[0] for s in spans)
+    assert dict(count) == {'epoch': 1, 'wy': 1, 'weights.x': 1,
+                           'weights.h': 1, 'weights.upper': 2,
+                           'sweep.interior': 1, 'sweep.final': 1,
+                           'read': count['read']}
+    assert count['read'] >= 1
+    for s in spans:
+        if s[0] in STACKED_STAGES:
+            assert _parent(spans, s) == 'epoch', s
+        elif s[0] == 'read':
+            assert _parent(spans, s) == 'sweep.final', s
+
+
+def test_torch_stacked_search_spans(synthetic):
+    """A 2-candidate stacked search: one `search` around `init` and one
+    `group`, which holds an `epoch` per batched epoch and the `loss`."""
+    tx, ty, vx, vy, _ = synthetic
+    from admm_lstm_torch.variants.stacked import init_stacked
+    base = parameter_set('Stacked')
+    cands = tune.candidate_grid(base, multipliers=(0.5, 2.0), keys=('y',))
+    epochs = 2
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tune.search_rho_stacked(
+            tx, ty, vx, vy, base, STACKED[:2], config=ADMMConfig(),
+            candidates=cands, epochs=epochs,
+            params=init_stacked(torch.Generator().manual_seed(2), 1,
+                                STACKED[:2], 1), device='cpu')
+    spans = _spans(prof)
+    count = Counter(s[0] for s in spans)
+    assert {k: count[k] for k in ('search', 'init', 'group', 'epoch',
+                                  'loss', 'weights.upper')} == {
+        'search': 1, 'init': 1, 'group': 1, 'epoch': epochs, 'loss': 1,
+        'weights.upper': epochs}
+    for s in spans:
+        if s[0] in ('epoch', 'loss'):
+            assert _parent(spans, s) == 'group', s
+        elif s[0] in ('init', 'group'):
+            assert _parent(spans, s) == 'search', s
+        elif s[0] in STACKED_STAGES:
+            assert _parent(spans, s) == 'epoch', s
+
+
+def test_torch_stacked_traced_and_untraced_epochs_are_bit_equal(synthetic):
+    plain, _ = _stacked_epoch(synthetic, traced=False)
+    traced, _ = _stacked_epoch(synthetic, traced=True)
+    for a, b in zip(plain.params.tensors(), traced.params.tensors()):
+        assert torch.equal(a, b)
+    for a, b in zip(plain.zs + plain.gates[-1][:6],
+                    traced.zs + traced.gates[-1][:6]):
+        assert torch.equal(a, b)
