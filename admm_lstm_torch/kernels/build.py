@@ -5,10 +5,11 @@ is compiled by nvcc, for Hopper only, into a shared library under
 `admm_lstm_torch/_build/` (listed in .gitignore), named by the hash of
 its source and flags, at first use.  Nothing is compiled at import time,
 and a failed build raises.  `build_all` starts one nvcc per source, all
-together, and waits for them; the first load of a source of the fast
-epoch's main path (MAIN_PATH) builds all of them at once, so a cold
-start waits for one nvcc.  `launch` calls one exported function on
-PyTorch's current stream and raises if it reports a CUDA error.
+together, and waits for them; the first load of a source of one of the
+GROUPS (the fast epoch's main path; the stacked epoch's) builds the whole
+group at once, so a cold start waits for one nvcc.  `launch` calls one
+exported function on PyTorch's current stream and raises if it reports a
+CUDA error.
 """
 
 from __future__ import annotations
@@ -28,9 +29,10 @@ BUILD_DIR = os.path.join(_PKG, '_build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
-# The sources every fast epoch loads: the weight stages' theta tests and
-# the sweeps.
-MAIN_PATH = ('gate_sweep', 'theta_tests')
+# Sources loaded together, built together: every fast epoch's (the
+# weight stages' theta tests and the sweeps) and every stacked epoch's
+# (layer 0's Cholesky solves and the stacked sweep).
+GROUPS = (('gate_sweep', 'theta_tests'), ('cholesky', 'stacked_sweep'))
 
 # Loaded libraries, and what each build printed.
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -89,9 +91,9 @@ def build_all(names: Iterable[str]) -> None:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The ctypes handle of csrc/<name>.cu, built on first use (with the
-    rest of MAIN_PATH, if it is one of them)."""
+    rest of its group in GROUPS, if it is in one)."""
     if name not in _LIBS:
-        build_all([name, *(MAIN_PATH if name in MAIN_PATH else ())])
+        build_all([name, *(n for g in GROUPS if name in g for n in g)])
         _LIBS[name] = ctypes.CDLL(_target(name)[1])
     return _LIBS[name]
 

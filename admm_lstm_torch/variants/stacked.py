@@ -26,15 +26,22 @@ over t (bottom-up per timestep), duals inside the sweep.  The h duals of
 the layers below the top pass through unchanged; the top layer's is
 written only at t = T.
 
-The JAX package runs the sweep as a `lax.scan` with no Pallas kernel;
-here it is a Python loop over the timesteps and layers that writes each
-step's results into preallocated (T+1, ...) slabs.  Slabs are
-time-major, batch-minor as in the core state: gates and duals
-(T+1, H, B), z and z-duals (T+1, 4, H, B), `a` and lam_y (O, B).  The
-per-epoch inverse and the upper-layer solves use `torch.linalg.inv_ex`
-and `solve_ex`, which do not check for errors on the host, so the only
-host syncs of an epoch are the final-h search's
-(solvers/prox_linear.h_final_update).
+The JAX package runs the sweep as a `lax.scan` with no Pallas kernel.
+Here, on CUDA tensors at the 'highest' matmul precision, one CUDA kernel
+runs every timestep and layer of it (kernels/stacked_sweep.py, one
+launch an epoch, where the stack fits its shared-memory plan); otherwise,
+and always on the CPU, `stacked_sweep_plain`, its plain version, runs
+it as a Python loop over the timesteps and layers that writes each
+step's results into new (T+1, ...) slabs.  Slabs are time-major,
+batch-minor as in the core state: gates and duals (T+1, H, B), z and
+z-duals (T+1, 4, H, B), `a` and lam_y (O, B).  The coupled h solves'
+per-epoch inverse is a Cholesky inverse, L^-T L^-1, with L^-1 from the
+`chol_inverse` kernel (its plain version on the CPU, under
+use_pallas_chol=False and past its width); the upper-layer solves use
+`solve_ex`, which checks no errors on the host, but whose LU
+factorization waits for the device (three times an epoch at S 27 on an
+H100, PERF.md); the final-h search's reads are the epoch's other host
+syncs (solvers/prox_linear.h_final_update).
 
 The candidate axis (core/state.py) runs S independent stacks in one
 epoch, the JAX package's `vmap` of its stacked epoch written out, as
@@ -63,6 +70,11 @@ from admm_lstm_torch.core.step import (StepRules, _from_wide, _per_candidate,
                                        _timestep_primal_duals, _to_wide,
                                        gate_is_tanh, rules_for,
                                        wide_targets)
+from admm_lstm_torch.kernels.cholesky import (MAX_DIM, chol_inverse,
+                                              chol_inverse_plain)
+from admm_lstm_torch.kernels.stacked_sweep import (stacked_sweep,
+                                                   stacked_sweep_plan,
+                                                   use_stacked_kernel)
 from admm_lstm_torch.models.lstm import (LSTMParams, _xavier_normal,
                                          init_lstm_params, params_from_dict)
 from admm_lstm_torch.solvers import closed_form as cf
@@ -493,9 +505,10 @@ def stacked_admm_step_im(state: StackedState, x_im: torch.Tensor,
     then its axis 1, and every max, trace and sum is each candidate's
     own.  Under a profiler the epoch is an `epoch` span around `wy`,
     layer 0's `weights.x` and `weights.h`, each upper layer's
-    `weights.upper`, `sweep.interior` (the sweep's fixed products and
-    the t loop) and `sweep.final` (the top layer's final h, a and
-    duals)."""
+    `weights.upper`, `sweep.interior` (the inverses of the coupled h
+    solves and the sweep over t and the layers: the kernel's launch inside
+    a `sweep.kernel` span, or the loop) and `sweep.final` (the top layer's
+    final h, a and duals)."""
     with span('epoch'):
         return _stacked_epoch(state, x_im, y_im, rules)
 
@@ -504,15 +517,12 @@ def _stacked_epoch(state: StackedState, x_im: torch.Tensor,
                    y_im: torch.Tensor, rules: StepRules) -> StackedState:
     seq_len, _, batch = x_im.shape
     rho, rho_z = state.rho, state.rho_z
-    lead = state.gates[0].a.shape[:-2]                # (S,) or ()
     rho2 = _per_candidate(rho, 2)                     # over (H, B)
-    rz2, rz3 = _view(rho_z, 2), _view(rho_z, 3)       # (H, B), (4, H, B)
+    rz2 = _view(rho_z, 2)                             # over (H, B)
     n = len(state.params.layers)
     top = n - 1
     hiddens = [lp.hidden_size for lp in state.params.layers]
     g_top, d_top = state.gates[top], state.duals[top]
-    rho_g4 = rho.stacked_ifgo()[..., None, None]      # ([S,] 4, 1, 1)
-    is_tanh4 = gate_is_tanh(4, 1, x_im.device)[:, None, None]
     decay = rules.stacked_dual_decay
     damp = (lambda v: v) if decay == 1.0 else (lambda v: decay * v)
 
@@ -537,127 +547,28 @@ def _stacked_epoch(state: StackedState, x_im: torch.Tensor,
                 state.beta))
     params_new = StackedParams(layers=tuple(layers_new), wy=wy_new)
 
-    # 3. The sweep, t = 1..T, into preallocated slabs (row 0 stays zero).
-    def row4(s, t):
-        """Row t of a ([S,] T+1, 4, H, B) slab."""
-        return s[..., t, :, :, :]
-
-    def coupled_h_solve(k, t, o_n, c_n, lam_h, h_above_prev):
-        """h_{k,t} for k < top: the ridge solve against z_{k+1,t}."""
-        fixed = _project(rec[k + 1], h_above_prev)
-        tgt = row4(state.zs[k], t) + row4(state.zduals[k], t) / rz3 - fixed
-        rhs = (rho2.h * o_n * torch.tanh(c_n) - lam_h
-               + rz2 * (inp[k + 1].mT @ tgt.reshape(lead + (-1, batch))))
-        return m_invs[k] @ rhs
-
-    def upper_layer_block(k, t, old, duals_t, h_below, h_prev, c_prev):
-        """z -> gates -> c of upper layer k at step t; writes z, its dual
-        and the gate and c duals, and returns (i, f, g, o, c)."""
-        z_t, zdual_t = row4(state.zs[k - 1], t), row4(state.zduals[k - 1], t)
-        lin = _project(inp[k], h_below) + _project(rec[k], h_prev)
-        z_new = _z_prox_update(z_t, row4(u_slabs[k - 1], t),
-                               lin - zdual_t / rz3, rho_g4, rz3, is_tanh4,
-                               row4(resmaxes[k - 1], t))
-        act4 = torch.where(is_tanh4, torch.tanh(z_new),
-                           torch.sigmoid(z_new)).unbind(-3)
-
-        _, f_o, g_o, _, c_o, h_o = old
-        lam_i, lam_f, lam_g, lam_o, lam_c, lam_h = duals_t
-        i_n = cf.gate_ifgo_update(lam_i, rho2.i, act4[0], g_o, f_o, c_prev,
-                                  c_o, rho2.c, lam_c)
-        f_n = cf.gate_ifgo_update(lam_f, rho2.f, act4[1], c_prev, g_o, i_n,
-                                  c_o, rho2.c, lam_c)
-        g_n = cf.gate_ifgo_update(lam_g, rho2.g, act4[2], i_n, f_n, c_prev,
-                                  c_o, rho2.c, lam_c)
-        o_n = cf.gate_ifgo_update(lam_o, rho2.o, act4[3], torch.tanh(c_o),
-                                  0.0, 0.0, h_o, rho2.h, lam_h)
-        c_n = cf.c_update(c_o, o_n, h_o, lam_h, lam_c, rho2.h, rho2.c,
-                          f_n, c_prev, i_n, g_n)
-        lams = (cf.dual_ifgo_update(lam_i, rho2.i, i_n, act4[0]),
-                cf.dual_ifgo_update(lam_f, rho2.f, f_n, act4[1]),
-                cf.dual_ifgo_update(lam_g, rho2.g, g_n, act4[2]),
-                cf.dual_ifgo_update(lam_o, rho2.o, o_n, act4[3]),
-                cf.dual_c_update(lam_c, rho2.c, c_n, f_n, c_prev, i_n, g_n))
-        for dst, v in zip(new_duals[k], lams):
-            dst[..., t, :, :] = damp(v)
-        row4(new_zs[k - 1], t)[...] = z_new
-        row4(new_zduals[k - 1], t)[...] = damp(zdual_t + rz3 * (z_new - lin))
-        return i_n, f_n, g_n, o_n, c_n
-
-    def rows(slabs, t):
-        return tuple(s[..., t, :, :] for s in slabs)
-
-    def slab(k):
-        return x_im.new_zeros(lead + (seq_len + 1, hiddens[k], batch))
-
+    # 3. The sweep, t = 1..T, into new slabs: the CUDA kernel where the
+    # device, the precision and the stack's shapes allow it, else the loop.
     with span('sweep.interior'):
-        # The epoch's products as (4H, D) row blocks; the h solve of layer
-        # k < top has the fixed matrix M_k = rho_h I + rho_z sum_g wx_g
-        # wx_g^T of the layer above, inverted once.
-        rec = [_rows(lp.wh) for lp in layers_new]
-        inp = [None] + [_rows(lp.wx) for lp in layers_new[1:]]
-        m_invs = []
-        for k in range(top):
-            eye = torch.eye(hiddens[k], dtype=x_im.dtype, device=x_im.device)
-            m = rho2.h * eye + rz2 * (inp[k + 1].mT @ inp[k + 1])
-            m_invs.append(torch.linalg.inv_ex(m).inverse)
-
-        # The z-prox curvature bounds: max |act(z) - u| per (layer, t) over
-        # the (4, H, B) block (each candidate's own: ([S,] T+1, 1, 1, 1)),
-        # in one pass over the previous epoch's slabs; u is also the gate
-        # target.
-        u_slabs, resmaxes = [], []
-        for k in range(1, n):
-            g_k, d_k = state.gates[k], state.duals[k]
-            u = (torch.stack([g_k.i, g_k.f, g_k.g, g_k.o], dim=-3)
-                 + torch.stack([d_k.i, d_k.f, d_k.g, d_k.o], dim=-3)
-                 / rho_g4.unsqueeze(-4))
-            z = state.zs[k - 1]
-            act = torch.where(is_tanh4, torch.tanh(z), torch.sigmoid(z))
-            resmaxes.append(torch.amax(torch.abs(act - u), dim=(-3, -2, -1),
-                                       keepdim=True))
-            u_slabs.append(u)
-
-        xproj0 = torch.einsum('...tdb,...gdh->...tghb', x_im,
-                              layers_new[0].wx)
-        new_gates = [[slab(k) for _ in range(6)] for k in range(n)]
-        new_duals = [[slab(k) for _ in range(5)] for k in range(n)]
-        new_zs = [torch.zeros_like(z) for z in state.zs]
-        new_zduals = [torch.zeros_like(z) for z in state.zs]
-
-        h_prev = [state.gates[k].h[..., 0, :, :] for k in range(n)]
-        c_prev = [state.gates[k].c[..., 0, :, :] for k in range(n)]
-        for t in range(1, seq_len + 1):
-            final = t == seq_len
-            g_t = [rows(state.gates[k][:6], t) for k in range(n)]
-            d_t = [rows(state.duals[k][:6], t) for k in range(n)]
-            # Layer 0: the single-layer treatment.
-            pre0 = xproj0[..., t - 1, :, :, :] + _project(rec[0], h_prev[0])
-            prim, lam0 = _timestep_primal_duals(pre0, g_t[0], d_t[0],
-                                                c_prev[0], rho2)
-            for dst, v in zip(new_duals[0], lam0):
-                dst[..., t, :, :] = damp(v)
-            prims, h_new = [prim], [None] * n
-            for k in range(n):
-                if k > 0:
-                    prims.append(upper_layer_block(k, t, g_t[k], d_t[k],
-                                                   h_new[k - 1], h_prev[k],
-                                                   c_prev[k]))
-                o_n, c_n = prims[k][3], prims[k][4]
-                if k < top:
-                    h_new[k] = coupled_h_solve(k, t, o_n, c_n, d_t[k][5],
-                                               h_prev[k + 1])
-                elif not final:
-                    h_new[k] = cf.h_interior_update(o_n, torch.tanh(c_n),
-                                                    d_t[k][5], rho2.h)
-                for dst, v in zip(new_gates[k], prims[k] + (h_new[k],)):
-                    if v is not None:
-                        dst[..., t, :, :] = v
-            h_prev, c_prev = h_new, [p[4] for p in prims]
+        use_kernel = use_stacked_kernel(
+            x_im.device.type, rules.matmul_precision,
+            stacked_sweep_plan(hiddens, x_im.shape[1]))
+        m_invs = _sweep_inverses(layers_new, rho2.h, rz2,
+                                 rules.use_pallas_chol)
+        args = (x_im, state.gates, state.duals, state.zs, state.zduals,
+                layers_new, m_invs, rho, rho_z, decay)
+        if use_kernel:
+            with span('sweep.kernel'):
+                new_gates, new_duals, new_zs, new_zduals = stacked_sweep(
+                    *args)
+        else:
+            new_gates, new_duals, new_zs, new_zduals = stacked_sweep_plain(
+                *args)
 
     # The top layer's final h: the output prox, then a and the h-dual.
     with span('sweep.final'):
-        o_T, c_T = prims[top][3], prims[top][4]
+        o_T = new_gates[top][3][..., seq_len, :, :]
+        c_T = new_gates[top][4][..., seq_len, :, :]
         tanh_c_T = torch.tanh(c_T)
         to_out = lambda v: torch.einsum('...hb,...ho->...ob', v, wy_new)
         from_out = lambda r: torch.einsum('...ob,...ho->...hb', r, wy_new)
@@ -695,6 +606,164 @@ def _stacked_epoch(state: StackedState, x_im: torch.Tensor,
                         zduals=tuple(new_zduals), rho=state.rho,
                         rho_z=state.rho_z, beta=state.beta,
                         epoch=state.epoch + 1)
+
+
+def _sweep_inverses(layers: Sequence[LSTMParams], rho_h, rz2,
+                    use_pallas_chol) -> List[torch.Tensor]:
+    """The h solve of layer k < top has the fixed matrix M_k = rho_h I +
+    rho_z sum_g wx_g wx_g^T of the layer above: each M_k^-1, ([S,] H, H),
+    as L^-T L^-1 of the SPD M_k = L L^T, every candidate's L^-1 in one
+    `chol_inverse` call.  rho_h and rz2 are viewed to broadcast over a
+    candidate's (H, H).  True and 'auto' take the kernel (for CUDA
+    tensors; the wrapper runs the plain version on CPU tensors), as
+    `solvers/normal_eq._spd_solve` does; False, and a layer wider than
+    the kernel's MAX_DIM, run the plain version."""
+    out = []
+    for k in range(len(layers) - 1):
+        inp = _rows(layers[k + 1].wx)
+        dim = layers[k].hidden_size
+        eye = torch.eye(dim, dtype=inp.dtype, device=inp.device)
+        m = rho_h * eye + rz2 * (inp.mT @ inp)
+        invert = chol_inverse if use_pallas_chol in (True, 'auto') and \
+            dim <= MAX_DIM else chol_inverse_plain
+        low_inv = invert(m.reshape((-1, dim, dim)).contiguous()).view(
+            m.shape)
+        out.append(low_inv.mT @ low_inv)
+    return out
+
+
+def stacked_sweep_plain(x_im, gates, duals, zs, zduals,
+                        layers: Sequence[LSTMParams],
+                        m_invs: Sequence[torch.Tensor], rho: Penalties,
+                        rho_z: torch.Tensor, decay: float):
+    """The sweep t = 1..T, bottom-up per timestep, as a Python loop over
+    the timesteps and layers that writes each step's results into new
+    (T+1, ...) slabs (row 0 stays zero): the plain version of
+    `kernels/stacked_sweep.stacked_sweep`, with the same arguments and
+    return.  x_im (T, I, B); per layer the previous epoch's GateSlabs and
+    DualSlabs, the upper layers' z and z-dual slabs; the epoch's new
+    weights per layer; `_sweep_inverses`; the penalties; the dual decay.
+    Returns (gates, duals, zs, zduals): per layer the 6 gate slabs i..h
+    and the 5 dual slabs i..c, and the upper layers' z and z-dual slabs.
+    The top layer's h at T stays zero (sweep.final writes it)."""
+    seq_len, _, batch = x_im.shape
+    lead = gates[0].a.shape[:-2]                      # (S,) or ()
+    rho2 = _per_candidate(rho, 2)                     # over (H, B)
+    rz2, rz3 = _view(rho_z, 2), _view(rho_z, 3)       # (H, B), (4, H, B)
+    n = len(layers)
+    top = n - 1
+    hiddens = [lp.hidden_size for lp in layers]
+    rho_g4 = rho.stacked_ifgo()[..., None, None]      # ([S,] 4, 1, 1)
+    is_tanh4 = gate_is_tanh(4, 1, x_im.device)[:, None, None]
+    damp = (lambda v: v) if decay == 1.0 else (lambda v: decay * v)
+
+    def row4(s, t):
+        """Row t of a ([S,] T+1, 4, H, B) slab."""
+        return s[..., t, :, :, :]
+
+    def coupled_h_solve(k, t, o_n, c_n, lam_h, h_above_prev):
+        """h_{k,t} for k < top: the ridge solve against z_{k+1,t}."""
+        fixed = _project(rec[k + 1], h_above_prev)
+        tgt = row4(zs[k], t) + row4(zduals[k], t) / rz3 - fixed
+        rhs = (rho2.h * o_n * torch.tanh(c_n) - lam_h
+               + rz2 * (inp[k + 1].mT @ tgt.reshape(lead + (-1, batch))))
+        return m_invs[k] @ rhs
+
+    def upper_layer_block(k, t, old, duals_t, h_below, h_prev, c_prev):
+        """z -> gates -> c of upper layer k at step t; writes z, its dual
+        and the gate and c duals, and returns (i, f, g, o, c)."""
+        z_t, zdual_t = row4(zs[k - 1], t), row4(zduals[k - 1], t)
+        lin = _project(inp[k], h_below) + _project(rec[k], h_prev)
+        z_new = _z_prox_update(z_t, row4(u_slabs[k - 1], t),
+                               lin - zdual_t / rz3, rho_g4, rz3, is_tanh4,
+                               row4(resmaxes[k - 1], t))
+        act4 = torch.where(is_tanh4, torch.tanh(z_new),
+                           torch.sigmoid(z_new)).unbind(-3)
+
+        _, f_o, g_o, _, c_o, h_o = old
+        lam_i, lam_f, lam_g, lam_o, lam_c, lam_h = duals_t
+        i_n = cf.gate_ifgo_update(lam_i, rho2.i, act4[0], g_o, f_o, c_prev,
+                                  c_o, rho2.c, lam_c)
+        f_n = cf.gate_ifgo_update(lam_f, rho2.f, act4[1], c_prev, g_o, i_n,
+                                  c_o, rho2.c, lam_c)
+        g_n = cf.gate_ifgo_update(lam_g, rho2.g, act4[2], i_n, f_n, c_prev,
+                                  c_o, rho2.c, lam_c)
+        o_n = cf.gate_ifgo_update(lam_o, rho2.o, act4[3], torch.tanh(c_o),
+                                  0.0, 0.0, h_o, rho2.h, lam_h)
+        c_n = cf.c_update(c_o, o_n, h_o, lam_h, lam_c, rho2.h, rho2.c,
+                          f_n, c_prev, i_n, g_n)
+        lams = (cf.dual_ifgo_update(lam_i, rho2.i, i_n, act4[0]),
+                cf.dual_ifgo_update(lam_f, rho2.f, f_n, act4[1]),
+                cf.dual_ifgo_update(lam_g, rho2.g, g_n, act4[2]),
+                cf.dual_ifgo_update(lam_o, rho2.o, o_n, act4[3]),
+                cf.dual_c_update(lam_c, rho2.c, c_n, f_n, c_prev, i_n, g_n))
+        for dst, v in zip(new_duals[k], lams):
+            dst[..., t, :, :] = damp(v)
+        row4(new_zs[k - 1], t)[...] = z_new
+        row4(new_zduals[k - 1], t)[...] = damp(zdual_t + rz3 * (z_new - lin))
+        return i_n, f_n, g_n, o_n, c_n
+
+    def rows(slabs, t):
+        return tuple(s[..., t, :, :] for s in slabs)
+
+    def slab(k):
+        return x_im.new_zeros(lead + (seq_len + 1, hiddens[k], batch))
+
+    # The epoch's products as (4H, D) row blocks.
+    rec = [_rows(lp.wh) for lp in layers]
+    inp = [None] + [_rows(lp.wx) for lp in layers[1:]]
+
+    # The z-prox curvature bounds: max |act(z) - u| per (layer, t) over
+    # the (4, H, B) block (each candidate's own: ([S,] T+1, 1, 1, 1)), in
+    # one pass over the previous epoch's slabs; u is also the gate target.
+    u_slabs, resmaxes = [], []
+    for k in range(1, n):
+        g_k, d_k = gates[k], duals[k]
+        u = (torch.stack([g_k.i, g_k.f, g_k.g, g_k.o], dim=-3)
+             + torch.stack([d_k.i, d_k.f, d_k.g, d_k.o], dim=-3)
+             / rho_g4.unsqueeze(-4))
+        z = zs[k - 1]
+        act = torch.where(is_tanh4, torch.tanh(z), torch.sigmoid(z))
+        resmaxes.append(torch.amax(torch.abs(act - u), dim=(-3, -2, -1),
+                                   keepdim=True))
+        u_slabs.append(u)
+
+    xproj0 = torch.einsum('...tdb,...gdh->...tghb', x_im, layers[0].wx)
+    new_gates = [[slab(k) for _ in range(6)] for k in range(n)]
+    new_duals = [[slab(k) for _ in range(5)] for k in range(n)]
+    new_zs = [torch.zeros_like(z) for z in zs]
+    new_zduals = [torch.zeros_like(z) for z in zs]
+
+    h_prev = [gates[k].h[..., 0, :, :] for k in range(n)]
+    c_prev = [gates[k].c[..., 0, :, :] for k in range(n)]
+    for t in range(1, seq_len + 1):
+        final = t == seq_len
+        g_t = [rows(gates[k][:6], t) for k in range(n)]
+        d_t = [rows(duals[k][:6], t) for k in range(n)]
+        # Layer 0: the single-layer treatment.
+        pre0 = xproj0[..., t - 1, :, :, :] + _project(rec[0], h_prev[0])
+        prim, lam0 = _timestep_primal_duals(pre0, g_t[0], d_t[0],
+                                            c_prev[0], rho2)
+        for dst, v in zip(new_duals[0], lam0):
+            dst[..., t, :, :] = damp(v)
+        prims, h_new = [prim], [None] * n
+        for k in range(n):
+            if k > 0:
+                prims.append(upper_layer_block(k, t, g_t[k], d_t[k],
+                                               h_new[k - 1], h_prev[k],
+                                               c_prev[k]))
+            o_n, c_n = prims[k][3], prims[k][4]
+            if k < top:
+                h_new[k] = coupled_h_solve(k, t, o_n, c_n, d_t[k][5],
+                                           h_prev[k + 1])
+            elif not final:
+                h_new[k] = cf.h_interior_update(o_n, torch.tanh(c_n),
+                                                d_t[k][5], rho2.h)
+            for dst, v in zip(new_gates[k], prims[k] + (h_new[k],)):
+                if v is not None:
+                    dst[..., t, :, :] = v
+        h_prev, c_prev = h_new, [p[4] for p in prims]
+    return new_gates, new_duals, new_zs, new_zduals
 
 
 def make_stacked_step(config: ADMMConfig):

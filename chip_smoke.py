@@ -36,7 +36,12 @@ Phases, each fatal on failure:
                GoogleStock stage and its 27-candidate rho grid) the table
                held to the plain loop at THETA_RTOL and bit-equal on a
                second launch, the plan, registers and spills, timed
-               beside the plain loop;
+               beside the plain loop; for the stacked sweep
+               (STACKED_SWEEP_SHAPES: the stacked cell's batched epoch and
+               the (8, 8) run's) every new slab held to
+               stacked_sweep_plain at STACKED_SWEEP_RTOL of its scale and
+               bit-equal on a second launch, the path and the bounds'
+               passes timed beside the plain loop and the byte bound;
   3. floor   - the Gauss-Seidel serial-floor probe: `python -m
                admm_lstm_torch.gs_floor` at its defaults (T 2047, H 16,
                B 64) with the launch counts zeroed just before and read
@@ -104,10 +109,13 @@ Phases, each fatal on failure:
                from the JAX package's seed-0 initial weights
                (tests/golden/torch_stacked_init_*.npz): train_stacked at
                (8, 8) for 30 epochs and (8, 8, 8) for 10, held to the JAX
-               package's trajectories, two chol_solve launches an epoch;
+               package's trajectories, two chol_solve launches, one
+               stacked_sweep and one chol_inverse a layer below the top
+               an epoch;
                search_rho_stacked over refine_rho_stacked's first 27-point
                grid at (8, 8), 30 epochs, as one batched program (60
-               chol_solve launches, no other kernel, no halving): each
+               chol_solve launches, 30 stacked_sweep and 30 chol_inverse,
+               no other kernel, no halving): each
                candidate held to its train_stacked run alone at rtol
                1e-5, JAX's losses and winner, its wall seconds twice
                around the 27 runs alone, its syncs, busy ms and idle share
@@ -115,10 +123,12 @@ Phases, each fatal on failure:
                candidate, STACKED_Z_ALONE held to their runs alone;
                train_best_stacked (60 epochs, 30-epoch probes, one search
                round of 27 candidates) making the JAX package's choice
-               with its tuned rho, with 300 chol_solve launches and no
-               other kernel; one (8, 8)
+               with its tuned rho, with 300 chol_solve launches, 150
+               stacked_sweep, 150 chol_inverse and no other kernel; one
+               (8, 8)
                epoch with the kernels against the same epoch with the
-               plain versions; a save_model/load_model round trip of the
+               plain versions (chol_solve's and the stacked sweep's); a
+               save_model/load_model round trip of the
                result, bit-equal;
   8. legacy  - ADMM-LSTM-L, ADMM-LSTM-S, the gradient baselines and the
                comparison harness on GoogleStock at the CLI's width (H 10,
@@ -266,6 +276,14 @@ THETA_RTOL = 1e-6
 # Operations per element and theta: divide, add, scale, tanh, scale,
 # shift, subtract, square, add.
 THETA_OPS = 9
+# The stacked sweep (S or None, T, hiddens..., B): the stacked cell's
+# batched epoch (27 candidates of (40, 40) on GoogleStock's B 4224) and
+# the stacked phase's (8, 8) without the candidate axis.
+STACKED_SWEEP_SHAPES = [(27, 10, 40, 40, 4224), (None, 10, 8, 8, 4224)]
+# Sums of a few hundred products in another order than cuBLAS's: each new
+# slab within this share of its scale (max |x|; a dual's plus its largest
+# rho times its primal's), as tests/test_torch_gpu.py holds it.
+STACKED_SWEEP_RTOL = 1e-5
 FLOOR_SHAPES = [(2047, 16, 64), (127, 16, 512), (9, 10, 4224),
                 (31, 130, 512), (511, 32, 96), (511, 33, 96), (13, 5, 1000),
                 (4, 7, 37), (1, 3, 1)]
@@ -775,6 +793,26 @@ def theta_bound(shape, k=THETA_K):
     return bound(4 * 3 * elems, elems * k * THETA_OPS)
 
 
+def stacked_sweep_bound(cands, steps, hiddens, batch):
+    """One stacked sweep launch and its bounds' passes.  Bytes, per t,
+    candidate and column: layer 0 reads 10 rows of H_0 (old f, g, c, h, 6
+    duals), an upper layer 20 of H_k (old i, f, g, o, c, h, 6 duals, 4 z,
+    4 z duals) and its bounds' pass 12 (i, f, g, o, their duals, 4 z);
+    for t = 0..T layer 0 writes 11 rows (6 gates, 5 duals) and an upper
+    layer 19 (and 4 z, 4 z duals).  Operations: the products' 2 x
+    multiply-adds per column and step (x wx_0, wh_k h, wx_k h below, the
+    solve's wx_{k+1} tgt and M_k^-1 rhs); the closed forms left out."""
+    upper = sum(hiddens[1:])
+    rows = (steps * (10 * hiddens[0] + 32 * upper)
+            + (steps + 1) * (11 * hiddens[0] + 19 * upper))
+    macs = 4 * hiddens[0] * (1 + hiddens[0])
+    for k in range(1, len(hiddens)):
+        macs += 4 * hiddens[k] * (hiddens[k - 1] + hiddens[k])
+        macs += 4 * hiddens[k] * hiddens[k - 1] + hiddens[k - 1] ** 2
+    return bound(4 * (cands or 1) * batch * rows,
+                 2 * (cands or 1) * batch * steps * macs)
+
+
 def solve_bound(n, dim):
     """N SPD solves.  Bytes: the lower triangle of a (all the function
     reads of it), b and x once.  Operations: D^3/3 for the factorization
@@ -897,7 +935,8 @@ def kernel_row(name, shape, kernel, plain, library, tol, bound_ms_by, flush,
 KERNEL_NAMES = ('warp_chol_kernel', 'blocked_solve_kernel',
                 'blocked_inverse_kernel', 'interior_sweep_kernel',
                 'jacobi_sweep_kernel', 'floor_sweep_kernel',
-                'floor_warp_kernel', 'theta_tests_kernel')
+                'floor_warp_kernel', 'theta_tests_kernel',
+                'stacked_sweep_kernel', 'stacked_resmax_kernel')
 
 
 def ptxas_summary(out):
@@ -929,9 +968,10 @@ def phase_build():
     ({} for a library built before this run)."""
     from admm_lstm_torch.kernels import build
     t0 = time.perf_counter()
-    build.build_all(['gate_sweep', 'cholesky', 'theta_tests'])
-    log(f'[build] gate_sweep.cu, cholesky.cu and theta_tests.cu built in '
-        f'{time.perf_counter() - t0:.2f} s')
+    build.build_all(['gate_sweep', 'cholesky', 'theta_tests',
+                     'stacked_sweep'])
+    log(f'[build] gate_sweep.cu, cholesky.cu, theta_tests.cu and '
+        f'stacked_sweep.cu built in {time.perf_counter() - t0:.2f} s')
     summary = {}
     for name, out in build.build_logs.items():
         for line in out.strip().splitlines():
@@ -1286,14 +1326,133 @@ def theta_row(shape, seed, flush, ptxas):
     return row
 
 
+def stacked_sweep_inputs(shape, seed):
+    """The stacked sweep's arguments at `shape` (S or None, T, hiddens...,
+    B): a state of seeded data one epoch past its seeded init (every dual
+    and z dual nonzero), S candidates of penalties spread over 0.5-2 and
+    rho_z over 0.5-2, that state's weights and their M^-1."""
+    from admm_lstm_torch.core.state import Penalties
+    from admm_lstm_torch.core.step import _per_candidate, rules_for
+    from admm_lstm_torch.data.synthetic import load as synth
+    from admm_lstm_torch.params import parameter_set
+    from admm_lstm_torch.utils.config import ADMMConfig
+    from admm_lstm_torch.variants import stacked
+    cands, steps, hiddens, batch = shape[0], shape[1], shape[2:-1], shape[-1]
+    tx, ty, _, _ = synth(batch=batch, seq_len=steps, input_size=1,
+                         val_batch=4, seed=seed)
+    x, y = torch.from_numpy(tx).cuda(), torch.from_numpy(ty).cuda()
+    params = stacked.init_stacked(torch.Generator().manual_seed(seed), 1,
+                                  hiddens, 1, device='cuda')
+    cfg = ADMMConfig()
+    rules = rules_for(cfg)
+    st = stacked.init_stacked_state(params, x, parameter_set('Stacked'), cfg)
+    if cands is not None:
+        spread = torch.linspace(0.5, 2.0, cands, device='cuda')
+        st = stacked.broadcast_stacked_state(
+            st, cands, rho=Penalties(*(r * spread for r in st.rho)),
+            rho_z=np.linspace(0.5, 2.0, cands))
+    x_im, y_im = x.permute(1, 2, 0).contiguous(), y.T.contiguous()
+    st = stacked.stacked_admm_step_im(st, x_im, y_im, rules)
+    layers = st.params.layers
+    m_invs = stacked._sweep_inverses(layers, _per_candidate(st.rho, 2).h,
+                                     stacked._view(st.rho_z, 2), 'auto')
+    return (x_im, st.gates, st.duals, st.zs, st.zduals, layers, m_invs,
+            st.rho, st.rho_z, rules.stacked_dual_decay)
+
+
+def _sweep_slabs(out):
+    """The sweep's new slabs in one list: per layer 6 gates and 5 duals,
+    then the z and z-dual slabs."""
+    gates, duals, zs, zduals = out
+    return [t for g, d in zip(gates, duals) for t in list(g) + list(d)] + \
+        list(zs) + list(zduals)
+
+
+def _sweep_scales(out, rho, rho_z):
+    """Each new slab's scale (as _sweep_slabs orders them): a gate's or
+    z's largest magnitude; a dual's plus its largest rho times its
+    primal's."""
+    gates, duals, zs, zduals = out
+    amax = lambda t: float(t.abs().max())
+    rmax = lambda r: float(torch.as_tensor(r).abs().max())
+    rhos = (rho.i, rho.f, rho.g, rho.o, rho.c)
+    scales = []
+    for g, d in zip(gates, duals):
+        scales += [amax(t) for t in g]
+        scales += [amax(t) + rmax(r) * amax(p) for t, r, p in zip(d, rhos, g)]
+    scales += [amax(z) for z in zs]
+    scales += [amax(zd) + rmax(rho_z) * amax(z) for zd, z in zip(zduals, zs)]
+    return scales
+
+
+def stacked_sweep_row(shape, seed, flush, ptxas):
+    """The stacked sweep kernel at `shape` (S or None, T, hiddens..., B):
+    every new slab held to stacked_sweep_plain's at STACKED_SWEEP_RTOL of
+    its scale and bit-equal on a second launch; the path (packing, the
+    bounds' passes and the sweep) and the bounds' passes alone timed L2
+    flushed beside the bound and the plain loop; the plan and the
+    registers and spills of its instance."""
+    from admm_lstm_torch.kernels import stacked_sweep as ks
+    from admm_lstm_torch.variants import stacked
+    args = stacked_sweep_inputs(shape, seed)
+    hiddens = shape[2:-1]
+    got, again = ks.stacked_sweep(*args), ks.stacked_sweep(*args)
+    want = stacked.stacked_sweep_plain(*args)
+    torch.cuda.synchronize()
+    pairs = list(zip(_sweep_slabs(got), _sweep_slabs(want),
+                     _sweep_scales(want, args[7], args[8])))
+    err = max(float((g - w).abs().max()) for g, w, _ in pairs)
+    rel = max(float((g - w).abs().max()) / scale for g, w, scale in pairs)
+    finite = all(bool(torch.isfinite(g).all()) for g, _, _ in pairs)
+    same = all(torch.equal(a, b) for a, b in zip(_sweep_slabs(got),
+                                                 _sweep_slabs(again)))
+    del got, again, want
+    x_im, gates, duals, zs = args[:4]
+    rhos = ks.rho_pack(args[7], args[8])
+    cands = shape[0] or 1
+
+    def bounds():
+        out = torch.zeros((len(zs), cands, shape[1] + 1), dtype=torch.int32,
+                          device='cuda')
+        for k in range(1, len(hiddens)):
+            ks.stacked_resmax(zs[k - 1], [gates[k][m] for m in range(4)],
+                              [duals[k][m] for m in range(4)], rhos,
+                              out[k - 1])
+
+    plan = ks.stacked_sweep_plan(hiddens, x_im.shape[1])
+    instance = f'stacked_sweep_kernel<{plan.rows},{len(hiddens)}>'
+    bound_ms, bound_by = stacked_sweep_bound(shape[0], shape[1], hiddens,
+                                             shape[-1])
+    row = dict(shape=list(shape), max_abs_err=err, max_rel_err=rel,
+               bit_equal_relaunch=same,
+               ms=cuda_ms(lambda: ks.stacked_sweep(*args), 20, flush),
+               resmax_ms=cuda_ms(bounds, 20, flush),
+               plain_ms=cuda_ms(lambda: stacked.stacked_sweep_plain(*args),
+                                5, flush),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               plan=plan._asdict(), instance=instance)
+    row.update((k, v) for k, v in ptxas.get(instance, {}).items())
+    log(f'[kernels] stacked_sweep {row}')
+    if not (finite and rel <= STACKED_SWEEP_RTOL and same):
+        raise AssertionError(f'stacked_sweep at {list(shape)}: largest '
+                             f'error {rel} of its scale (rtol '
+                             f'{STACKED_SWEEP_RTOL}), finite {finite}, '
+                             f'bit-equal relaunch {same}')
+    return row
+
+
 def phase_kernels(flush, ptxas):
     from admm_lstm_torch.kernels import cholesky as ch
     from admm_lstm_torch.kernels import gate_sweep as gs
     rows = {k: [] for k in ('interior_sweep', 'interior_sweep[candidates]',
                             'jacobi_sweep', 'jacobi_sweep[candidates]',
-                            'chol_solve', 'chol_inverse', 'theta_tests')}
+                            'chol_solve', 'chol_inverse', 'theta_tests',
+                            'stacked_sweep')}
     for k, shape in enumerate(THETA_SHAPES):
         rows['theta_tests'].append(theta_row(shape, 110 + k, flush, ptxas))
+    for k, shape in enumerate(STACKED_SWEEP_SHAPES):
+        rows['stacked_sweep'].append(stacked_sweep_row(shape, 120 + k, flush,
+                                                       ptxas))
     for k, shape in enumerate(SWEEP_SHAPES):
         steps, hidden, batch = shape
         args = sweep_inputs(*shape, seed=k)
@@ -1509,10 +1668,12 @@ def _kernels():
     from admm_lstm_torch.kernels.gate_sweep import (floor_sweep,
                                                     interior_sweep,
                                                     jacobi_sweep)
+    from admm_lstm_torch.kernels.stacked_sweep import stacked_sweep
     from admm_lstm_torch.kernels.theta_tests import theta_tests
     return dict(interior_sweep=interior_sweep, jacobi_sweep=jacobi_sweep,
                 chol_solve=chol_solve, chol_inverse=chol_inverse,
-                floor_sweep=floor_sweep, theta_tests=theta_tests)
+                floor_sweep=floor_sweep, theta_tests=theta_tests,
+                stacked_sweep=stacked_sweep)
 
 
 # The sweep kernels whose launches with the candidate axis are counted
@@ -2161,20 +2322,28 @@ def phase_resume():
 
 
 def _stacked_epoch_vs_plain(tx, ty, ps, params):
-    """One (8, 8) epoch with use_pallas_chol True against False at
-    'highest': each leaf within STACKED_RTOL of its scale (max |x|; for a
-    dual, max |lambda| + rho max |its primal|)."""
+    """One (8, 8) epoch with the kernels (use_pallas_chol True, the
+    stacked sweep kernel) against one with their plain versions
+    (use_pallas_chol False, the epoch's choice of the sweep patched to
+    the loop) at 'highest': each leaf within STACKED_RTOL of its scale
+    (max |x|; for a dual, max |lambda| + rho max |its primal|)."""
     from admm_lstm_torch.utils.config import ADMMConfig
     from admm_lstm_torch.utils.device import matmul_precision
     from admm_lstm_torch.variants import stacked
     x, y = torch.from_numpy(tx).cuda(), torch.from_numpy(ty).cuda()
     states = {}
+    use_kernel = stacked.use_stacked_kernel
     for flag in (True, False):
         cfg = ADMMConfig(hidden_size=8, use_pallas_chol=flag)
-        with matmul_precision('highest'):
-            st = stacked.init_stacked_state(params, x, ps, cfg)
-            states[flag] = stacked.make_stacked_step(cfg)(st, x, y)
-            torch.cuda.synchronize()
+        stacked.use_stacked_kernel = use_kernel if flag else (
+            lambda *a: False)
+        try:
+            with matmul_precision('highest'):
+                st = stacked.init_stacked_state(params, x, ps, cfg)
+                states[flag] = stacked.make_stacked_step(cfg)(st, x, y)
+                torch.cuda.synchronize()
+        finally:
+            stacked.use_stacked_kernel = use_kernel
     got, ref = states[True], states[False]
     amax = lambda t: float(t.abs().max())
     leaves = [('head wy', got.params.wy, ref.params.wy, amax(ref.params.wy))]
@@ -2208,15 +2377,18 @@ def _stacked_epoch_vs_plain(tx, ty, ps, params):
                              f'plain epoch beyond tolerance at {bad}')
 
 
-def _only_chol_solve(label, launches, epochs):
+def _stacked_launches(label, launches, epochs, layers=2):
     """A stacked run's launches: two chol_solve a stacked epoch (layer 0's
     exact x and h sides; with the candidate axis each one call for every
-    candidate's systems) and no other kernel."""
-    others = {k: v for k, v in launches.items() if k != 'chol_solve' and v}
-    if launches['chol_solve'] != 2 * epochs or others:
-        raise AssertionError(f'{label}: chol_solve launched '
-                             f'{launches["chol_solve"]} times (expected '
-                             f'{2 * epochs}), other launches {others}')
+    candidate's systems), one stacked_sweep (the sweep over t and the
+    layers, every candidate in one launch) with one chol_inverse before it
+    for each layer below the top (the coupled h solve's M^-1) and no other
+    kernel."""
+    want = {'chol_solve': 2 * epochs, 'stacked_sweep': epochs,
+            'chol_inverse': (layers - 1) * epochs}
+    got = {k: v for k, v in launches.items() if k in want or v}
+    if got != want:
+        raise AssertionError(f'{label}: launches {got}, expected {want}')
 
 
 def _stacked_alone(tx, ty, vx, vy, ps, params, res, epochs, zs, rows):
@@ -2277,7 +2449,7 @@ def stacked_search(tx, ty, vx, vy, ps, params, card):
     finally:
         restore()
     label = f'search_rho_stacked (8, 8), {n} candidates x {epochs} epochs'
-    _only_chol_solve(label, launches, epochs)
+    _stacked_launches(label, launches, epochs)
     if groups != [(0, n)]:
         raise AssertionError(f'{label}: groups {groups}, expected one')
     alone_seconds, gap = _stacked_alone(tx, ty, vx, vy, ps, params, res,
@@ -2316,7 +2488,7 @@ def stacked_search(tx, ty, vx, vy, ps, params, card):
     res_z = search(zs)
     z_seconds = time.perf_counter() - t0
     z_launches = _read_launches(kernels)
-    _only_chol_solve(f'{label} with z_candidates', z_launches, epochs)
+    _stacked_launches(f'{label} with z_candidates', z_launches, epochs)
     z_alone_seconds, z_gap = _stacked_alone(tx, ty, vx, vy, ps, params,
                                             res_z, epochs, zs,
                                             STACKED_Z_ALONE)
@@ -2368,7 +2540,7 @@ def phase_stacked(card):
                           [float(v) for v in val_l]])
             + f'; largest relative gap to the JAX package {gap:.3g}')
         _hold_to(label, train_l, val_l, ref['train'], ref['val'])
-        _only_chol_solve(label, counts, epochs)
+        _stacked_launches(label, counts, epochs, len(hiddens))
         if hiddens == (8, 8):
             launches = counts
 
@@ -2397,10 +2569,11 @@ def phase_stacked(card):
         raise AssertionError(f'train_best_stacked chose '
                              f'{best["preset_choice"]}')
     # The search (one batched program for all 27 candidates), the two
-    # probes and the committed run: 150 stacked epochs, 300 launches.
-    _only_chol_solve('train_best_stacked', best_launches,
-                     3 * STACKED_BEST_ARGS['probe_epochs']
-                     + STACKED_BEST_ARGS['epochs'])
+    # probes and the committed run: 150 stacked epochs, 300 chol_solve
+    # launches, 150 stacked_sweep and 150 chol_inverse.
+    _stacked_launches('train_best_stacked', best_launches,
+                      3 * STACKED_BEST_ARGS['probe_epochs']
+                      + STACKED_BEST_ARGS['epochs'])
     if best['candidate_rho'].get('tuned') != STACKED_BEST_RHO:
         raise AssertionError(f'train_best_stacked tuned rho '
                              f'{best["candidate_rho"].get("tuned")}')
@@ -2669,7 +2842,7 @@ def phase_legacy(tx, ty, vx, vy, ps, weights):
     if launches != {'interior_sweep': n, 'jacobi_sweep': 0, 'chol_solve': 0,
                     'chol_inverse': 0, 'floor_sweep': 0,
                     'theta_tests': max(launches['theta_tests'], 2 * n),
-                    'interior_sweep[candidates]': 0,
+                    'stacked_sweep': 0, 'interior_sweep[candidates]': 0,
                     'jacobi_sweep[candidates]': 0}:
         raise AssertionError(f'run_comparison launches {launches}')
 
@@ -2998,6 +3171,7 @@ def phase_scenarios(card):
                     'chol_solve': 0, 'chol_inverse': 0, 'floor_sweep': 0,
                     'theta_tests': max(launches['theta_tests'],
                                        2 * SCEN_EPOCHS),
+                    'stacked_sweep': 0,
                     'interior_sweep[candidates]': SCEN_EPOCHS,
                     'jacobi_sweep[candidates]': 0}:
         raise AssertionError(f'scenarios: launches {launches}')
@@ -3482,6 +3656,11 @@ def main() -> int:
         # tests, which XLA fuses inside the JAX package's while_loop.
         'theta_tests': ('admm_lstm_torch/csrc/theta_tests.cu', None,
                         launches['slice1']),
+        # Replaces no TPU kernel: the stacked sweep over t and the layers,
+        # a lax.scan in the JAX package; its launches on the (8, 8) run's
+        # path (one an epoch, the bounds' passes inside the same call).
+        'stacked_sweep': ('admm_lstm_torch/csrc/stacked_sweep.cu', None,
+                          launches['stacked']),
     }
     kernels = []
     for name, (source, replaces, counts) in meta.items():
@@ -3500,7 +3679,8 @@ def main() -> int:
                     'chain_share', 'interior_warm_ms', 'cudnn_max_abs_err',
                     'onplan_ms', 'onplan_ms_per_step', 'instance',
                     'alone_ms', 'alone_max_abs_err', 'alone_bit_equal',
-                    'alone_plan', 'max_rel_err', 'bit_equal_relaunch'):
+                    'alone_plan', 'max_rel_err', 'bit_equal_relaunch',
+                    'resmax_ms'):
             if key in main_row:
                 kernels[-1][key] = main_row[key]
         if name in ill:

@@ -1,6 +1,7 @@
 """Tests of the port's CUDA kernels (the Gauss-Seidel and Jacobi sweeps,
 both with the candidate axis too, the serial-floor probe,
-the batched Cholesky solve and inverse, the weight stage's theta tests),
+the batched Cholesky solve and inverse, the weight stage's theta tests,
+the stacked sweep),
 of the rho search's batched
 program, of the
 legacy variants' epochs, of data-parallel ranks (gloo ranks sharing the
@@ -908,3 +909,171 @@ def test_torch_cuda_train_launches_theta_tests(cuda):
               ADMMConfig(hidden_size=7, epochs=1), log_every=0,
               device='cuda')
     assert theta_tests.launches - before >= 2
+
+
+# The fused stacked sweep (csrc/stacked_sweep.cu): (candidates or None,
+# hiddens, batch, input size, rho_z per candidate).  The first two are the
+# stacked cell's shapes (S 27, T 10, (40, 40), B 4224), with a shared and a
+# per-candidate rho_z; then chip_smoke.py's (8, 8) without the candidate
+# axis, and three layers.  The rest run every launch shape that
+# stacked_sweep_plan can pick ((rows, columns) (1, 32) to H 10, (1, 16) to
+# 20, (2, 16) to 40, (4, 16) to 80) at two and three layers, each with a
+# ragged last column tile.
+STACKED_SWEEP_CASES = [(27, (40, 40), 4224, 1, False),
+                       (27, (40, 40), 4224, 1, True),
+                       (None, (8, 8), 4224, 1, False),
+                       (3, (6, 5, 4), 300, 2, True),
+                       (3, (16, 16), 300, 1, False),
+                       (3, (16, 12, 16), 300, 1, True),
+                       (3, (40, 40, 40), 300, 1, False),
+                       (3, (48, 48), 300, 1, True),
+                       (3, (48, 48, 48), 300, 1, False)]
+
+
+def _stacked_sweep_state(cands, hiddens, batch, inputs, per_rho_z, device):
+    """A stacked state one plain epoch past its init (every dual and z
+    dual nonzero), with `cands` candidates of spread penalties, and the
+    (T, I, B) inputs and (O, B) targets."""
+    from admm_lstm_torch.core.state import Penalties
+    from admm_lstm_torch.core.step import rules_for
+    from admm_lstm_torch.variants import stacked
+    tx, ty, _, _ = synth(batch=batch, seq_len=10, input_size=inputs,
+                         val_batch=4, seed=5)
+    x, y = torch.from_numpy(tx).to(device), torch.from_numpy(ty).to(device)
+    params = stacked.init_stacked(torch.Generator().manual_seed(1), inputs,
+                                  hiddens, 1, device=device)
+    cfg = ADMMConfig()
+    st = stacked.init_stacked_state(params, x, parameter_set('Stacked'), cfg)
+    if cands is not None:
+        spread = torch.linspace(0.5, 2.0, cands, device=device)
+        rho = Penalties(*(r * spread for r in st.rho))
+        rho_z = (np.linspace(0.7, 1.4, cands) if per_rho_z else None)
+        st = stacked.broadcast_stacked_state(st, cands, rho=rho,
+                                             rho_z=rho_z)
+    x_im = x.permute(1, 2, 0).contiguous()
+    y_im = y.T.contiguous()
+    return st, x_im, y_im, rules_for(cfg)
+
+
+def _sweep_scales(gates, duals, zs, zduals, rho, rho_z):
+    """Each new slab's tolerance scale: a gate's or z's largest magnitude;
+    a dual's plus its largest rho times its primal's (the dual moves by
+    rho times the primal's rounding)."""
+    amax = lambda t: float(t.abs().max())
+    rmax = lambda r: float(r.abs().max())
+    rhos = (rho.i, rho.f, rho.g, rho.o, rho.c)
+    out = []
+    for g, d in zip(gates, duals):
+        out.append([amax(t) for t in g])
+        out.append([amax(t) + rmax(r) * amax(p)
+                    for t, r, p in zip(d, rhos, g)])
+    out.append([amax(z) for z in zs])
+    out.append([amax(zd) + rmax(rho_z) * amax(z)
+                for zd, z in zip(zduals, zs)])
+    return out
+
+
+def _flat_sweep(out):
+    gates, duals, zs, zduals = out
+    return [list(g) for pair in zip(gates, duals) for g in pair] + \
+        [list(zs), list(zduals)]
+
+
+@pytest.mark.parametrize('case', STACKED_SWEEP_CASES)
+def test_torch_cuda_stacked_sweep_matches_plain(cuda, case):
+    """One launch of the stacked sweep kernel against stacked_sweep_plain
+    from the same state and weights: every new slab within 1e-5 of its
+    scale (_sweep_scales), rows 0 and the top layer's h at T zero in
+    both; the launch count rises by one."""
+    from admm_lstm_torch.core.step import _per_candidate
+    from admm_lstm_torch.kernels.stacked_sweep import stacked_sweep
+    from admm_lstm_torch.variants import stacked
+    cands, hiddens, batch, inputs, per_rho_z = case
+    st, x_im, y_im, rules = _stacked_sweep_state(cands, hiddens, batch,
+                                                 inputs, per_rho_z, cuda)
+    st = stacked.stacked_admm_step_im(st, x_im, y_im, rules)
+    layers = st.params.layers
+    m_invs = stacked._sweep_inverses(
+        layers, _per_candidate(st.rho, 2).h, stacked._view(st.rho_z, 2),
+        'auto')
+    args = (x_im, st.gates, st.duals, st.zs, st.zduals, layers, m_invs,
+            st.rho, st.rho_z, rules.stacked_dual_decay)
+    before = stacked_sweep.launches
+    got = stacked_sweep(*args)
+    assert stacked_sweep.launches - before == 1
+    want = stacked.stacked_sweep_plain(*args)
+    scales = _sweep_scales(*want, st.rho, st.rho_z)
+    t_axis = 0 if cands is None else 1
+    for g_row, w_row, s_row in zip(_flat_sweep(got), _flat_sweep(want),
+                                   scales):
+        for g, w, scale in zip(g_row, w_row, s_row):
+            assert g.shape == w.shape and g.is_contiguous()
+            assert float((g - w).abs().max()) <= 1e-5 * scale
+            assert not g.select(t_axis, 0).any()
+    assert not got[0][-1][5].select(t_axis, -1).any()
+
+
+@pytest.mark.parametrize('case', STACKED_SWEEP_CASES)
+def test_torch_cuda_stacked_epochs_kernel_match_plain(cuda, case,
+                                                      monkeypatch):
+    """Three stacked epochs through the kernel against three with the
+    plain sweep on the card (the epoch's choice patched to the loop):
+    every state leaf within 1e-4 of its scale, one launch an epoch."""
+    from admm_lstm_torch.kernels.stacked_sweep import stacked_sweep
+    from admm_lstm_torch.variants import stacked
+    cands, hiddens, batch, inputs, per_rho_z = case
+    st0, x_im, y_im, rules = _stacked_sweep_state(cands, hiddens, batch,
+                                                  inputs, per_rho_z, cuda)
+    before = stacked_sweep.launches
+    got = st0
+    for _ in range(3):
+        got = stacked.stacked_admm_step_im(got, x_im, y_im, rules)
+    assert stacked_sweep.launches - before == 3
+    monkeypatch.setattr(stacked, 'use_stacked_kernel', lambda *a: False)
+    want = st0
+    for _ in range(3):
+        want = stacked.stacked_admm_step_im(want, x_im, y_im, rules)
+    assert stacked_sweep.launches - before == 3
+    scales = _sweep_scales([g[:6] for g in want.gates],
+                           [d[:5] for d in want.duals], want.zs,
+                           want.zduals, want.rho, want.rho_z)
+    pairs = _flat_sweep(([g[:6] for g in got.gates],
+                         [d[:5] for d in got.duals], got.zs, got.zduals))
+    wants = _flat_sweep(([g[:6] for g in want.gates],
+                         [d[:5] for d in want.duals], want.zs, want.zduals))
+    for g_row, w_row, s_row in zip(pairs, wants, scales):
+        for g, w, scale in zip(g_row, w_row, s_row):
+            assert float((g - w).abs().max()) <= 1e-4 * scale
+    for g, w in zip(got.params.tensors(), want.params.tensors()):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+@pytest.mark.parametrize('cands', [None, 27])
+def test_torch_cuda_stacked_resmax_bit_equal(cuda, cands):
+    """stacked_resmax_kernel's bounds equal the plain sweep's torch.amax
+    bit for bit, rows 1..T (row 0 is never read and stays zero)."""
+    from admm_lstm_torch.core.state import Penalties
+    from admm_lstm_torch.kernels.stacked_sweep import rho_pack, stacked_resmax
+    gen = torch.Generator().manual_seed(3)
+    lead = () if cands is None else (cands,)
+    rand = lambda *s, scale: (torch.randn(lead + s, generator=gen)
+                              * scale).to(cuda)
+    steps, hidden, batch = 10, 40, 4224
+    z = rand(steps + 1, 4, hidden, batch, scale=2.0)
+    gates = [rand(steps + 1, hidden, batch, scale=0.5) for _ in range(4)]
+    duals = [rand(steps + 1, hidden, batch, scale=0.1) for _ in range(4)]
+    rho = Penalties(*(torch.rand(lead, generator=gen).to(cuda) + 0.5
+                      for _ in range(7)))
+    rho_g4 = rho.stacked_ifgo()
+    want = torch.amax(torch.abs(
+        torch.where(torch.arange(4, device=cuda)[:, None, None] == 2,
+                    torch.tanh(z), torch.sigmoid(z))
+        - (torch.stack(gates, dim=-3) + torch.stack(duals, dim=-3)
+           / rho_g4[..., None, :, None, None])), dim=(-3, -2, -1))
+    out = torch.zeros((cands or 1, steps + 1), dtype=torch.int32,
+                      device=cuda)
+    stacked_resmax(z, gates, duals, rho_pack(rho, torch.tensor(1.0)
+                                             .to(cuda)), out)
+    got = out.view(torch.float32).reshape(want.shape)
+    assert torch.equal(got[..., 1:], want[..., 1:])
+    assert not got[..., 0].any()
