@@ -4,13 +4,11 @@ Counterpart of `admm_lstm_tpu/api.py`: `ADMMBasedOptimizer` mirrors the
 reference optimizer's usage contract (admm.py:22-78) and `train` is the
 one-call training loop the CLI uses.
 
-The JAX package runs each chunk of epochs as one compiled device program.
-Here the chunk is a plain Python loop of eager epochs; the per-epoch
-metrics stay on the device until the end of the chunk, so the chunk adds
-no host sync to the epoch's own (core/step.py names them).  A run adds
-those of its `init` span (the penalties' host values copied to the
-device, the initial losses read) and of its `collect` spans (the
-end-of-run transfer), inside its `train` span.
+A run's epochs go through the chunked loop of core/loop.py, which adds
+no host sync to the epoch's own (core/step.py names them) but its log
+lines, checks and `collect` spans.  A run adds those of its `init` span
+(the penalties' host values copied to the device, the initial losses
+read), inside its `train` span.
 Entry points take `device` (default 'cuda') and raise when the card is
 missing unless the caller asked for the CPU.  They set the process-wide
 TF32 flags from `ADMMConfig.matmul_precision` for the work they run and
@@ -40,35 +38,20 @@ import numpy as np
 import torch
 
 from admm_lstm_torch.core.init import init_admm_state
+from admm_lstm_torch.core.loop import batch_minor, run_chunked
 from admm_lstm_torch.core.residuals import admm_residuals
 from admm_lstm_torch.core.state import ADMMState, unstack
-from admm_lstm_torch.core.step import make_admm_step, rules_for, run_epochs
+from admm_lstm_torch.core.step import (epoch_step, make_admm_step,
+                                       rules_for, run_epochs)
 from admm_lstm_torch.models.lstm import (LSTMParams, init_lstm_params,
                                          train_val_mse_im)
 from admm_lstm_torch.utils.config import (AUTO_FIELDS, ADMMConfig,
                                           ParameterSet)
-from admm_lstm_torch.utils.device import matmul_precision, resolve_device
-from admm_lstm_torch.utils.logging import info, log_assert, warning
+from admm_lstm_torch.utils.device import (as_tensor, matmul_precision,
+                                          resolve_device)
+from admm_lstm_torch.utils.logging import info, log_assert
 from admm_lstm_torch.utils.observe import span
 from admm_lstm_torch.utils.timer import Timer
-
-
-def _as_tensor(a, device) -> torch.Tensor:
-    if not isinstance(a, torch.Tensor):
-        a = torch.from_numpy(np.asarray(a, np.float32))
-    return a.to(device=device, dtype=torch.float32)
-
-
-def batch_minor(train_x, train_y, val_x, val_y):
-    """The epoch's inputs, made once per run: x_im (T, I, B), y_im (O, B),
-    xall_im (T, I, B + Bv) with the validation inputs appended along the
-    batch (train and validation losses ride one forward) and vy_im
-    (O, Bv); each with a leading S axis where the data has one (the
-    scenario batch's (S, B, T, I), (S, B, O))."""
-    x_im = train_x.movedim(-3, -1).contiguous()
-    xall_im = torch.cat([x_im, val_x.movedim(-3, -1)], dim=-1).contiguous()
-    return (x_im, train_y.transpose(-2, -1).contiguous(), xall_im,
-            val_y.transpose(-2, -1).contiguous())
 
 
 class ADMMBasedOptimizer:
@@ -99,8 +82,8 @@ class ADMMBasedOptimizer:
         if isinstance(parameter_set, dict):
             parameter_set = ParameterSet.from_dict(parameter_set)
         self.config = config
-        self.train_x = _as_tensor(train_x, device)
-        self.train_y = _as_tensor(train_y, device)
+        self.train_x = as_tensor(train_x, device)
+        self.train_y = as_tensor(train_y, device)
         self._step_fn = make_admm_step(config)
         with matmul_precision(config.matmul_precision):
             self.state: ADMMState = init_admm_state(
@@ -160,120 +143,6 @@ def _open_checkpointing(state: ADMMState, resume_from: Optional[str],
     return ckpt_mgr, state, start_epoch
 
 
-def _run_chunked(state, run_chunk, epochs: int, start_epoch: int,
-                 log_every: int, checkpoint_every: int, ckpt_mgr,
-                 timer: Timer, stop_tol: Optional[float] = None,
-                 stop_check_every: int = 25,
-                 stop_divergence: Optional[float] = None):
-    """The epoch loop from `start_epoch`, in chunks bounded by the host's
-    sync points: log lines (log_every), checkpoint saves
-    (checkpoint_every, when `ckpt_mgr` is given) and the
-    convergence/divergence checks (at least every `stop_check_every`
-    epochs).
-
-    run_chunk(state, n) -> (state, metrics with a leading (n,) axis, on
-    the device).  Returns (state, metric_hist).
-
-    stop_tol: stop once every primal AND dual residual (the r_*/s_*
-    metrics) falls below this tolerance.  stop_divergence: stop once the
-    maximum residual has grown past this factor of its running minimum.
-    """
-    metric_hist = []
-    timer.start()
-    epoch = start_epoch
-    resid_floor = None
-    while epoch < epochs:
-        chunk = epochs - epoch
-        if log_every:
-            chunk = min(chunk, log_every - epoch % log_every)
-        if ckpt_mgr and checkpoint_every:
-            chunk = min(chunk, checkpoint_every - epoch % checkpoint_every)
-        if stop_tol is not None or stop_divergence is not None:
-            chunk = min(chunk, stop_check_every)
-        state, metrics = run_chunk(state, chunk)
-        metric_hist.append(metrics)
-        epoch += chunk
-        if stop_tol is not None or stop_divergence is not None:
-            resid = [float(v[-1]) for k, v in metrics.items()
-                     if k.startswith(('r_', 's_'))]
-            if stop_tol is not None and resid and max(resid) < stop_tol:
-                info(f'Converged at epoch {epoch}: every ADMM residual '
-                     f'below {stop_tol} (max {max(resid):.3e}).')
-                break
-            if stop_divergence is not None and resid:
-                peak = max(resid)
-                resid_floor = (peak if resid_floor is None
-                               else min(resid_floor, peak))
-                if peak > stop_divergence * resid_floor:
-                    info(f'Stopping at epoch {epoch}: max ADMM residual '
-                         f'{peak:.3e} grew past {stop_divergence:g}x its '
-                         f'running minimum {resid_floor:.3e} (divergence '
-                         f'guard).')
-                    break
-        if log_every and epoch % log_every == 0:
-            timer.pause()
-            done = epoch - start_epoch
-            info(f'Epoch {epoch} has done in '
-                 f'{timer.get_elapsed_time() * 1e3 / done:.3f} ms (avg). '
-                 f'Present loss: Training: '
-                 f'{float(metrics["train_loss"][-1]):.8f} '
-                 f'| Validation: {float(metrics["val_loss"][-1]):.8f}.')
-            timer.resume()
-        if ckpt_mgr and epoch % checkpoint_every == 0:
-            ckpt_mgr.save(state, step=epoch)
-    if state.params.wy.is_cuda:
-        with span('collect'):
-            torch.cuda.synchronize(state.params.wy.device)
-    timer.pause()
-    return state, metric_hist
-
-
-def _collect_metrics(metric_hist, initial, record_residuals):
-    """Stack per-chunk metric trajectories into host lists (one device
-    concat + one transfer per metric)."""
-    stacked = {k: torch.cat([m[k] for m in metric_hist]).cpu().numpy()
-               for k in metric_hist[0]} if metric_hist else {}
-    train_losses = [initial[0]] + list(map(float,
-                                           stacked.get('train_loss', [])))
-    val_losses = [initial[1]] + list(map(float, stacked.get('val_loss', [])))
-    residual_log = []
-    if record_residuals and metric_hist:
-        keys = [k for k in metric_hist[0] if k.startswith(('r_', 's_'))]
-        for j in range(len(stacked[keys[0]]) if keys else 0):
-            residual_log.append({k: float(stacked[k][j]) for k in keys})
-    return train_losses, val_losses, residual_log
-
-
-def _best_iterate(best, val_losses, final_params, announce=True):
-    """The track_best epilogue: the on-device carry's params are the
-    min-validation iterate by construction, so return them with
-    best_epoch = argmin.  A drift between the carry and the recorded
-    trajectory is a bug and raises.  A non-finite trajectory falls back to
-    the carry, which still holds the best finite iterate."""
-    bv = float(best['val'])
-    finite = [v for v in val_losses if np.isfinite(v)]
-    if len(finite) != len(val_losses):
-        warning(f'validation trajectory contains non-finite losses '
-                f'({len(val_losses) - len(finite)} of {len(val_losses)}); '
-                f'returning the best finite iterate (val {bv:.8f}).')
-        best_epoch = int(np.nanargmin(np.asarray(val_losses))) \
-            if finite else 0
-        if finite and bv < min(finite) - 1e-12:
-            warning(f'best-iterate carry ({bv}) is below the recorded '
-                    f'finite minimum ({min(finite)}); best_epoch is '
-                    f'approximate.')
-        return best['params'], best_epoch
-    if bv > min(val_losses) + 1e-12:
-        raise RuntimeError(
-            f'best-iterate carry ({bv}) drifted above the recorded '
-            f'trajectory minimum ({min(val_losses)})')
-    best_epoch = int(np.argmin(val_losses))
-    if announce and best_epoch != len(val_losses) - 1:
-        info(f'Best validation {bv:.8f} at epoch {best_epoch} '
-             f'(final: {val_losses[-1]:.8f}); returning the best iterate.')
-    return best['params'], best_epoch
-
-
 def train(train_x, train_y, val_x, val_y,
           parameter_set: ParameterSet | Dict,
           config: ADMMConfig = ADMMConfig(),
@@ -298,7 +167,7 @@ def train(train_x, train_y, val_x, val_y,
     track_best: carry the best-validation iterate on the device and return
     it as 'params' ('final_params' keeps the last iterate, 'best_epoch'
     records where the best was).  stop_tol / stop_divergence: see
-    _run_chunked; both imply residual recording.
+    core/loop.run_chunked; both imply residual recording.
 
     Returns a dict with 'name', 'train_loss', 'val_loss' (the reference's
     admm_demo shape, demo.py:371-376) plus 'residuals', 'params',
@@ -349,14 +218,14 @@ def _train(train_x, train_y, val_x, val_y, parameter_set, config, rules,
         parameter_set = ParameterSet.from_dict(parameter_set)
     with span('init'):
         if mesh is None:
-            train_x, train_y = (_as_tensor(train_x, device),
-                                _as_tensor(train_y, device))
+            train_x, train_y = (as_tensor(train_x, device),
+                                as_tensor(train_y, device))
         else:
             from admm_lstm_torch.parallel.sharding import (pad_batch,
                                                            shard_batch)
             train_x, train_y = shard_batch(
                 *pad_batch(train_x, train_y, mesh.world), mesh)
-        val_x, val_y = _as_tensor(val_x, device), _as_tensor(val_y, device)
+        val_x, val_y = as_tensor(val_x, device), as_tensor(val_y, device)
         if params is None:
             gen = torch.Generator().manual_seed(config.seed)
             params = init_lstm_params(gen, train_x.shape[2],
@@ -380,60 +249,21 @@ def _train(train_x, train_y, val_x, val_y, parameter_set, config, rules,
                                                  val_y)
         initial = tuple(map(float, train_val_mse_im(
             state.params, xall_im, y_im, vy_im, rules.consensus)))
-    where = (device if mesh is None else
-             f'{mesh.world} ranks ({mesh.backend}; this one on {device})')
-    info(f'Training has started on {where}. Initial loss: train '
-         f'{initial[0]:.8f} | val {initial[1]:.8f}')
-
     if stop_tol is not None or stop_divergence is not None:
         record_residuals = True
-
-    best = None
-    if track_best:
-        best = {'val': torch.tensor(initial[1], dtype=torch.float32,
-                                    device=device),
-                'params': state.params.clone()}
-
-    def run_chunk(st, n):
-        return run_epochs(st, n, x_im, y_im, xall_im, vy_im, rules,
-                          with_residuals=record_residuals, best=best)
-
-    timer = Timer()
-    try:
-        state, metric_hist = _run_chunked(
-            state, run_chunk, config.epochs, start_epoch, log_every,
-            checkpoint_every, ckpt_mgr, timer, stop_tol=stop_tol,
-            stop_divergence=stop_divergence)
-    finally:
-        if ckpt_mgr:
-            ckpt_mgr.close()
-
-    with span('collect'):
-        train_losses, val_losses, residual_log = _collect_metrics(
-            metric_hist, initial, record_residuals)
-
-    out_params = state.params
-    best_epoch = len(val_losses) - 1
-    if track_best:
-        out_params, best_epoch = _best_iterate(best, val_losses,
-                                               state.params)
-
-    info(f'Training has finished. Total time elapsed: '
-         f'{timer.get_elapsed_time():.2f} seconds.')
-    result = {
-        'name': 'Fast ADMM-LSTM' if config.variant == 'fast' else config.variant,
-        'train_loss': train_losses,
-        'val_loss': val_losses,
-        'residuals': residual_log,
-        'params': out_params,
-        'final_params': state.params,
-        'best_epoch': best_epoch,
-        'state': state,
-        'seconds': timer.get_elapsed_time(),
-    }
+    where = (device if mesh is None else
+             f'{mesh.world} ranks ({mesh.backend}; this one on {device})')
+    result = {'name': ('Fast ADMM-LSTM' if config.variant == 'fast'
+                       else config.variant)}
+    result.update(run_chunked(
+        f'Training has started on {where}', state,
+        lambda st: epoch_step(st, x_im, y_im, xall_im, vy_im, rules,
+                              with_residuals=record_residuals),
+        initial, config.epochs, start_epoch, log_every, checkpoint_every,
+        ckpt_mgr, stop_tol, stop_divergence, record_residuals, track_best))
     if mesh is not None:
         from admm_lstm_torch.parallel.sharding import gather_state
-        result['state'] = gather_state(state, mesh)
+        result['state'] = gather_state(result['state'], mesh)
         result['mesh'] = mesh.describe()
     return result
 
@@ -491,6 +321,32 @@ def _train_best_legacy(train_x, train_y, val_x, val_y, config: ADMMConfig,
     return result
 
 
+def _probe_length(config: ADMMConfig, probe_epochs: int) -> int:
+    """The presets' probe budget: a quarter of the run's, at least
+    `probe_epochs`, at most the run's."""
+    return max(1, min(config.epochs, max(probe_epochs, config.epochs // 4)))
+
+
+def _probe_and_commit(label: str, names, n_probe: int, probe, commit):
+    """The probe-and-commit loop of both models' presets: `probe(name)`
+    runs each named candidate for the probe budget, ranked by its
+    validation trajectory's nan-min (a non-finite one as inf), and
+    `commit(winner)` runs the winner for the full budget.  Returns the
+    committed run's result with 'preset_choice' and 'probe_val'."""
+    probe_val: Dict[str, float] = {}
+    for name in names:
+        v = float(np.nanmin(np.asarray(probe(name)['val_loss'])))
+        probe_val[name] = v if np.isfinite(v) else float('inf')
+    winner = min(probe_val, key=probe_val.get)
+    info(f"preset='best'{label}: probe {n_probe} epochs -> "
+         + ', '.join(f'{k} {v:.6g}' for k, v in probe_val.items())
+         + f'; committing to {winner}.')
+    result = commit(winner)
+    result['preset_choice'] = winner
+    result['probe_val'] = probe_val
+    return result
+
+
 def train_best(train_x, train_y, val_x, val_y,
                parameter_set: ParameterSet | Dict,
                config: ADMMConfig = ADMMConfig(),
@@ -542,16 +398,9 @@ def train_best(train_x, train_y, val_x, val_y,
     device = resolve_device(device)
     if isinstance(parameter_set, dict):
         parameter_set = ParameterSet.from_dict(parameter_set)
-    if params is None:
-        gen = torch.Generator().manual_seed(config.seed)
-        params = init_lstm_params(gen, np.shape(train_x)[2],
-                                  config.hidden_size, np.shape(train_y)[1],
-                                  device=device)
-
     candidates = {'shipped': (config, parameter_set),
                   'auto': (derive_auto_config(config), parameter_set)}
-    n_probe = max(1, min(config.epochs,
-                         max(probe_epochs, config.epochs // 4)))
+    n_probe = _probe_length(config, probe_epochs)
     if search_rounds:
         from admm_lstm_torch.tune import refine_rho
         tuned = refine_rho(train_x, train_y, val_x, val_y, parameter_set,
@@ -559,28 +408,17 @@ def train_best(train_x, train_y, val_x, val_y,
                            rounds=search_rounds, params=params,
                            device=device)
         candidates['tuned'] = (config, tuned['best_parameter_set'])
-    probe_val: Dict[str, float] = {}
-    for name, (cand, pset) in candidates.items():
-        res = train(train_x, train_y, val_x, val_y, pset,
-                    config=cand.replace(epochs=n_probe), params=params,
-                    log_every=0, track_best=True,
-                    stop_divergence=divergence_guard, device=device)
-        v = float(np.nanmin(np.asarray(res['val_loss'])))
-        probe_val[name] = v if np.isfinite(v) else float('inf')
-    winner = min(probe_val, key=probe_val.get)
-    info(f"preset='best': probe {n_probe} epochs -> "
-         + ', '.join(f'{k} {v:.6g}' for k, v in probe_val.items())
-         + f'; committing to {winner}.')
 
-    win_cfg, win_pset = candidates[winner]
-    result = train(train_x, train_y, val_x, val_y, win_pset,
-                   config=win_cfg, params=params,
-                   log_every=log_every, track_best=True,
-                   stop_divergence=divergence_guard, device=device,
-                   **train_kw)
-    result['preset_choice'] = winner
-    result['probe_val'] = probe_val
-    return result
+    def run(name, epochs, log_every, **kw):
+        cand, pset = candidates[name]
+        return train(train_x, train_y, val_x, val_y, pset,
+                     config=cand.replace(epochs=epochs), params=params,
+                     log_every=log_every, track_best=True,
+                     stop_divergence=divergence_guard, device=device, **kw)
+
+    return _probe_and_commit(
+        '', candidates, n_probe, lambda name: run(name, n_probe, 0),
+        lambda name: run(name, config.epochs, log_every, **train_kw))
 
 
 def train_best_stacked(train_x, train_y, val_x, val_y,
@@ -609,19 +447,14 @@ def train_best_stacked(train_x, train_y, val_x, val_y,
     'probe_val' (each candidate's probe validation loss) and
     'candidate_rho' (each candidate's rho, 'z' included).
     """
-    from admm_lstm_torch.variants.stacked import init_stacked, train_stacked
+    from admm_lstm_torch.variants.stacked import train_stacked
     device = resolve_device(device)
     if isinstance(parameter_set, dict):
         parameter_set = ParameterSet.from_dict(parameter_set)
-    if params is None:
-        if hiddens is None:
-            hiddens = (config.hidden_size, config.hidden_size)
-        params = init_stacked(torch.Generator().manual_seed(config.seed),
-                              np.shape(train_x)[2], tuple(hiddens),
-                              np.shape(train_y)[1], device=device)
-    hiddens = tuple(lp.hidden_size for lp in params.layers)
-    n_probe = max(1, min(config.epochs,
-                         max(probe_epochs, config.epochs // 4)))
+    if params is not None:
+        hiddens = tuple(lp.hidden_size for lp in params.layers)
+    hiddens = tuple(hiddens or (config.hidden_size,) * 2)
+    n_probe = _probe_length(config, probe_epochs)
 
     candidates = {'shipped': parameter_set}
     if search_rounds:
@@ -632,22 +465,17 @@ def train_best_stacked(train_x, train_y, val_x, val_y,
                                    epochs=n_probe, rounds=n_rounds,
                                    params=params, device=device)
         candidates['tuned'] = tuned['best_parameter_set']
-    probe_val: Dict[str, float] = {}
-    for name, pset in candidates.items():
-        res = train_stacked(train_x, train_y, val_x, val_y, pset,
-                            config.replace(epochs=n_probe), log_every=0,
-                            params=params, device=device)
-        v = float(np.nanmin(np.asarray(res['val_loss'])))
-        probe_val[name] = v if np.isfinite(v) else float('inf')
-    winner = min(probe_val, key=probe_val.get)
-    info(f"preset='best' [stacked {hiddens}]: probe {n_probe} epochs -> "
-         + ', '.join(f'{k} {v:.6g}' for k, v in probe_val.items())
-         + f'; committing to {winner}.')
-    result = train_stacked(train_x, train_y, val_x, val_y,
-                           candidates[winner], config, log_every=log_every,
-                           params=params, device=device)
-    result['preset_choice'] = winner
-    result['probe_val'] = probe_val
+
+    def run(name, epochs, log_every):
+        return train_stacked(train_x, train_y, val_x, val_y,
+                             candidates[name], config.replace(epochs=epochs),
+                             log_every=log_every, hiddens=hiddens,
+                             params=params, device=device)
+
+    result = _probe_and_commit(
+        f' [stacked {hiddens}]', candidates, n_probe,
+        lambda name: run(name, n_probe, 0),
+        lambda name: run(name, config.epochs, log_every))
     result['candidate_rho'] = {name: dict(pset.rho)
                                for name, pset in candidates.items()}
     return result
@@ -704,7 +532,7 @@ def train_scenarios(xs, ys, vxs, vys,
     device = resolve_device(device)
     if isinstance(parameter_set, dict):
         parameter_set = ParameterSet.from_dict(parameter_set)
-    xs, ys, vxs, vys = (_as_tensor(a, device) for a in (xs, ys, vxs, vys))
+    xs, ys, vxs, vys = (as_tensor(a, device) for a in (xs, ys, vxs, vys))
     n_scen = xs.shape[0]
     if params is None:
         params = scenario_inits(config.seed, n_scen, xs.shape[3],

@@ -92,6 +92,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from admm_lstm_torch.core import loop
 from admm_lstm_torch.core.consensus import LOCAL, Consensus, time_block
 from admm_lstm_torch.core.residuals import (admm_residuals_im, balanced_rho,
                                             dual_residuals)
@@ -723,24 +724,13 @@ def run_epochs(state: ADMMState, num_epochs: int, x_im: torch.Tensor,
                y_im: torch.Tensor, xall_im: torch.Tensor, vy_im: torch.Tensor,
                rules: StepRules, with_residuals: bool = False, best=None
                ) -> Tuple[ADMMState, Dict[str, torch.Tensor]]:
-    """`num_epochs` epochs of `epoch_step`; returns the state and each
-    metric's (num_epochs,) trajectory, on the device.  `best`, a dict
-    {'val': 0-d tensor, 'params': LSTMParams}, is the best-validation
-    carry, updated in place on the device after every epoch."""
-    hist = []
-    for _ in range(num_epochs):
-        state, metrics = epoch_step(state, x_im, y_im, xall_im, vy_im, rules,
-                                    with_residuals=with_residuals)
-        hist.append(metrics)
-        if best is not None:
-            # NaN-safe on the device: NaN < best is False.
-            better = metrics['val_loss'] < best['val']
-            best['val'] = torch.where(better, metrics['val_loss'],
-                                      best['val'])
-            best['params'] = LSTMParams(*(
-                torch.where(better, new, old)
-                for new, old in zip(state.params, best['params'])))
-    return state, {k: torch.stack([m[k] for m in hist]) for k in hist[0]}
+    """`num_epochs` epochs of `epoch_step` (core/loop.run_epochs); returns
+    the state and each metric's (num_epochs,) trajectory, on the device.
+    `best` is the best-validation carry, updated in place."""
+    return loop.run_epochs(
+        state, num_epochs,
+        lambda st: epoch_step(st, x_im, y_im, xall_im, vy_im, rules,
+                              with_residuals=with_residuals), best)
 
 
 def make_admm_step(config: ADMMConfig):

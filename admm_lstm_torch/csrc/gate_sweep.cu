@@ -128,8 +128,8 @@
 // warp (the lanes past the last whole column run as a column that stores
 // nothing); lane j holds row j's c and h in registers.  Where the
 // Gauss-Seidel kernel's step ends in a block barrier and reads h_{s-1} and
-// wh from shared memory once per k, here (times on an H100 from
-// admm_lstm_torch/floor_ab.py, which builds each alternative below):
+// wh from shared memory once per k, here (times on an H100 of each
+// alternative below: PERF.md section 6, table row 5):
 //  * Carry by shuffles: the product takes h_{s-1}[k] from the column's lane
 //    k by __shfl_sync, so the carry never leaves registers and nothing on
 //    the chain waits on shared memory or a barrier.  The product runs over
@@ -193,7 +193,7 @@
 // and behind the same walk without the math (PERF.md); more loads in
 // flight (a cp.async ring in shared memory), no prefetch, 256-thread
 // blocks and evict-first loads or stores were each slower or no faster
-// (admm_lstm_torch/jacobi_ab.py times them).
+// (PERF.md section 6, table row 2).
 // No shared memory, no barrier.
 //
 // Numerics of the Gauss-Seidel, Jacobi and on-plan floor kernels: FP32

@@ -310,7 +310,7 @@ def jacobi_plan(steps: int, hidden: int, batch: int, sms: int,
     items of all candidates fill one whole wave of the card; else V = 1,
     whose four times as many threads each run a quarter of the math
     chain, which is faster where V = 4 leaves slots of the wave empty
-    (`admm_lstm_torch/jacobi_ab.py` times both).  The grid is one whole
+    (PERF.md section 6, table row 2).  The grid is one whole
     wave, `sms * blocks_per_sm[V]` blocks, all resident together, where
     the items fill it, else one block per `threads` items.  Each thread
     takes every (grid * threads)-th item, so the threads' shares differ

@@ -54,6 +54,13 @@ class LSTMParams(NamedTuple):
     def output_size(self) -> int:
         return self.wy.shape[-1]
 
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(self)
+
+    def rebuild(self, tensors) -> 'LSTMParams':
+        """The same structure over `tensors`, in `tensors()` order."""
+        return LSTMParams(*tensors)
+
     def to(self, device) -> 'LSTMParams':
         return LSTMParams(*(w.to(device) for w in self))
 

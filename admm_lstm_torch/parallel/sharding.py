@@ -47,8 +47,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from admm_lstm_torch.api import batch_minor
 from admm_lstm_torch.core.consensus import LOCAL, Consensus, time_block
+from admm_lstm_torch.core.loop import batch_minor
 from admm_lstm_torch.core.state import ADMMState, DualSlabs, GateSlabs
 from admm_lstm_torch.core.step import (StepRules, admm_step, epoch_step,
                                        rules_for, run_epochs)

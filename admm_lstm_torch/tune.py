@@ -21,9 +21,10 @@ per candidate, so each candidate's numbers are those of a run alone, as
 the JAX package's masked loops make them.  When the card runs out of
 memory the group of candidates halves and each half trains on its own
 (`_run_in_groups`, as the JAX package's).  `search_rho_stacked` does the
-same with the stacked epoch (variants/stacked.py: the candidate axis
-through its sweep, rho_z per candidate where `z_candidates` gives it,
-layer 0's exact stage one batched `chol_solve` call a side for all S).
+same in the same body (`_search`) with the stacked epoch
+(variants/stacked.py: the candidate axis through its sweep, rho_z per
+candidate where `z_candidates` gives it, layer 0's exact stage one
+batched `chol_solve` call a side for all S).
 Under a profiler `search_rho` and `search_rho_stacked` are each a
 `search` span (utils/observe.span) around its `init` and each group's
 `group`, which holds the group's epochs and a `loss` for its final
@@ -38,14 +39,15 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from admm_lstm_torch.api import _as_tensor, batch_minor
 from admm_lstm_torch.core.init import init_admm_state
+from admm_lstm_torch.core.loop import batch_minor
 from admm_lstm_torch.core.state import (broadcast_state,
                                         penalties_from_vectors)
 from admm_lstm_torch.core.step import admm_step_im, rules_for
 from admm_lstm_torch.models.lstm import init_lstm_params, train_val_mse_im
 from admm_lstm_torch.utils.config import RHO_KEYS, ADMMConfig, ParameterSet
-from admm_lstm_torch.utils.device import matmul_precision, resolve_device
+from admm_lstm_torch.utils.device import (as_tensor, matmul_precision,
+                                          resolve_device)
 from admm_lstm_torch.utils.logging import info, warning
 from admm_lstm_torch.utils.observe import span
 
@@ -84,6 +86,30 @@ def search_rho(train_x, train_y, val_x, val_y, base: ParameterSet,
     'best_val_loss' and 'best_parameter_set' (the winning rho with the
     base beta).
     """
+    if params is None:
+        params = init_lstm_params(torch.Generator().manual_seed(config.seed),
+                                  np.shape(train_x)[2], config.hidden_size,
+                                  np.shape(train_y)[1])
+    return _search('search_rho', (train_x, train_y, val_x, val_y), base,
+                   config, candidates, epochs, device, params,
+                   init_admm_state,
+                   lambda state, lo, hi, rho: broadcast_state(state, hi - lo,
+                                                              rho),
+                   admm_step_im, train_val_mse_im)
+
+
+def _search(name, data, base, config, candidates, epochs, device, params,
+            init_state, broadcast, step, loss) -> Dict[str, object]:
+    """The search of both models: every candidate trains `epochs` epochs
+    from the same initial state, all of them as one batched program on
+    the candidate axis (`_run_in_groups`), then ranked (`_ranked`).
+
+    The model supplies the initial weights `params`; init_state(params,
+    train_x, base, config) -> the state every candidate starts from;
+    broadcast(state, lo, hi, rho) -> that state for candidates lo..hi-1
+    with their (hi - lo,) penalties `rho`; step(state, x_im, y_im, rules)
+    -> the next epoch's state; loss(params, xall_im, y_im, vy_im) -> the
+    (train, val) losses."""
     if isinstance(base, dict):
         base = ParameterSet.from_dict(base)
     rules = rules_for(config)
@@ -93,17 +119,9 @@ def search_rho(train_x, train_y, val_x, val_y, base: ParameterSet,
     candidates = np.asarray(candidates, np.float32)
     with matmul_precision(config.matmul_precision), span('search'):
         with span('init'):
-            train_x, train_y = (_as_tensor(train_x, device),
-                                _as_tensor(train_y, device))
-            val_x, val_y = (_as_tensor(val_x, device),
-                            _as_tensor(val_y, device))
-            if params is None:
-                gen = torch.Generator().manual_seed(config.seed)
-                params = init_lstm_params(gen, train_x.shape[2],
-                                          config.hidden_size,
-                                          train_y.shape[1], device=device)
-            base_state = init_admm_state(params.to(device), train_x, base,
-                                         config)
+            train_x, train_y, val_x, val_y = (as_tensor(a, device)
+                                              for a in data)
+            base_state = init_state(params.to(device), train_x, base, config)
             x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x,
                                                      val_y)
 
@@ -111,27 +129,20 @@ def search_rho(train_x, train_y, val_x, val_y, base: ParameterSet,
             """Candidates lo..hi-1 from base_state (which the step never
             writes), as one batched program."""
             with span('group'):
-                state = broadcast_state(
-                    base_state, hi - lo,
-                    penalties_from_vectors(candidates[lo:hi], device=device))
+                state = broadcast(base_state, lo, hi, penalties_from_vectors(
+                    candidates[lo:hi], device=device))
                 for _ in range(epochs):
-                    state = admm_step_im(state, x_im, y_im, rules)
+                    state = step(state, x_im, y_im, rules)
                 with span('loss'):
-                    return torch.stack(train_val_mse_im(
-                        state.params, xall_im, y_im, vy_im), dim=-1)
+                    return torch.stack(loss(state.params, xall_im, y_im,
+                                            vy_im), dim=-1)
 
-        losses = _train_all('search_rho', candidates, epochs, train_group)
+        n = len(candidates)
+        info(f'{name}: {n} candidates x {epochs} epochs in one batched '
+             f'program')
+        losses = _run_in_groups(name, candidates, train_group, 0,
+                                n).cpu().numpy()
     return _ranked(candidates, losses, base)
-
-
-def _train_all(name, candidates, epochs, train_group):
-    """The (N, 2) train and validation losses of every candidate on the
-    host, all N as one batched program through `_run_in_groups`.
-    `train_group(lo, hi)` trains candidates lo..hi-1 and returns their
-    (hi - lo, 2) losses."""
-    n = len(candidates)
-    info(f'{name}: {n} candidates x {epochs} epochs in one batched program')
-    return _run_in_groups(name, candidates, train_group, 0, n).cpu().numpy()
 
 
 def _run_in_groups(name, candidates, train_group, lo, hi):
@@ -193,53 +204,25 @@ def search_rho_stacked(train_x, train_y, val_x, val_y, base: ParameterSet,
     params: the initial StackedParams (default: `init_stacked` from
     `torch.Generator().manual_seed(config.seed)`).
     """
-    from admm_lstm_torch.variants.stacked import (broadcast_stacked_state,
-                                                  init_stacked,
-                                                  init_stacked_state,
-                                                  stacked_admm_step_im,
-                                                  stacked_train_val_mse_im)
-    if isinstance(base, dict):
-        base = ParameterSet.from_dict(base)
-    rules = rules_for(config)
-    device = resolve_device(device)
-    if candidates is None:
-        candidates = candidate_grid(base)
-    candidates = np.asarray(candidates, np.float32)
+    from admm_lstm_torch.variants import stacked
     if z_candidates is not None:
         z_candidates = np.asarray(z_candidates, np.float32)
-    with matmul_precision(config.matmul_precision), span('search'):
-        with span('init'):
-            train_x, train_y = (_as_tensor(train_x, device),
-                                _as_tensor(train_y, device))
-            val_x, val_y = (_as_tensor(val_x, device),
-                            _as_tensor(val_y, device))
-            if params is None:
-                params = init_stacked(
-                    torch.Generator().manual_seed(config.seed),
-                    train_x.shape[2], tuple(hiddens), train_y.shape[1],
-                    device=device)
-            base_state = init_stacked_state(params.to(device), train_x,
-                                            base, config)
-            x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y, val_x,
-                                                     val_y)
 
-        def train_group(lo, hi):
-            """Candidates lo..hi-1 from base_state (which the step never
-            writes), as one batched program."""
-            with span('group'):
-                state = broadcast_stacked_state(
-                    base_state, hi - lo,
-                    penalties_from_vectors(candidates[lo:hi], device=device),
-                    None if z_candidates is None else z_candidates[lo:hi])
-                for _ in range(epochs):
-                    state = stacked_admm_step_im(state, x_im, y_im, rules)
-                with span('loss'):
-                    return torch.stack(stacked_train_val_mse_im(
-                        state.params, xall_im, y_im, vy_im), dim=-1)
+    if params is None:
+        params = stacked.init_stacked(
+            torch.Generator().manual_seed(config.seed), np.shape(train_x)[2],
+            tuple(hiddens), np.shape(train_y)[1])
 
-        losses = _train_all('search_rho_stacked', candidates, epochs,
-                            train_group)
-    out = _ranked(candidates, losses, base)
+    def broadcast(state, lo, hi, rho):
+        return stacked.broadcast_stacked_state(
+            state, hi - lo, rho,
+            None if z_candidates is None else z_candidates[lo:hi])
+
+    out = _search('search_rho_stacked', (train_x, train_y, val_x, val_y),
+                  base, config, candidates, epochs, device, params,
+                  stacked.init_stacked_state, broadcast,
+                  stacked.stacked_admm_step_im,
+                  stacked.stacked_train_val_mse_im)
     if z_candidates is not None:
         out['best_z'] = float(z_candidates[out['order'][0]])
         ps = out['best_parameter_set']

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -23,6 +24,13 @@ def resolve_device(device='cuda') -> torch.device:
             'no CUDA device was found; pass device="cpu" (the CLI: --cpu) '
             'to run on the CPU')
     return dev
+
+
+def as_tensor(a, device) -> torch.Tensor:
+    """`a` (numpy, a list or a tensor) as a float32 tensor on `device`."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.asarray(a, np.float32))
+    return a.to(device=device, dtype=torch.float32)
 
 
 def set_matmul_precision(matmul_precision: str) -> None:

@@ -36,10 +36,10 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from admm_lstm_torch.api import _as_tensor
 from admm_lstm_torch.models.lstm import LSTMParams, mse_loss
 from admm_lstm_torch.solvers.prox_linear import doubling_search
-from admm_lstm_torch.utils.device import matmul_precision, resolve_device
+from admm_lstm_torch.utils.device import (as_tensor, matmul_precision,
+                                          resolve_device)
 from admm_lstm_torch.utils.logging import info
 from admm_lstm_torch.utils.timer import Timer
 
@@ -439,8 +439,8 @@ def admm_l_demo(num_epochs: int, n_hiddens: int, train_x, train_y,
 
 def _admm_l_demo(num_epochs, n_hiddens, train_x, train_y, test_x, test_y,
                  seed, save, rules, log_every, device):
-    train_x, train_y = _as_tensor(train_x, device), _as_tensor(train_y, device)
-    test_x, test_y = _as_tensor(test_x, device), _as_tensor(test_y, device)
+    train_x, train_y = as_tensor(train_x, device), as_tensor(train_y, device)
+    test_x, test_y = as_tensor(test_x, device), as_tensor(test_y, device)
     x_tm = train_x.transpose(0, 1).contiguous()
     wx, wh, wy = init_weights_like_reference(
         seed, train_x.shape[2], n_hiddens, train_y.shape[1], device=device)

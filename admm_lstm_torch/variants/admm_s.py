@@ -34,8 +34,8 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
-from admm_lstm_torch.api import _as_tensor
-from admm_lstm_torch.utils.device import matmul_precision, resolve_device
+from admm_lstm_torch.utils.device import (as_tensor, matmul_precision,
+                                          resolve_device)
 from admm_lstm_torch.utils.logging import info
 from admm_lstm_torch.utils.timer import Timer
 
@@ -450,8 +450,8 @@ def admm_s_demo(num_epochs: int, n_hiddens: int, train_x, train_y,
 
 def _admm_s_demo(num_epochs, n_hiddens, train_x, train_y, test_x, test_y,
                  seed, rules, log_every, results_path, device):
-    train_x, train_y = _as_tensor(train_x, device), _as_tensor(train_y, device)
-    test_x, test_y = _as_tensor(test_x, device), _as_tensor(test_y, device)
+    train_x, train_y = as_tensor(train_x, device), as_tensor(train_y, device)
+    test_x, test_y = as_tensor(test_x, device), as_tensor(test_y, device)
     x_tm = train_x.transpose(0, 1).contiguous()
     test_x_tm = test_x.transpose(0, 1).contiguous()
     state = init_admm_s_state(*init_weights_like_reference(

@@ -30,9 +30,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from admm_lstm_torch.api import _as_tensor
 from admm_lstm_torch.models.lstm import LSTMParams, init_lstm_params, mse_loss
-from admm_lstm_torch.utils.device import matmul_precision, resolve_device
+from admm_lstm_torch.utils.device import (as_tensor, matmul_precision,
+                                          resolve_device)
 from admm_lstm_torch.utils.logging import info
 
 DEFAULT_LRS = {'sgd': 1.5, 'adam': 0.2, 'adagrad': 1.0}
@@ -164,8 +164,8 @@ def make_grad_epoch(method: str, params: LSTMParams, train_x, train_y,
 def _train_grad_based(method, train_x, train_y, val_x, val_y, epochs, params,
                       hidden_size, lr, seed, record_gradients, log_every,
                       device):
-    train_x, train_y = _as_tensor(train_x, device), _as_tensor(train_y, device)
-    val_x, val_y = _as_tensor(val_x, device), _as_tensor(val_y, device)
+    train_x, train_y = as_tensor(train_x, device), as_tensor(train_y, device)
+    val_x, val_y = as_tensor(val_x, device), as_tensor(val_y, device)
     if params is None:
         params = init_lstm_params(torch.Generator().manual_seed(seed),
                                   train_x.shape[2], hidden_size,

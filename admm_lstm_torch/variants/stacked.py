@@ -63,7 +63,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from admm_lstm_torch.api import _as_tensor
+from admm_lstm_torch.core.loop import batch_minor, run_chunked
 from admm_lstm_torch.core.state import (DualSlabs, GateSlabs, Penalties,
                                         Ridges, penalties_from, ridges_from)
 from admm_lstm_torch.core.step import (StepRules, _from_wide, _per_candidate,
@@ -81,10 +81,9 @@ from admm_lstm_torch.solvers import closed_form as cf
 from admm_lstm_torch.solvers.normal_eq import gauss_newton_ridge_update_wide
 from admm_lstm_torch.solvers.prox_linear import h_final_update
 from admm_lstm_torch.utils.config import ADMMConfig, ParameterSet
-from admm_lstm_torch.utils.device import matmul_precision, resolve_device
-from admm_lstm_torch.utils.logging import info
+from admm_lstm_torch.utils.device import (as_tensor, matmul_precision,
+                                          resolve_device)
 from admm_lstm_torch.utils.observe import span
-from admm_lstm_torch.utils.timer import Timer
 
 
 class StackedParams(NamedTuple):
@@ -777,43 +776,6 @@ def make_stacked_step(config: ADMMConfig):
     return step
 
 
-def make_stacked_multi_epoch_fn(config: ADMMConfig, num_epochs: int):
-    """`num_epochs` stacked epochs with the best-validation iterate carried
-    on the device (torch.where, no host sync; JAX stacked.py:704-744):
-    (state, best_val, best_params, x, y, vx, vy) ->
-    (state, best_val, best_params, best_epoch, train_traj, val_traj).
-    best_epoch is 0 unless a new best fell inside these epochs."""
-    rules = rules_for(config)
-
-    def run(state, best_val, best_params, x, y, vx, vy):
-        x_im = x.permute(1, 2, 0).float().contiguous()
-        y_im = y.T.float().contiguous()
-        xall_im = torch.cat([x_im, vx.permute(1, 2, 0).float()],
-                            dim=-1).contiguous()
-        vy_im = vy.T.float().contiguous()
-        best_epoch = torch.zeros((), dtype=torch.int64, device=x.device)
-        train_traj, val_traj = [], []
-        for _ in range(num_epochs):
-            state = stacked_admm_step_im(state, x_im, y_im, rules)
-            with span('loss'):
-                tr, vl = stacked_train_val_mse_im(state.params, xall_im,
-                                                  y_im, vy_im)
-            better = vl < best_val                # NaN < best is False
-            best_val = torch.where(better, vl, best_val)
-            best_params = best_params.rebuild(
-                torch.where(better, a, b) for a, b in
-                zip(state.params.tensors(), best_params.tensors()))
-            best_epoch = torch.where(better,
-                                     torch.full_like(best_epoch, state.epoch),
-                                     best_epoch)
-            train_traj.append(tr)
-            val_traj.append(vl)
-        return (state, best_val, best_params, best_epoch,
-                torch.stack(train_traj), torch.stack(val_traj))
-
-    return run
-
-
 def train_stacked(train_x, train_y, val_x, val_y,
                   parameter_set: ParameterSet, config: ADMMConfig,
                   hidden2: int = 0, log_every: int = 10,
@@ -832,83 +794,54 @@ def train_stacked(train_x, train_y, val_x, val_y,
     the CPU only when asked).
 
     track_best returns the best-validation iterate as 'params' (and the
-    last as 'final_params'), carried on the device.  Returns the dict of
-    `api.train`: 'name', 'train_loss', 'val_loss', 'params',
-    'final_params', 'best_epoch', 'state', 'seconds'.
+    last as 'final_params'), carried on the device.  The epochs run
+    through core/loop.run_chunked, as `api.train`'s do, and under a
+    profiler the run is a `train` span around its `init`, its epochs and
+    `collect`.  Returns the dict of `api.train`: 'name', 'train_loss',
+    'val_loss', 'residuals' (empty), 'params', 'final_params',
+    'best_epoch', 'state', 'seconds'.
     """
-    rules_for(config)                # raises for the legacy variants
+    rules = rules_for(config)        # raises for the legacy variants
     device = resolve_device(device)
     if isinstance(parameter_set, dict):
         parameter_set = ParameterSet.from_dict(parameter_set)
-    with matmul_precision(config.matmul_precision):
-        return _train_stacked(train_x, train_y, val_x, val_y, parameter_set,
-                              config, hidden2, log_every, hiddens,
-                              track_best, params, device)
+    with matmul_precision(config.matmul_precision), span('train'):
+        with span('init'):
+            train_x, train_y = (as_tensor(train_x, device),
+                                as_tensor(train_y, device))
+            val_x, val_y = as_tensor(val_x, device), as_tensor(val_y, device)
+            if hiddens is None:
+                hiddens = ((config.hidden_size, hidden2 or config.hidden_size)
+                           if params is None else
+                           tuple(lp.hidden_size for lp in params.layers))
+            hiddens = tuple(int(h) for h in hiddens)
+            if params is None:
+                params = init_stacked(
+                    torch.Generator().manual_seed(config.seed),
+                    train_x.shape[2], hiddens, train_y.shape[1],
+                    device=device)
+            elif hiddens != tuple(lp.hidden_size for lp in params.layers):
+                raise ValueError(f'hiddens {hiddens} do not match the '
+                                 f'widths of params')
+            state = init_stacked_state(params, train_x, parameter_set,
+                                       config)
+            initial = (float(stacked_mse_loss(state.params, train_x,
+                                              train_y)),
+                       float(stacked_mse_loss(state.params, val_x, val_y)))
+            x_im, y_im, xall_im, vy_im = batch_minor(train_x, train_y,
+                                                     val_x, val_y)
 
+        def epoch(st):
+            st = stacked_admm_step_im(st, x_im, y_im, rules)
+            with span('loss'):
+                tr, vl = stacked_train_val_mse_im(st.params, xall_im, y_im,
+                                                  vy_im)
+            return st, {'train_loss': tr, 'val_loss': vl}
 
-def _train_stacked(train_x, train_y, val_x, val_y, parameter_set, config,
-                   hidden2, log_every, hiddens, track_best, params, device):
-    train_x, train_y = _as_tensor(train_x, device), _as_tensor(train_y, device)
-    val_x, val_y = _as_tensor(val_x, device), _as_tensor(val_y, device)
-    if hiddens is None:
-        hiddens = ((config.hidden_size, hidden2 or config.hidden_size)
-                   if params is None else
-                   tuple(lp.hidden_size for lp in params.layers))
-    hiddens = tuple(int(h) for h in hiddens)
-    if params is None:
-        params = init_stacked(torch.Generator().manual_seed(config.seed),
-                              train_x.shape[2], hiddens, train_y.shape[1],
-                              device=device)
-    elif hiddens != tuple(lp.hidden_size for lp in params.layers):
-        raise ValueError(f'hiddens {hiddens} do not match the widths of '
-                         f'params')
-    state = init_stacked_state(params, train_x, parameter_set, config)
-
-    train_losses = [float(stacked_mse_loss(state.params, train_x, train_y))]
-    val_losses = [float(stacked_mse_loss(state.params, val_x, val_y))]
-    depth = 'x'.join(str(h) for h in hiddens)
-    info(f'{len(hiddens)}-layer ADMM ({depth}) on {device}. Initial loss: '
-         f'train {train_losses[0]:.8f} | val {val_losses[0]:.8f}')
-
-    best_val = torch.tensor(val_losses[0], dtype=torch.float32, device=device)
-    best_params = state.params.clone()
-    best_epoch = 0
-    timer = Timer()
-    timer.start()
-    epoch = 0
-    tr_chunks, vl_chunks = [], []
-    while epoch < config.epochs:
-        chunk = config.epochs - epoch
-        if log_every:
-            chunk = min(chunk, log_every - epoch % log_every)
-        run = make_stacked_multi_epoch_fn(config, chunk)
-        state, best_val, best_params, be, tr, vl = run(
-            state, best_val, best_params, train_x, train_y, val_x, val_y)
-        tr_chunks.append(tr)
-        vl_chunks.append(vl)
-        epoch += chunk
-        if int(be) > 0:      # a new best fell inside this chunk
-            best_epoch = int(be)
-        if log_every and epoch % log_every == 0:
-            timer.pause()
-            info(f'Epoch {epoch}: train {float(tr[-1]):.8f} | '
-                 f'val {float(vl[-1]):.8f}')
-            timer.resume()
-    if device.type == 'cuda':
-        torch.cuda.synchronize(device)
-    timer.pause()
-    if tr_chunks:
-        train_losses += list(map(float, torch.cat(tr_chunks).cpu().numpy()))
-        val_losses += list(map(float, torch.cat(vl_chunks).cpu().numpy()))
-    best_epoch = best_epoch if float(best_val) < val_losses[0] else 0
-    if track_best and best_epoch != config.epochs:
-        info(f'Best validation {float(best_val):.8f} at epoch {best_epoch} '
-             f'(final epoch: {val_losses[-1]:.8f}); returning the best '
-             f'iterate.')
-    return {'name': 'Stacked ADMM-LSTM', 'train_loss': train_losses,
-            'val_loss': val_losses,
-            'params': best_params if track_best else state.params,
-            'final_params': state.params,
-            'best_epoch': best_epoch if track_best else config.epochs,
-            'state': state,
-            'seconds': timer.get_elapsed_time()}
+        result = {'name': 'Stacked ADMM-LSTM'}
+        depth = 'x'.join(str(h) for h in hiddens)
+        result.update(run_chunked(
+            f'{len(hiddens)}-layer ADMM ({depth}) on {device}', state, epoch,
+            initial, config.epochs, log_every=log_every,
+            track_best=track_best))
+    return result

@@ -1,7 +1,7 @@
 """The port's spans (utils/observe.span): one shared no-op while no
 profiler records; under a CPU `torch.profiler` session the names, counts
-and nesting of the spans of a training run and of a rho search; and the
-same numbers traced and untraced."""
+and nesting of the spans of both models' training runs and rho
+searches; and the same numbers traced and untraced."""
 
 import contextlib
 import os
@@ -125,31 +125,6 @@ def test_torch_train_spans(synthetic, name):
             assert _parent(spans, s) == 'train', s
 
 
-def test_torch_search_spans(synthetic):
-    """A 2-candidate search: one `search`, `init`, `group` and `loss`, and
-    `epoch` once per batched epoch inside the group."""
-    tx, ty, vx, vy, w = synthetic
-    base = parameter_set('GoogleStock')
-    cands = tune.candidate_grid(base, multipliers=(0.5, 2.0), keys=('y',))
-    epochs = 2
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        tune.search_rho(tx, ty, vx, vy, base,
-                        config=ADMMConfig(hidden_size=HIDDEN),
-                        candidates=cands, epochs=epochs,
-                        params=params_from_dict(w), device='cpu')
-    spans = _spans(prof)
-    count = Counter(s[0] for s in spans)
-    assert {k: count[k] for k in ('search', 'init', 'group', 'epoch',
-                                  'loss', 'train')} == {
-        'search': 1, 'init': 1, 'group': 1, 'epoch': epochs, 'loss': 1,
-        'train': 0}
-    for s in spans:
-        if s[0] in ('epoch', 'loss'):
-            assert _parent(spans, s) == 'group', s
-        elif s[0] in ('init', 'group'):
-            assert _parent(spans, s) == 'search', s
-
-
 @pytest.mark.parametrize('name', sorted(CONFIGS))
 def test_torch_traced_and_untraced_runs_are_bit_equal(synthetic, name):
     plain, _ = _train(synthetic, CONFIGS[name], traced=False)
@@ -203,31 +178,68 @@ def test_torch_stacked_epoch_spans(synthetic):
             assert _parent(spans, s) == 'sweep.final', s
 
 
-def test_torch_stacked_search_spans(synthetic):
-    """A 2-candidate stacked search: one `search` around `init` and one
-    `group`, which holds an `epoch` per batched epoch and the `loss`."""
-    tx, ty, vx, vy, _ = synthetic
+def _search(model, data):
+    """A 2-candidate search of `model` ('lstm' or 'stacked') over 2
+    epochs."""
+    tx, ty, vx, vy, w = data
+    base = parameter_set('GoogleStock' if model == 'lstm' else 'Stacked')
+    kw = dict(candidates=tune.candidate_grid(base, multipliers=(0.5, 2.0),
+                                             keys=('y',)),
+              epochs=2, device='cpu')
+    if model == 'lstm':
+        return tune.search_rho(tx, ty, vx, vy, base,
+                               config=ADMMConfig(hidden_size=HIDDEN),
+                               params=params_from_dict(w), **kw)
     from admm_lstm_torch.variants.stacked import init_stacked
-    base = parameter_set('Stacked')
-    cands = tune.candidate_grid(base, multipliers=(0.5, 2.0), keys=('y',))
-    epochs = 2
+    return tune.search_rho_stacked(
+        tx, ty, vx, vy, base, STACKED[:2], config=ADMMConfig(),
+        params=init_stacked(torch.Generator().manual_seed(2), 1,
+                            STACKED[:2], 1), **kw)
+
+
+@pytest.mark.parametrize('model', ['lstm', 'stacked'])
+def test_torch_search_spans(synthetic, model):
+    """A 2-candidate search, either model: one `search` around `init` and
+    one `group`, which holds an `epoch` per batched epoch and the `loss`;
+    the epoch's stages inside its `epoch`."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        tune.search_rho_stacked(
-            tx, ty, vx, vy, base, STACKED[:2], config=ADMMConfig(),
-            candidates=cands, epochs=epochs,
-            params=init_stacked(torch.Generator().manual_seed(2), 1,
-                                STACKED[:2], 1), device='cpu')
+        _search(model, synthetic)
     spans = _spans(prof)
     count = Counter(s[0] for s in spans)
+    epochs = 2
     assert {k: count[k] for k in ('search', 'init', 'group', 'epoch',
-                                  'loss', 'weights.upper')} == {
+                                  'loss', 'train', 'weights.upper')} == {
         'search': 1, 'init': 1, 'group': 1, 'epoch': epochs, 'loss': 1,
-        'weights.upper': epochs}
+        'train': 0, 'weights.upper': epochs if model == 'stacked' else 0}
     for s in spans:
         if s[0] in ('epoch', 'loss'):
             assert _parent(spans, s) == 'group', s
         elif s[0] in ('init', 'group'):
             assert _parent(spans, s) == 'search', s
+        elif s[0] in STACKED_STAGES:
+            assert _parent(spans, s) == 'epoch', s
+
+
+def test_torch_stacked_train_spans(synthetic):
+    """A 3-epoch `train_stacked` run, as `api.train`'s: one `train`
+    around one `init` and one `collect`, and per epoch one `epoch` and
+    one `loss`, each upper layer's `weights.upper` inside the epoch."""
+    from admm_lstm_torch.variants.stacked import init_stacked, train_stacked
+    tx, ty, vx, vy, _ = synthetic
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        train_stacked(tx, ty, vx, vy, parameter_set('Stacked'),
+                      ADMMConfig(epochs=EPOCHS), log_every=0,
+                      params=init_stacked(torch.Generator().manual_seed(2),
+                                          1, STACKED, 1), device='cpu')
+    spans = _spans(prof)
+    count = Counter(s[0] for s in spans)
+    assert {k: count[k] for k in ('train', 'init', 'collect', 'epoch',
+                                  'loss', 'weights.upper')} == {
+        'train': 1, 'init': 1, 'collect': 1, 'epoch': EPOCHS,
+        'loss': EPOCHS, 'weights.upper': EPOCHS * (len(STACKED) - 1)}
+    for s in spans:
+        if s[0] in ('epoch', 'init', 'collect', 'loss'):
+            assert _parent(spans, s) == 'train', s
         elif s[0] in STACKED_STAGES:
             assert _parent(spans, s) == 'epoch', s
 

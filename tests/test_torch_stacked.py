@@ -317,6 +317,41 @@ def test_torch_train_stacked_cadence_invariant(data):
     assert a['val_loss'][best] == min(a['val_loss'])
 
 
+@pytest.mark.parametrize('case,want', [('epoch0', 0), ('interior', 3),
+                                       ('nonfinite', 3)])
+def test_torch_train_stacked_returns_its_argmin_iterate(data, case, want):
+    """'best_epoch' is the argmin of the run's own 'val_loss' (the
+    nan-argmin where the run diverges) and 'params' are that epoch's
+    weights, bit-equal to a run of 'best_epoch' epochs alone (the initial
+    weights at epoch 0).  Against negated validation targets training
+    only moves away (best at epoch 0); at rho_y x 1000 the run jumps at
+    epoch 4 (interior) and then diverges (nonfinite)."""
+    from admm_lstm_torch.utils.config import ParameterSet
+    tx, ty, vx, vy = data
+    _, tp = both_params(DEPTHS[2])
+    base = parameter_set('Stacked')
+    rho = dict(base.rho)
+    if case == 'epoch0':
+        vy = -vy
+    else:
+        rho['y'] *= 1000
+    pset = ParameterSet(rho=rho, beta=dict(base.beta))
+
+    def run(epochs, track_best):
+        return ts.train_stacked(tx, ty, vx, vy, pset,
+                                ADMMConfig(epochs=epochs), log_every=0,
+                                track_best=track_best, params=tp,
+                                device='cpu')
+
+    res = run({'epoch0': 6, 'interior': 4, 'nonfinite': 8}[case], True)
+    assert res['best_epoch'] == want
+    assert want == int(np.nanargmin(res['val_loss']))
+    assert np.isfinite(res['val_loss']).all() == (case != 'nonfinite')
+    alone = run(want, False)['final_params']
+    for a, b in zip(res['params'].tensors(), alone.tensors()):
+        assert torch.equal(a, b)
+
+
 def test_torch_stacked_admm_converges(data):
     """As tests/test_stacked.py::test_stacked_admm_converges, 60 epochs."""
     tx, ty = (torch.from_numpy(a) for a in data[:2])
@@ -428,8 +463,9 @@ def test_torch_cli_layers_run(tmp_path):
                  '2', '--hidden', '8', '--no-plot'], tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert '2-layer ADMM (8x8)' in proc.stdout
-    train = [float(v) for v in re.findall(r'train ([0-9.]+) \|',
-                                          proc.stdout)]
+    # The initial loss line, then the run loop's line after each epoch.
+    train = [float(v) for v in re.findall(
+        r'(?:train|Training:) ([0-9.]+) \|', proc.stdout)]
     assert len(train) == 3 and train[2] < train[0], proc.stdout
 
 
