@@ -31,8 +31,9 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 # Sources loaded together, built together: every fast epoch's (the
 # weight stages' theta tests and the sweeps) and every stacked epoch's
-# (layer 0's Cholesky solves and the stacked sweep).
-GROUPS = (('gate_sweep', 'theta_tests'), ('cholesky', 'stacked_sweep'))
+# (layer 0's Gram kernel and Cholesky solves, and the stacked sweep).
+GROUPS = (('gate_sweep', 'theta_tests'),
+          ('cholesky', 'stacked_sweep', 'exact_gram'))
 
 # Loaded libraries, and what each build printed.
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -9,9 +9,13 @@ kernel (kernels/cholesky.chol_solve), wider systems to the blocked solve
 (solvers/blocked_chol.py), whose diagonal blocks use
 kernels/cholesky.chol_inverse.
 
-The Gram builders and their strategy thresholds are the JAX package's,
-kept for parity: the thresholds are TPU measurements and have not been
-decided again on the H100.  `matmul_precision` mirrors the JAX
+On CUDA tensors at 'highest' with a design of at most 80 columns, the
+Gram stack and first-order term come from one CUDA kernel
+(kernels/exact_gram.py), which starts from the pre-activations and writes
+nothing in between.  The Gram routes below then serve 'default', the
+CPU and wider designs.  They and their strategy thresholds are the JAX
+package's, kept for parity: the thresholds are TPU measurements and have
+not been decided again on the H100.  `matmul_precision` mirrors the JAX
 `precision` argument: at 'default' the JAX package rounds the operands of
 the wide, blocktri and pair Grams to bf16 and accumulates in f32
 (`preferred_element_type`).  Here the operands are rounded to bf16 and
@@ -41,6 +45,8 @@ import torch
 from admm_lstm_torch.core.consensus import LOCAL, Consensus
 from admm_lstm_torch.kernels.cholesky import (MAX_DIM, chol_solve,
                                               chol_solve_plain)
+from admm_lstm_torch.kernels.exact_gram import (exact_gram, exact_gram_plain,
+                                                use_gram_kernel)
 from admm_lstm_torch.solvers.blocked_chol import blocked_spd_solve
 
 # The fused three-operand einsum while its (4H, D, T*B)-sized
@@ -180,6 +186,12 @@ def _gram_pair(s2c, m2c, dim, n_cols, n_rows, round_):
     return packed[..., torch.from_numpy(pair_of).to(m2c.device)]
 
 
+def _batch_minor(t: torch.Tensor) -> torch.Tensor:
+    """t with b (the last axis) contiguous, as the Gram kernel reads it:
+    a copy only for a slab in another memory order."""
+    return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
+
+
 def _spd_solve(lhs: torch.Tensor, rhs: torch.Tensor,
                use_pallas_chol) -> torch.Tensor:
     """The exact stage's batched SPD solve of (..., D, D) systems: every
@@ -236,26 +248,19 @@ def gauss_newton_ridge_update_wide(m_inputs: torch.Tensor, pre: torch.Tensor,
     rho_cols = torch.repeat_interleave(rho_g, hidden, dim=-1)    # ([S,] 4H)
     beta_cols = torch.repeat_interleave(beta_g, hidden, dim=-1)
     dim = m_inputs.shape[-2]
-    tanh_b = tanh_cols[:, None]                            # (4H, 1)
 
-    # sigmoid(x) = (1 + tanh(x/2)) / 2: act = a + b*u, act' = c*(1 - u^2)
-    # with u = tanh(s*x) and per-column constants.  The constants are
-    # Python scalars: a tensor made on the host would be a copy that
-    # waits for the stream.
-    s_cols = torch.where(tanh_b, 1.0, 0.5).to(dtype)
-    u = torch.tanh(s_cols * pre)
-    act = torch.where(tanh_b, 0.0, 0.5).to(dtype) + s_cols * u
-    d_act = torch.where(tanh_b, 1.0, 0.25).to(dtype) * (1.0 - u * u)
-
-    resid = act - target_w
-    s2 = d_act * d_act
-    steps, n_cols, batch = pre.shape[-3:]
-    strategy = _gram_strategy(
-        n_cols if total_cols is None else total_cols, dim,
-        steps * batch * consensus.world if total_rows is None
-        else total_rows)
-    gram, bvec = consensus.all_sum_packed(*_gram_bvec(
-        s2, d_act * resid, m_inputs, matmul_precision, strategy=strategy))
+    if use_gram_kernel(pre.device.type, matmul_precision, dim):
+        gram, bvec = exact_gram(*map(_batch_minor,
+                                     (m_inputs, pre, target_w)), tanh_cols)
+    else:
+        steps, n_cols, batch = pre.shape[-3:]
+        strategy = _gram_strategy(
+            n_cols if total_cols is None else total_cols, dim,
+            steps * batch * consensus.world if total_rows is None
+            else total_rows)
+        gram, bvec = exact_gram_plain(m_inputs, pre, target_w, tanh_cols,
+                                      matmul_precision, strategy=strategy)
+    gram, bvec = consensus.all_sum_packed(gram, bvec)
     eye = torch.eye(dim, dtype=dtype, device=device)
 
     trace = torch.einsum('...kdd->...k', gram) / dim       # ([S,] 4H)

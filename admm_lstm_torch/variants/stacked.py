@@ -379,6 +379,23 @@ def init_stacked_state(params: StackedParams, x: torch.Tensor,
         beta=ridges_from(parameter_set, dtype, device), epoch=0)
 
 
+def _project_wide(m_rows: torch.Tensor, w_w: torch.Tensor,
+                  onto: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(..., T, D, B) rows times (..., D, 4H) wide weights: the
+    (..., T, 4H, B) projection with b contiguous, the layout the exact
+    stage's Gram kernel reads, so a pre-activation needs no copy.  With
+    `onto` (contiguous, of the result's shape) one batched GEMM adds the
+    projection to it in place and returns it."""
+    w_t = w_w.mT.unsqueeze(-3)                          # (..., 1, 4H, D)
+    if onto is None:
+        return torch.matmul(w_t, m_rows)
+    lead, out = onto.shape[:-2], onto.shape[-2:]
+    flat = lambda t: t.expand(lead + t.shape[-2:]).reshape((-1,)
+                                                           + t.shape[-2:])
+    onto.view((-1,) + out).baddbmm_(flat(w_t), flat(m_rows))
+    return onto
+
+
 def _layer0_weight_phase(x_im, gates: GateSlabs, duals: DualSlabs,
                          params_layer: LSTMParams, rho: Penalties,
                          beta: Ridges, rules: StepRules) -> LSTMParams:
@@ -397,8 +414,7 @@ def _layer0_weight_phase(x_im, gates: GateSlabs, duals: DualSlabs,
     h_hist = gates.h[..., :-1, :, :]                  # (T, H, B)
 
     wx_w, wh_w = _to_wide(params_layer.wx), _to_wide(params_layer.wh)
-    xproj = torch.einsum('...tdb,...dk->...tkb', x_im, wx_w)
-    hproj = torch.einsum('...tdb,...dk->...tkb', h_hist, wh_w)
+    hproj = _project_wide(h_hist, wh_w)
 
     def solve(m_inputs, pre, w_w, beta_g):
         return gauss_newton_ridge_update_wide(
@@ -406,10 +422,11 @@ def _layer0_weight_phase(x_im, gates: GateSlabs, duals: DualSlabs,
             rules.matmul_precision, use_pallas_chol=rules.use_pallas_chol)
 
     with span('weights.x'):
-        wx_new_w = solve(x_im, xproj + hproj, wx_w, beta.x)
-        xproj_new = torch.einsum('...tdb,...dk->...tkb', x_im, wx_new_w)
+        wx_new_w = solve(x_im, _project_wide(x_im, wx_w, onto=hproj.clone()),
+                         wx_w, beta.x)
     with span('weights.h'):
-        wh_new_w = solve(h_hist, xproj_new + hproj, wh_w, beta.h)
+        wh_new_w = solve(h_hist, _project_wide(x_im, wx_new_w, onto=hproj),
+                         wh_w, beta.h)
     return params_layer._replace(wx=_from_wide(wx_new_w, hidden),
                                  wh=_from_wide(wh_new_w, hidden))
 

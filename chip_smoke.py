@@ -284,6 +284,21 @@ STACKED_SWEEP_SHAPES = [(27, 10, 40, 40, 4224), (None, 10, 8, 8, 4224)]
 # slab within this share of its scale (max |x|; a dual's plus its largest
 # rho times its primal's), as tests/test_torch_gpu.py holds it.
 STACKED_SWEEP_RTOL = 1e-5
+# The exact stage's Gram kernel (S or None, T, K, D, B, shared design):
+# the stacked cell's layer-0 h side (27 candidates, K 160, D 40, each its
+# own design) and x side (D 1, one design for all), then the one-layer
+# auto() stage's h and x sides (K 40, D 10 and 1, no candidate axis).
+EXACT_GRAM_SHAPES = [(27, 10, 160, 40, 4224, False),
+                     (27, 10, 160, 1, 4224, True),
+                     (None, 10, 40, 10, 4224, False),
+                     (None, 10, 40, 1, 4224, True)]
+# Each Gram within this share of its scale (max |G_k|), each first-order
+# term of its sum of magnitudes, of the float64 sums (FP32 sums of T * B
+# products: 1.5e-6 at the stacked h side), as tests/test_torch_gpu.py
+# holds them; and of the plain version's, whose cuBLAS FP32 sums are
+# themselves 2.2e-5 from float64 there (PERF.md, section 6).
+EXACT_GRAM_RTOL = 1e-5
+EXACT_GRAM_PLAIN_RTOL = 5e-5
 FLOOR_SHAPES = [(2047, 16, 64), (127, 16, 512), (9, 10, 4224),
                 (31, 130, 512), (511, 32, 96), (511, 33, 96), (13, 5, 1000),
                 (4, 7, 37), (1, 3, 1)]
@@ -936,7 +951,8 @@ KERNEL_NAMES = ('warp_chol_kernel', 'blocked_solve_kernel',
                 'blocked_inverse_kernel', 'interior_sweep_kernel',
                 'jacobi_sweep_kernel', 'floor_sweep_kernel',
                 'floor_warp_kernel', 'theta_tests_kernel',
-                'stacked_sweep_kernel', 'stacked_resmax_kernel')
+                'stacked_sweep_kernel', 'stacked_resmax_kernel',
+                'exact_gram_kernel', 'exact_gram_reduce_kernel')
 
 
 def ptxas_summary(out):
@@ -969,9 +985,10 @@ def phase_build():
     from admm_lstm_torch.kernels import build
     t0 = time.perf_counter()
     build.build_all(['gate_sweep', 'cholesky', 'theta_tests',
-                     'stacked_sweep'])
-    log(f'[build] gate_sweep.cu, cholesky.cu, theta_tests.cu and '
-        f'stacked_sweep.cu built in {time.perf_counter() - t0:.2f} s')
+                     'stacked_sweep', 'exact_gram'])
+    log(f'[build] gate_sweep.cu, cholesky.cu, theta_tests.cu, '
+        f'stacked_sweep.cu and exact_gram.cu built in '
+        f'{time.perf_counter() - t0:.2f} s')
     summary = {}
     for name, out in build.build_logs.items():
         for line in out.strip().splitlines():
@@ -1441,18 +1458,131 @@ def stacked_sweep_row(shape, seed, flush, ptxas):
     return row
 
 
+def exact_gram_inputs(shape, seed):
+    """The Gram kernel's arguments at `shape` (S or None, T, K, D, B,
+    shared): m_inputs (a time-sliced view of a (T+1, D, B) slab, as the h
+    side's history; (T, D, B) when shared), pre, targets near act(pre)
+    and the tanh mask of K = 4H columns."""
+    from admm_lstm_torch.core.step import gate_is_tanh
+    cands, steps, cols, dim, batch, shared = shape
+    lead = () if cands is None else (cands,)
+    gen = torch.Generator().manual_seed(seed)
+    m_lead = () if shared else lead
+    m_inputs = _rand(gen, *m_lead, steps + 1, dim, batch,
+                     scale=0.5)[..., :-1, :, :]
+    pre = _rand(gen, *lead, steps, cols, batch)
+    tanh_cols = gate_is_tanh(cols, cols // 4, 'cuda')
+    act = torch.where(tanh_cols[:, None], torch.tanh(pre),
+                      torch.sigmoid(pre))
+    target = act + _rand(gen, *lead, steps, cols, batch, scale=0.05)
+    return m_inputs, pre, target, tanh_cols
+
+
+def exact_gram_bound(shape):
+    """The Gram kernel's bound.  Bytes: pre and the targets, the design
+    once, the Gram stack and first-order term written once.  Operations:
+    the symmetric half and bvec, D (D + 1) / 2 + D multiply-adds per
+    column and row."""
+    cands, steps, cols, dim, batch, shared = shape
+    s = cands or 1
+    rows = steps * batch
+    return bound(4 * (2 * s * cols * rows + (1 if shared else s) * dim * rows
+                      + s * cols * (dim * dim + dim)),
+                 2 * s * cols * rows * (dim * (dim + 1) // 2 + dim))
+
+
+def exact_gram_errors(got, want, m_inputs, pre, target, tanh_cols):
+    """(largest Gram error of its scale max |G_k|, largest first-order
+    error of its sum of magnitudes sum |act' r| |m|)."""
+    from admm_lstm_torch.kernels.exact_gram import activation_terms
+    gram_err = ((got[0] - want[0]).abs().amax((-2, -1))
+                / want[0].abs().amax((-2, -1)))
+    _, wres = activation_terms(pre, target, tanh_cols)
+    mag = torch.einsum('...tkb,...tdb->...kd', wres.abs(), m_inputs.abs())
+    bvec_err = (got[1] - want[1]).abs() / mag
+    return float(gram_err.max()), float(bvec_err.max())
+
+
+def exact_gram_truth(m_inputs, pre, target, tanh_cols):
+    """The Gram stack and first-order term summed in float64 ('wide' or
+    einsum, as the shape picks), as float32."""
+    from admm_lstm_torch.kernels.exact_gram import exact_gram_plain
+    out = exact_gram_plain(m_inputs.double(), pre.double(), target.double(),
+                           tanh_cols)
+    return tuple(t.float() for t in out)
+
+
+def exact_gram_row(shape, seed, flush, ptxas):
+    """The Gram kernel at `shape`: held to the float64 sums at
+    EXACT_GRAM_RTOL of each Gram's scale, to the plain version
+    ('highest') at EXACT_GRAM_PLAIN_RTOL, and bit-equal on a second
+    launch; with the candidate axis each candidate's launch alone
+    bit-equal to its slice of the batch; timed L2 flushed beside its
+    bound, the plain version and the Gram route alone on the plain
+    version's slabs (the yardstick: what the stage ran before)."""
+    from admm_lstm_torch.kernels import exact_gram as eg
+    from admm_lstm_torch.solvers import normal_eq as ne
+    args = exact_gram_inputs(shape, seed)
+    m_inputs, pre, target, tanh_cols = args
+    got, again = eg.exact_gram(*args), eg.exact_gram(*args)
+    gram_rel, bvec_rel = exact_gram_errors(got, exact_gram_truth(*args),
+                                           *args)
+    plain_rel = max(exact_gram_errors(got, eg.exact_gram_plain(*args),
+                                      *args))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    alone = True
+    if shape[0] is not None:
+        for s in range(shape[0]):
+            one = eg.exact_gram(m_inputs if shape[-1] else m_inputs[s],
+                                pre[s], target[s], tanh_cols)
+            alone &= all(torch.equal(a, b[s]) for a, b in zip(one, got))
+    del got, again
+    s2, wres = eg.activation_terms(pre, target, tanh_cols)
+    cands, steps, cols, dim, batch, _ = shape
+    strategy = ne._gram_strategy(cols, dim, steps * batch)
+    plan = eg.gram_plan(cols, dim, steps, batch)
+    bound_ms, bound_by = exact_gram_bound(shape)
+    row = dict(shape=list(shape), max_rel_err=gram_rel,
+               bvec_max_rel_err=bvec_rel, plain_max_rel_err=plain_rel,
+               max_abs_err=None,
+               bit_equal_relaunch=same, alone_bit_equal=alone,
+               ms=cuda_ms(lambda: eg.exact_gram(*args), 10, flush),
+               plain_ms=cuda_ms(lambda: eg.exact_gram_plain(*args), 3, flush),
+               route=strategy,
+               library_ms=cuda_ms(lambda: ne._gram_bvec(
+                   s2, wres, m_inputs, 'highest', strategy=strategy), 3,
+                   flush),
+               bound_ms=bound_ms, bound_by=bound_by, plan=plan._asdict(),
+               instance='exact_gram_kernel')
+    row.update(ptxas.get('exact_gram_kernel', {}))
+    del s2, wres
+    log(f'[kernels] exact_gram {row}')
+    if not (gram_rel <= EXACT_GRAM_RTOL and bvec_rel <= EXACT_GRAM_RTOL
+            and plain_rel <= EXACT_GRAM_PLAIN_RTOL and same and alone):
+        raise AssertionError(f'exact_gram at {list(shape)}: Gram error '
+                             f'{gram_rel}, bvec error {bvec_rel} of their '
+                             f'scales from float64 (rtol {EXACT_GRAM_RTOL}), '
+                             f'{plain_rel} from the plain version (rtol '
+                             f'{EXACT_GRAM_PLAIN_RTOL}), bit-equal relaunch '
+                             f'{same}, alone {alone}')
+    return row
+
+
 def phase_kernels(flush, ptxas):
     from admm_lstm_torch.kernels import cholesky as ch
     from admm_lstm_torch.kernels import gate_sweep as gs
     rows = {k: [] for k in ('interior_sweep', 'interior_sweep[candidates]',
                             'jacobi_sweep', 'jacobi_sweep[candidates]',
                             'chol_solve', 'chol_inverse', 'theta_tests',
-                            'stacked_sweep')}
+                            'stacked_sweep', 'exact_gram')}
     for k, shape in enumerate(THETA_SHAPES):
         rows['theta_tests'].append(theta_row(shape, 110 + k, flush, ptxas))
     for k, shape in enumerate(STACKED_SWEEP_SHAPES):
         rows['stacked_sweep'].append(stacked_sweep_row(shape, 120 + k, flush,
                                                        ptxas))
+    for k, shape in enumerate(EXACT_GRAM_SHAPES):
+        rows['exact_gram'].append(exact_gram_row(shape, 130 + k, flush,
+                                                 ptxas))
     for k, shape in enumerate(SWEEP_SHAPES):
         steps, hidden, batch = shape
         args = sweep_inputs(*shape, seed=k)
@@ -1665,6 +1795,7 @@ def phase_floor(flush, ptxas):
 
 def _kernels():
     from admm_lstm_torch.kernels.cholesky import chol_inverse, chol_solve
+    from admm_lstm_torch.kernels.exact_gram import exact_gram
     from admm_lstm_torch.kernels.gate_sweep import (floor_sweep,
                                                     interior_sweep,
                                                     jacobi_sweep)
@@ -1673,7 +1804,7 @@ def _kernels():
     return dict(interior_sweep=interior_sweep, jacobi_sweep=jacobi_sweep,
                 chol_solve=chol_solve, chol_inverse=chol_inverse,
                 floor_sweep=floor_sweep, theta_tests=theta_tests,
-                stacked_sweep=stacked_sweep)
+                stacked_sweep=stacked_sweep, exact_gram=exact_gram)
 
 
 # The sweep kernels whose launches with the candidate axis are counted
@@ -1795,8 +1926,9 @@ def phase_path_a(tx, ty, vx, vy, ps, weights):
 
     cfg = ADMMConfig.auto(epochs=EPOCHS, hidden_size=10,
                           matmul_precision='highest')
-    res, train_l, val_l, _ = run_counted(
+    res, train_l, val_l, launches = run_counted(
         "Path A: auto() at 'highest'", run(cfg), EPOCHS)
+    need(launches, 'exact_gram', 2 * EPOCHS, "Path A auto() at 'highest'")
     log('[train] auto highest val trajectory '
         + json.dumps([float(v) for v in val_l]))
     np.testing.assert_allclose(train_l, AUTO_TRAIN, rtol=0.05, atol=1e-4)
@@ -1809,9 +1941,13 @@ def phase_path_a(tx, ty, vx, vy, ps, weights):
     log('[train] auto highest: rho equal to the JAX package after every '
         'epoch')
 
-    _, _, val_l, _ = run_counted("Path A: auto() at 'default'",
-                                 run(ADMMConfig.auto(epochs=EPOCHS,
-                                                     hidden_size=10)), EPOCHS)
+    _, _, val_l, launches = run_counted(
+        "Path A: auto() at 'default'",
+        run(ADMMConfig.auto(epochs=EPOCHS, hidden_size=10)), EPOCHS)
+    if launches['exact_gram']:
+        raise AssertionError(f"Path A auto() at 'default' launched the Gram "
+                             f"kernel {launches['exact_gram']} times (its "
+                             f"bf16 Gram takes the plain routes)")
     if not val_l[-1] <= AUTO_VAL_30 * 1.05:
         raise AssertionError(f'auto() val30 {val_l[-1]} above the JAX '
                              f'package {AUTO_VAL_30} x 1.05')
@@ -2099,13 +2235,14 @@ def _counting_groups(tune):
     return groups, lambda: setattr(tune, '_run_in_groups', real)
 
 
-def _tune_launch_gate(label, launches, epochs, groups, n):
+def _tune_launch_gate(label, launches, epochs, groups, n, grams):
     """The auto() search's launches: one jacobi_sweep an epoch, all with
-    the axis, two chol_solve (the exact x and h stages), no Gauss-Seidel
-    sweep, one group of all n candidates (no out-of-memory halving)."""
+    the axis, two chol_solve (the exact x and h stages), `grams`
+    exact_gram (the same stages at 'highest'), no Gauss-Seidel sweep, one
+    group of all n candidates (no out-of-memory halving)."""
     want = {'jacobi_sweep': epochs, 'jacobi_sweep[candidates]': epochs,
             'chol_solve': 2 * epochs, 'interior_sweep': 0,
-            'chol_inverse': 0}
+            'chol_inverse': 0, 'exact_gram': grams}
     got = {k: launches[k] for k in want}
     if got != want or groups != [(0, n)]:
         raise AssertionError(f'{label}: launches {got} (expected {want}), '
@@ -2157,7 +2294,8 @@ def phase_tune_auto(tx, ty, vx, vy, ps, weights, card):
             + json.dumps([float(v) for v in np.abs(got - ref) / ref])
             + '; val losses in grid order '
             + json.dumps([float(v) for v in got]))
-        _tune_launch_gate('auto() search_rho', launches, EPOCHS, groups, n)
+        _tune_launch_gate('auto() search_rho', launches, EPOCHS, groups, n,
+                          0)
         # TF32 moves adaptive rho's discrete choices, so the JAX package's
         # numbers hold at 'highest' below; here, as for auto() at
         # 'default' in Path A, every candidate is finite and the winner
@@ -2188,7 +2326,7 @@ def phase_tune_auto(tx, ty, vx, vy, ps, weights, card):
         finally:
             tune.admm_step_im = real_step
         _tune_launch_gate('auto() search_rho at highest', high_launches,
-                          EPOCHS, groups, n)
+                          EPOCHS, groups, n, 2 * EPOCHS)
         jax_gap = float(np.max(np.abs(res_h['val_losses'] - ref) / ref))
         log(f'[tune] auto() search_rho at \'highest\': best rho '
             f'{res_h["best_rho"]} (JAX package: {AUTO_TUNE_BEST_RHO}); '
@@ -2323,20 +2461,24 @@ def phase_resume():
 
 def _stacked_epoch_vs_plain(tx, ty, ps, params):
     """One (8, 8) epoch with the kernels (use_pallas_chol True, the
-    stacked sweep kernel) against one with their plain versions
-    (use_pallas_chol False, the epoch's choice of the sweep patched to
-    the loop) at 'highest': each leaf within STACKED_RTOL of its scale
-    (max |x|; for a dual, max |lambda| + rho max |its primal|)."""
+    stacked sweep and Gram kernels) against one with their plain versions
+    (use_pallas_chol False, the epoch's choices of the sweep and of the
+    Gram patched to the loop and the plain routes) at 'highest': each
+    leaf within STACKED_RTOL of its scale (max |x|; for a dual, max
+    |lambda| + rho max |its primal|)."""
+    from admm_lstm_torch.solvers import normal_eq
     from admm_lstm_torch.utils.config import ADMMConfig
     from admm_lstm_torch.utils.device import matmul_precision
     from admm_lstm_torch.variants import stacked
     x, y = torch.from_numpy(tx).cuda(), torch.from_numpy(ty).cuda()
     states = {}
     use_kernel = stacked.use_stacked_kernel
+    use_gram = normal_eq.use_gram_kernel
     for flag in (True, False):
         cfg = ADMMConfig(hidden_size=8, use_pallas_chol=flag)
         stacked.use_stacked_kernel = use_kernel if flag else (
             lambda *a: False)
+        normal_eq.use_gram_kernel = use_gram if flag else (lambda *a: False)
         try:
             with matmul_precision('highest'):
                 st = stacked.init_stacked_state(params, x, ps, cfg)
@@ -2344,6 +2486,7 @@ def _stacked_epoch_vs_plain(tx, ty, ps, params):
                 torch.cuda.synchronize()
         finally:
             stacked.use_stacked_kernel = use_kernel
+            normal_eq.use_gram_kernel = use_gram
     got, ref = states[True], states[False]
     amax = lambda t: float(t.abs().max())
     leaves = [('head wy', got.params.wy, ref.params.wy, amax(ref.params.wy))]
@@ -2378,14 +2521,14 @@ def _stacked_epoch_vs_plain(tx, ty, ps, params):
 
 
 def _stacked_launches(label, launches, epochs, layers=2):
-    """A stacked run's launches: two chol_solve a stacked epoch (layer 0's
-    exact x and h sides; with the candidate axis each one call for every
-    candidate's systems), one stacked_sweep (the sweep over t and the
-    layers, every candidate in one launch) with one chol_inverse before it
-    for each layer below the top (the coupled h solve's M^-1) and no other
-    kernel."""
-    want = {'chol_solve': 2 * epochs, 'stacked_sweep': epochs,
-            'chol_inverse': (layers - 1) * epochs}
+    """A stacked run's launches: two exact_gram and two chol_solve a
+    stacked epoch (layer 0's exact x and h sides; with the candidate axis
+    each one call for every candidate's), one stacked_sweep (the sweep
+    over t and the layers, every candidate in one launch) with one
+    chol_inverse before it for each layer below the top (the coupled h
+    solve's M^-1) and no other kernel."""
+    want = {'exact_gram': 2 * epochs, 'chol_solve': 2 * epochs,
+            'stacked_sweep': epochs, 'chol_inverse': (layers - 1) * epochs}
     got = {k: v for k, v in launches.items() if k in want or v}
     if got != want:
         raise AssertionError(f'{label}: launches {got}, expected {want}')
@@ -2843,7 +2986,7 @@ def phase_legacy(tx, ty, vx, vy, ps, weights):
                     'chol_inverse': 0, 'floor_sweep': 0,
                     'theta_tests': max(launches['theta_tests'], 2 * n),
                     'stacked_sweep': 0, 'interior_sweep[candidates]': 0,
-                    'jacobi_sweep[candidates]': 0}:
+                    'jacobi_sweep[candidates]': 0, 'exact_gram': 0}:
         raise AssertionError(f'run_comparison launches {launches}')
 
     # 6. One epoch of each variant on the card against the CPU.
@@ -2936,9 +3079,10 @@ def _loose_folds():
 def _scenario_turbo(card):
     """train_scenarios on the yahoo_scenarios_loose folds under turbo()
     (no_dual_y, wy_lipschitz, 'highest'), SCEN_TURBO_EPOCHS epochs, one
-    batched program: one jacobi_sweep launch and two chol_solve an epoch
-    for the four, each scenario's losses finite and within SCEN_TURBO_RTOL
-    of its api.train run alone.  Returns the batched run's launches."""
+    batched program: one jacobi_sweep launch and two exact_gram and two
+    chol_solve an epoch for the four, each scenario's losses finite and
+    within SCEN_TURBO_RTOL of its api.train run alone.  Returns the
+    batched run's launches."""
     from admm_lstm_torch import api
     from admm_lstm_torch.models.lstm import LSTMParams
     from admm_lstm_torch.utils.config import ADMMConfig
@@ -2973,7 +3117,8 @@ def _scenario_turbo(card):
         f'alone {max(gaps):.3g} (held at {SCEN_TURBO_RTOL}); launches '
         f'{launches}')
     want = {'jacobi_sweep': epochs, 'jacobi_sweep[candidates]': epochs,
-            'chol_solve': 2 * epochs, 'interior_sweep': 0}
+            'chol_solve': 2 * epochs, 'exact_gram': 2 * epochs,
+            'interior_sweep': 0}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f'turbo() scenarios: launches {launches}, '
                              f'expected {want}')
@@ -3173,7 +3318,7 @@ def phase_scenarios(card):
                                        2 * SCEN_EPOCHS),
                     'stacked_sweep': 0,
                     'interior_sweep[candidates]': SCEN_EPOCHS,
-                    'jacobi_sweep[candidates]': 0}:
+                    'jacobi_sweep[candidates]': 0, 'exact_gram': 0}:
         raise AssertionError(f'scenarios: launches {launches}')
     report = _hold_scenarios(train, val)
     # The control: the same batched program with TF32 matmuls allowed must
@@ -3661,6 +3806,11 @@ def main() -> int:
         # path (one an epoch, the bounds' passes inside the same call).
         'stacked_sweep': ('admm_lstm_torch/csrc/stacked_sweep.cu', None,
                           launches['stacked']),
+        # Replaces no TPU kernel: the exact stage's Gram stack and
+        # first-order term, XLA's dot_general in the JAX package; its
+        # launches on the stacked 27 x 30 search's path (two an epoch).
+        'exact_gram': ('admm_lstm_torch/csrc/exact_gram.cu', None,
+                       launches['stacked_search']),
     }
     kernels = []
     for name, (source, replaces, counts) in meta.items():
@@ -3680,7 +3830,8 @@ def main() -> int:
                     'onplan_ms', 'onplan_ms_per_step', 'instance',
                     'alone_ms', 'alone_max_abs_err', 'alone_bit_equal',
                     'alone_plan', 'max_rel_err', 'bit_equal_relaunch',
-                    'resmax_ms'):
+                    'resmax_ms', 'bvec_max_rel_err', 'plain_max_rel_err',
+                    'route'):
             if key in main_row:
                 kernels[-1][key] = main_row[key]
         if name in ill:

@@ -1077,3 +1077,111 @@ def test_torch_cuda_stacked_resmax_bit_equal(cuda, cands):
     got = out.view(torch.float32).reshape(want.shape)
     assert torch.equal(got[..., 1:], want[..., 1:])
     assert not got[..., 0].any()
+
+
+# The exact stage's Gram kernel: small ragged shapes (a K with both tanh
+# and sigmoid columns, D 1 to 80, B not a multiple of the 32-b chunk,
+# shared designs and one per candidate), then chip_smoke's rows: the
+# stacked cell's h and x sides and the one-layer auto() stage's.
+EXACT_GRAM_CASES = [(3, 5, 12, 5, 37, False), (2, 7, 8, 8, 64, True),
+                    (None, 3, 20, 1, 5, True), (2, 4, 16, 80, 45, False),
+                    (None, 2, 4, 33, 130, False)] + chip_smoke.EXACT_GRAM_SHAPES
+
+
+@pytest.mark.parametrize('shape', EXACT_GRAM_CASES)
+def test_torch_cuda_exact_gram_matches_plain(cuda, shape):
+    """The kernel's Gram stack within EXACT_GRAM_RTOL (1e-5) of each
+    Gram's scale max |G_k| of the float64 sums, and its first-order term
+    of its sum of magnitudes; both within EXACT_GRAM_PLAIN_RTOL (5e-5) of
+    the plain version's at 'highest', whose cuBLAS FP32 sums over T * B
+    rows are themselves 2.2e-5 from float64 at the stacked h side; one
+    launch each."""
+    from admm_lstm_torch.kernels.exact_gram import (exact_gram,
+                                                    exact_gram_plain)
+    args = chip_smoke.exact_gram_inputs(shape, 12)
+    before = exact_gram.launches
+    got = exact_gram(*args)
+    assert exact_gram.launches == before + 1
+    want = exact_gram_plain(*args)
+    assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
+    assert torch.equal(got[0], got[0].mT)
+    truth = chip_smoke.exact_gram_truth(*args)
+    gram_rel, bvec_rel = chip_smoke.exact_gram_errors(got, truth, *args)
+    assert gram_rel <= chip_smoke.EXACT_GRAM_RTOL
+    assert bvec_rel <= chip_smoke.EXACT_GRAM_RTOL
+    assert (max(chip_smoke.exact_gram_errors(got, want, *args))
+            <= chip_smoke.EXACT_GRAM_PLAIN_RTOL)
+
+
+@pytest.mark.parametrize('shape', [EXACT_GRAM_CASES[0], EXACT_GRAM_CASES[1],
+                                   chip_smoke.EXACT_GRAM_SHAPES[0]])
+def test_torch_cuda_exact_gram_batched_is_each_alone(cuda, shape):
+    """A batched launch gives each candidate the bits of its launch alone
+    (the plan and every sum's order depend on one candidate's shape), and
+    a relaunch the same bits."""
+    from admm_lstm_torch.kernels.exact_gram import exact_gram
+    m_inputs, pre, target, tanh_cols = chip_smoke.exact_gram_inputs(shape,
+                                                                    13)
+    got = exact_gram(m_inputs, pre, target, tanh_cols)
+    again = exact_gram(m_inputs, pre, target, tanh_cols)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for s in range(shape[0]):
+        one = exact_gram(m_inputs if shape[-1] else m_inputs[s], pre[s],
+                         target[s], tanh_cols)
+        assert all(torch.equal(a, b[s]) for a, b in zip(one, got))
+
+
+def test_torch_cuda_exact_gram_refuses(cuda):
+    """What the kernel does not take raises: b not contiguous, float64, an
+    integer mask, a design wider than MAX_DIM, two devices, mismatched
+    slabs."""
+    from admm_lstm_torch.kernels.exact_gram import MAX_DIM, exact_gram
+    m_inputs, pre, target, tanh_cols = chip_smoke.exact_gram_inputs(
+        (2, 5, 12, 5, 37, False), 14)
+    with pytest.raises(ValueError, match='b contiguous'):
+        exact_gram(m_inputs, pre.transpose(-1, -2).contiguous()
+                   .transpose(-1, -2), target, tanh_cols)
+    with pytest.raises(ValueError, match='b contiguous'):
+        exact_gram(m_inputs.transpose(-1, -2).contiguous().transpose(-1, -2),
+                   pre, target, tanh_cols)
+    with pytest.raises(TypeError):
+        exact_gram(m_inputs, pre.double(), target, tanh_cols)
+    with pytest.raises(TypeError):
+        exact_gram(m_inputs, pre, target, tanh_cols.int())
+    wide = torch.zeros(pre.shape[:-2] + (MAX_DIM + 1, pre.shape[-1]),
+                       device=cuda)
+    with pytest.raises(ValueError, match='designs of 1 to'):
+        exact_gram(wide, pre, target, tanh_cols)
+    with pytest.raises(ValueError, match='one device'):
+        exact_gram(m_inputs, pre, target.cpu(), tanh_cols)
+    with pytest.raises(ValueError, match='one'):
+        exact_gram(m_inputs, pre, target[:, 1:], tanh_cols)
+
+
+@pytest.mark.parametrize('precision', ['highest', 'default'])
+def test_torch_cuda_exact_stage_takes_the_kernel_at_highest(cuda, precision):
+    """gauss_newton_ridge_update_wide launches the kernel once on CUDA at
+    'highest' (a permuted pre, as torch.einsum may return it, too) and
+    never at 'default', and its weights stay within the plain routes' at
+    1e-5 of their scale."""
+    from admm_lstm_torch.kernels import exact_gram as eg
+    from admm_lstm_torch.solvers import normal_eq as ne
+    m_inputs, pre, target, tanh_cols = chip_smoke.exact_gram_inputs(
+        (3, 6, 16, 8, 100, False), 15)
+    gen = torch.Generator().manual_seed(16)
+    w = (torch.randn((3, 8, 16), generator=gen) * 0.3).to(cuda)
+    rho = torch.rand((3, 4), generator=gen).to(cuda) + 0.5
+    beta = torch.full((3, 4), 1e-3, device=cuda)
+    pre = pre.transpose(-1, -2).contiguous().transpose(-1, -2)
+    before = eg.exact_gram.launches
+    got = ne.gauss_newton_ridge_update_wide(m_inputs, pre, w, target, rho,
+                                            beta, tanh_cols, precision)
+    assert eg.exact_gram.launches == before + (precision == 'highest')
+    plain = lambda *a, **k: eg.exact_gram_plain(*a[:4])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ne, 'exact_gram', plain)
+        want = ne.gauss_newton_ridge_update_wide(m_inputs, pre, w, target,
+                                                 rho, beta, tanh_cols,
+                                                 precision)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))

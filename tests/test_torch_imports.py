@@ -50,6 +50,7 @@ def test_torch_port_sources_exist():
 @pytest.mark.parametrize('module', ['kernels/cholesky.py',
                                     'kernels/gate_sweep.py',
                                     'kernels/theta_tests.py',
+                                    'kernels/exact_gram.py',
                                     'solvers/blocked_chol.py',
                                     'solvers/normal_eq.py',
                                     'variants/stacked.py',
